@@ -1,0 +1,25 @@
+"""Architecture registry: the configs the port can run so far (one module
+per architecture, mirroring ``repro.configs``)."""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = [
+    "stablelm_3b",
+]
+
+_ALIAS = {a.replace("_", "-"): a for a in ARCHS}
+
+
+def get_config(name: str, **overrides):
+    mod_name = _ALIAS.get(name, name).replace("-", "_")
+    if mod_name not in ARCHS:
+        raise ValueError(f"arch {name!r} is not ported yet; ported: {ARCHS}")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    cfg = mod.config()
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def all_arch_names():
+    return list(ARCHS)

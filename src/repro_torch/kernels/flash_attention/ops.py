@@ -1,0 +1,103 @@
+"""Public flash-attention op: argument defaults, the page-table clamp, and the
+route to the hand-written kernel or the plain version.
+
+Routing: a CUDA tensor goes to the CUDA kernel (which launches or raises —
+nothing falls back), a CPU tensor to the plain PyTorch version in ``ref``.
+``impl="naive"`` always takes the plain version (tests and the on-card
+comparison); ``"kernel"`` and ``"xla"`` (the config default, kept so config
+files read as in the JAX package) both route by device.  The CUDA kernels
+mask their own ragged edges, so nothing is padded to block sizes here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import paging as _paging
+
+from . import kernel as _kernel
+from . import ref as _ref
+
+NO_WINDOW = 2 ** 30
+IMPLS = ("kernel", "xla", "naive")
+
+
+def _defaults(b, sq, skv, kv_lens, q_offset, causal, device):
+    if kv_lens is None:
+        kv_lens = torch.full((b,), skv, dtype=torch.int32, device=device)
+    else:
+        kv_lens = torch.as_tensor(kv_lens, device=device).to(torch.int32)
+    if q_offset is None:
+        off = skv - sq if causal else 0       # suffix alignment under causal
+        q_offset = torch.full((b,), off, dtype=torch.int32, device=device)
+    else:
+        q_offset = torch.as_tensor(q_offset, device=device).to(
+            torch.int32).expand(b)
+    return kv_lens.contiguous(), q_offset.contiguous()
+
+
+def _window_vec(window, device):
+    w = NO_WINDOW if window is None else window
+    return torch.as_tensor(w, device=device).to(torch.int32).reshape(1)
+
+
+def _use_plain(q, impl):
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl == "naive" or not q.is_cuda
+
+
+def flash_attention(q, k, v, *, kv_lens=None, causal: bool = False,
+                    window=None, q_offset=None, scale: float | None = None,
+                    impl: str = "kernel", page_table=None):
+    """Predicated attention.  q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).
+
+    - ``kv_lens``: (B,) valid KV lengths (default Skv).
+    - ``causal`` / ``window``: mask predicates (window = sliding local size,
+      an int or 0-d tensor; None = no window).
+    - ``q_offset``: (B,) absolute position of the first query row; defaults
+      to Skv - Sq under ``causal`` (suffix alignment), else 0.
+    - ``page_table``: (B, n_pages) int32 — PAGED mode: ``k``/``v`` are page
+      pools (P, Hkv, page_size, D) read through the table.
+    """
+    if page_table is not None:
+        return _flash_paged(q, k, v, page_table, kv_lens=kv_lens,
+                            causal=causal, window=window, q_offset=q_offset,
+                            scale=scale, impl=impl)
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    kv_lens, q_offset = _defaults(b, sq, skv, kv_lens, q_offset, causal,
+                                  q.device)
+    if _use_plain(q, impl):
+        return _ref.mha_ref(q, k, v, kv_lens=kv_lens, causal=causal,
+                            window=window, q_offset=q_offset, scale=scale)
+    return _kernel.flash_dense_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), kv_lens, q_offset,
+        _window_vec(window, q.device), causal=causal,
+        scale=float(d ** -0.5) if scale is None else float(scale))
+
+
+def _flash_paged(q, k_pool, v_pool, page_table, *, kv_lens, causal, window,
+                 q_offset, scale, impl):
+    """Paged dispatch: pools + page table instead of dense K/V."""
+    b, hq, sq, d = q.shape
+    ps = k_pool.shape[2]
+    n_pages = page_table.shape[1]
+    skv = n_pages * ps                               # logical KV extent
+    kv_lens, q_offset = _defaults(b, sq, skv, kv_lens, q_offset, causal,
+                                  q.device)
+    # out-of-strip entries may be stale (freed and reallocated ids): clamp
+    # them to page 0 before anything follows the table; the element
+    # predicate masks their keys regardless
+    page_table = torch.where(_paging.page_whilelt(kv_lens, n_pages, ps),
+                             page_table.to(torch.int32), 0)
+    if _use_plain(q, impl):
+        k = _paging.gather_pages(k_pool, page_table)
+        v = _paging.gather_pages(v_pool, page_table)
+        return _ref.mha_ref(q, k, v, kv_lens=kv_lens, causal=causal,
+                            window=window, q_offset=q_offset, scale=scale)
+    return _kernel.flash_paged_cuda(
+        q.contiguous(), k_pool.contiguous(), v_pool.contiguous(),
+        page_table.contiguous(), kv_lens, q_offset,
+        _window_vec(window, q.device), causal=causal,
+        scale=float(d ** -0.5) if scale is None else float(scale))

@@ -1,0 +1,103 @@
+"""Serving launcher of the port: bring up a ServeEngine for an arch and run
+one static batch through ``ServeEngine.generate`` (greedy).
+
+    python -m repro_torch.launch.serve --arch stablelm_3b --static
+    python -m repro_torch.launch.serve --arch stablelm_3b --static --no-reduce
+
+Dims are reduced by default, as in ``repro.launch.serve``; ``--no-reduce``
+runs the published widths.  The continuous-batching scheduler (the JAX
+launcher's default mode), ``--mesh`` and ``--page-dtype`` are not ported
+yet and exit naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.configs import all_arch_names, get_config
+from repro_torch.core.device import resolve_device
+from repro_torch.models import get_model
+from repro_torch.serve import ServeEngine
+
+# the reduced dims of repro.launch.train (training is not ported)
+REDUCE = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=256, n_heads=4,
+              n_kv_heads=2, head_dim=16, n_cross_tokens=16,
+              param_dtype="float32", compute_dtype="float32")
+
+# the JAX launcher's archs that the port cannot serve yet -> ROADMAP item
+PENDING_ARCHS = {
+    "llama_3_2_vision_11b": "Queue 1 item 12 (dense VLM branch)",
+    "olmoe_1b_7b": "Queue 1 item 10 (moe)",
+    "moonshot_v1_16b_a3b": "Queue 1 item 10 (moe)",
+    "command_r_plus_104b": "a config module (dense family, not ported yet)",
+    "stablelm_12b": "a config module (dense family, not ported yet)",
+    "gemma3_27b": "a config module (dense family, not ported yet)",
+    "zamba2_1_2b": "Queue 1 item 11 (hybrid)",
+    "mamba2_130m": "Queue 1 item 11 (ssm)",
+    "seamless_m4t_large_v2": "Queue 1 item 12 (encdec)",
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm_3b")
+    ap.add_argument("--reduce", action=argparse.BooleanOptionalAction,
+                    default=True, help="shrink dims (default); --no-reduce "
+                    "runs the published widths")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per KV page: decode reads a paged cache")
+    ap.add_argument("--paged-attn", choices=["native", "gather"],
+                    default="native")
+    ap.add_argument("--static", action="store_true",
+                    help="one-shot ServeEngine.generate (the only mode so far)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' to opt out)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--page-dtype", choices=["int8", "fp8"], default=None)
+    ap.add_argument("--temperature", type=float, default=None)
+    args = ap.parse_args(argv)
+
+    if args.arch in PENDING_ARCHS:
+        sys.exit(f"arch {args.arch} is not ported yet: ROADMAP "
+                 f"{PENDING_ARCHS[args.arch]}")
+    if args.arch not in all_arch_names():
+        ap.error(f"unknown arch {args.arch!r}")
+    if not args.static:
+        sys.exit("the continuous-batching scheduler is not ported yet "
+                 "(ROADMAP Queue 1 item 7); run with --static")
+    if args.mesh is not None:
+        sys.exit("mesh-sharded serving is not ported yet (ROADMAP Queue 1 item 14)")
+    if args.page_dtype is not None:
+        sys.exit("quantized KV pages are not ported yet (ROADMAP Queue 1 item 9)")
+    if args.temperature is not None:
+        sys.exit("stochastic sampling is not ported yet (ROADMAP Queue 1 item 5)")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduce:
+        cfg = cfg.replace(**REDUCE)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = get_model(cfg).init(cfg, gen, device)
+    rng = np.random.RandomState(args.seed)
+    batch = {"tokens": rng.randint(1, cfg.vocab_size,
+                                   (args.batch, args.prompt_len)),
+             "lens": rng.randint(4, args.prompt_len + 1, args.batch)}
+    eng = ServeEngine(cfg, params, max_new_tokens=args.max_new, stop_token=7,
+                      paged_attn=args.paged_attn, device=device)
+    res = eng.generate(batch, page_size=args.page_size)
+    for i in range(args.batch):
+        n = int(res["n_generated"][i])
+        print(f"req{i} len={int(batch['lens'][i]):2d} -> "
+              f"{res['tokens'][i, :n].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

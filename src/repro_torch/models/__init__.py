@@ -1,0 +1,180 @@
+"""Model zoo of the port (the dense family so far) and the cache lane and
+paged-layout interface of ``repro.models``.
+
+A decode cache is a dict of tensors, each with ONE request-lane axis
+declared by the family's ``cache_batch_axes(cfg)``.  A paged cache replaces
+each KV tensor's per-lane token axis with a shared page POOL
+(``<key>_pages``: lead + (P, Hkv, page_size, D)) plus one per-lane int32
+``page_table`` (B, n_pages).  The lane movers below return new tensors;
+``paged_writeback`` writes the pools in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import paging as PG
+
+from .config import ModelConfig  # noqa: F401
+
+# families still to port -> the ROADMAP item that ports them
+_PENDING = {"moe": "Queue 1 item 10", "ssm": "Queue 1 item 11",
+            "hybrid": "Queue 1 item 11", "encdec": "Queue 1 item 12"}
+
+
+def get_model(cfg: "ModelConfig"):
+    """Return the module implementing cfg.family's model API:
+    init(cfg, generator, device) -> DenseLM; prefill(model, cfg, batch,
+    cache) -> (logits_last, cache); decode(model, cfg, batch, cache) ->
+    (logits, cache); make_cache / make_paged_cache / cache_batch_axes /
+    paged_cache_spec."""
+    if cfg.family == "dense":
+        from . import dense
+        return dense
+    item = _PENDING.get(cfg.family)
+    if item is None:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (ROADMAP {item})")
+
+
+def _lane_axes(cfg, cache):
+    """Lane axis per cache key, paged-layout aware: page pools carry NO lane
+    axis, the page table's lane axis is 0."""
+    axes = get_model(cfg).cache_batch_axes(cfg)
+    if "page_table" not in cache:
+        return axes
+    out = {k: ax for k, ax in axes.items() if k in cache}
+    out["page_table"] = 0
+    return out
+
+
+def gather_lanes(cfg, cache, lanes):
+    """Out lane i takes the state of input lane ``lanes[i]``.  On a paged
+    cache the pools pass through untouched: moving a lane moves its
+    page-table row, never its pages."""
+    axes = _lane_axes(cfg, cache)
+    lanes = torch.as_tensor(lanes).to(torch.int64)
+    return {k: (torch.index_select(v, axes[k], lanes.to(v.device))
+                if k in axes else v) for k, v in cache.items()}
+
+
+def slot_update(cfg, cache, lanes, sub_cache):
+    """Write ``sub_cache`` (lane count ``len(lanes)``) into ``cache`` at lane
+    indices ``lanes`` along each tensor's lane axis; returns a new dict of new
+    tensors.  Keys without a lane axis (pools) and keys missing from
+    ``sub_cache`` pass through."""
+    axes = _lane_axes(cfg, cache)
+    lanes = torch.as_tensor(lanes).to(torch.int64)
+    out = dict(cache)
+    for k, v in cache.items():
+        if k not in axes or k not in sub_cache:
+            continue
+        out[k] = v.index_copy(axes[k], lanes.to(v.device),
+                              sub_cache[k].to(v.dtype))
+    return out
+
+
+def merge_lanes(cfg, cache, lanes, sub_cache):
+    """Write a narrowed decode burst's ``sub_cache`` back: lane-axis tensors
+    splice at ``lanes`` (slot_update); tensors WITHOUT a lane axis — the
+    shared page pools — are taken from ``sub_cache`` wholesale."""
+    axes = _lane_axes(cfg, cache)
+    out = slot_update(cfg, cache, lanes, sub_cache)
+    for k, v in sub_cache.items():
+        if k in out and k not in axes:
+            out[k] = v
+    return out
+
+
+def is_paged(cache) -> bool:
+    return isinstance(cache, dict) and "page_table" in cache
+
+
+def paged_decode_ok(cfg) -> bool:
+    """True when cfg's family decode() consumes a paged cache natively."""
+    fn = getattr(get_model(cfg), "paged_decode_ok", None)
+    return bool(fn and fn(cfg))
+
+
+def to_paged(cfg, cache, *, page_size: int, pool_pages=None):
+    """Convert a DENSE cache to the paged layout with identity page tables
+    (lane b's logical block j lives in physical page ``b * n_pages + j``).
+    Token axes are zero-padded up to a page multiple.  Gathering the result
+    through ``paged_view`` reproduces the dense cache exactly."""
+    spec = get_model(cfg).paged_cache_spec(cfg)
+    key0, lead0 = next(iter(spec.items()))
+    b = cache[key0].shape[len(lead0)]
+    max_len = cache[key0].shape[len(lead0) + 2]
+    n_pages = PG.pages_needed(max_len, page_size)
+    need = b * n_pages
+    pool_pages = need if pool_pages is None else pool_pages
+    if pool_pages < need:
+        raise ValueError(f"pool_pages={pool_pages} < {need} needed for the "
+                         f"identity layout ({b} lanes x {n_pages} pages)")
+    out = {k: v for k, v in cache.items() if k not in spec}
+    for key, lead in spec.items():
+        nl = len(lead)
+        v = cache[key]                               # lead+(B,Hkv,S,D)
+        hkv, s, d = v.shape[nl + 1:]
+        pool = torch.zeros(lead + (pool_pages, hkv, page_size, d),
+                           dtype=v.dtype, device=v.device)
+        # page-by-page copy: never holds a second padded copy of the cache
+        blocks = pool.narrow(nl, 0, need).view(
+            lead + (b, n_pages, hkv, page_size, d))
+        for j in range(n_pages):
+            lo, hi = j * page_size, min((j + 1) * page_size, s)
+            if lo < hi:
+                blocks.select(nl + 1, j).narrow(nl + 2, 0, hi - lo).copy_(
+                    v.narrow(nl + 2, lo, hi - lo))
+        out[key + "_pages"] = pool
+    dev = cache[key0].device
+    out["page_table"] = (
+        torch.arange(b, dtype=torch.int32, device=dev)[:, None] * n_pages
+        + torch.arange(n_pages, dtype=torch.int32, device=dev)[None, :])
+    return out
+
+
+def paged_view(cfg, cache):
+    """Materialize the dense logical view of a paged cache through the page
+    table.  Non-paged per-lane entries pass through."""
+    spec = get_model(cfg).paged_cache_spec(cfg)
+    table = cache["page_table"]
+    out = {k: v for k, v in cache.items()
+           if k != "page_table" and not k.endswith("_pages")}
+    for key, lead in spec.items():
+        out[key] = PG.gather_pages(cache[key + "_pages"], table,
+                                   n_lead=len(lead))
+    return out
+
+
+def paged_writeback(cfg, cache, view, pos):
+    """Scatter the ONE token a decode step wrote at per-lane position ``pos``
+    from the dense ``view`` back into the page pools (IN PLACE), and carry
+    the view's other per-lane state (pos, ...) across."""
+    spec = get_model(cfg).paged_cache_spec(cfg)
+    table = cache["page_table"]
+    n_pages = table.shape[1]
+    ps = _page_size_of(cfg, cache)
+    out = dict(cache)
+    pos = torch.as_tensor(pos).to(torch.int32)
+    page_col = (pos // ps).clamp(0, n_pages - 1)
+    page_ids = table.gather(1, page_col[:, None].long())[:, 0]
+    offsets = pos % ps
+    for key, lead in spec.items():
+        v = view[key]                                 # lead+(B,Hkv,S,D)
+        s = v.shape[-2]
+        idx = pos.clamp(0, s - 1).long().reshape((1,) * len(lead) + (-1, 1, 1, 1))
+        idx = idx.expand(v.shape[:-2] + (1, v.shape[-1]))
+        tok = v.gather(-2, idx)[..., 0, :]           # lead+(B,Hkv,D)
+        out[key + "_pages"] = PG.scatter_page(cache[key + "_pages"], page_ids,
+                                              offsets, tok, n_lead=len(lead))
+    for k, v in view.items():
+        if k not in spec:
+            out[k] = v
+    return out
+
+
+def _page_size_of(cfg, cache):
+    key, lead = next(iter(get_model(cfg).paged_cache_spec(cfg).items()))
+    return cache[key + "_pages"].shape[len(lead) + 2]

@@ -1,0 +1,330 @@
+"""Shared model building blocks: ``nn.Module``s that hold the weights and
+plain functions that apply them, mirroring ``repro.models.layers``.
+
+Conventions
+-----------
+* Matmul weights are ``(in, out)`` and used as ``x @ w``.  They and the
+  embedding table are held in ``cfg.compute_dtype``, cast once when the model
+  is built — the same values as JAX's per-call ``.astype(compute_dtype)`` of
+  its f32 master weights.  Norm parameters stay f32: ``apply_norm`` reads
+  them in f32.
+* Norms and rope run in f32; matmul inputs in the compute dtype.
+* Caches are updated IN PLACE (``scatter_`` / slice assignment) where the JAX
+  functions return fresh arrays; each function says so.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import paging as PG
+from repro_torch.kernels.flash_attention import flash_attention
+
+
+def cdt(cfg) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _normal_(p: torch.Tensor, scale: float, generator: torch.Generator):
+    """Fill ``p`` with N(0, scale^2) drawn in f32 (the scales of the JAX
+    ``_normal`` init; not its numbers)."""
+    p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=p.device) * scale)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    def __init__(self, cfg, d: int, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device),
+                                  requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(d, device=device),
+                                  requires_grad=False)
+                     if cfg.norm == "layernorm" else None)
+
+
+def apply_norm(p: Norm, x, cfg):
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p.scale.float() + p.bias.float()
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + cfg.norm_eps) * p.scale.float()
+    return out.to(x.dtype)
+
+
+def _rms_headdim(x, eps=1e-6):
+    """qk-norm: rmsnorm over the head dim (no learned scale)."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rope
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float, rotary_frac: float = 1.0):
+    """x: (B, H, S, Dh); positions: (B, S) int32.  Half-split convention,
+    rotating the first ``int(Dh * rotary_frac)`` (even) dims."""
+    dh = x.shape[-1]
+    rd = int(dh * rotary_frac)
+    rd -= rd % 2
+    if rd == 0:
+        return x
+    half = rd // 2
+    # a Python-scalar base: a device tensor made from it would be a blocking
+    # host-to-device copy on every call
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.float()[:, None, :, None] * freqs       # (B,1,S,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1 = x[..., :half].float()
+    x2 = x[..., half:rd].float()
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rot.to(x.dtype), x[..., rd:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    def __init__(self, cfg, device):
+        super().__init__()
+        v, d = cfg.padded_vocab, cfg.d_model
+        self.tok = _param((v, d), cdt(cfg), device)
+        self.unembed = (None if cfg.tie_embeddings
+                        else _param((d, v), cdt(cfg), device))
+
+    def reset(self, cfg, generator):
+        _normal_(self.tok, cfg.d_model ** -0.5, generator)
+        if self.unembed is not None:
+            _normal_(self.unembed, cfg.d_model ** -0.5, generator)
+
+
+def embed(p: Embed, ids, cfg):
+    x = torch.index_select(p.tok, 0, ids.reshape(-1)).reshape(
+        ids.shape + (cfg.d_model,)).to(cdt(cfg))
+    if cfg.embed_scale:
+        # a 0-d host tensor: rounded to the compute dtype as in JAX, and
+        # passed to the kernel as a scalar (no host-to-device copy)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt(cfg))
+    return x
+
+
+def unembed(p: Embed, x, cfg):
+    w = p.tok.t() if cfg.tie_embeddings else p.unembed
+    logits = x.to(cdt(cfg)) @ w
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = (torch.tanh(logits.float() / c) * c).to(cdt(cfg))
+    if cfg.padded_vocab != cfg.vocab_size:
+        # padded slots are dead: mask so samplers never pick them
+        lane = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = logits.masked_fill(lane >= cfg.vocab_size, -1e30)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# mlp
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg, device, d_ff=None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        dt = cdt(cfg)
+        self.w_gate = (_param((d, f), dt, device)
+                       if cfg.activation in ("swiglu", "geglu") else None)
+        self.w_up = _param((d, f), dt, device)
+        self.w_down = _param((f, d), dt, device)
+        self.b_up = _param((f,), dt, device) if cfg.use_bias else None
+        self.b_down = _param((d,), dt, device) if cfg.use_bias else None
+
+    def reset(self, cfg, generator):
+        d, f = self.w_up.shape
+        if self.w_gate is not None:
+            _normal_(self.w_gate, d ** -0.5, generator)
+        _normal_(self.w_up, d ** -0.5, generator)
+        _normal_(self.w_down, f ** -0.5, generator)
+        for b in (self.b_up, self.b_down):
+            if b is not None:
+                b.zero_()
+
+
+def mlp(p: MLP, x, cfg):
+    xc = x.to(cdt(cfg))
+    up = xc @ p.w_up
+    if cfg.use_bias:
+        up = up + p.b_up
+    if cfg.activation == "swiglu":
+        up = F.silu(xc @ p.w_gate) * up
+    elif cfg.activation == "geglu":
+        up = F.gelu(xc @ p.w_gate, approximate="tanh") * up
+    else:
+        up = F.gelu(up, approximate="tanh")
+    out = up @ p.w_down
+    if cfg.use_bias:
+        out = out + p.b_down
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (self, cached / uncached, local / global)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, cfg, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        qo, kvo = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        dt = cdt(cfg)
+        self.wq = _param((d, qo), dt, device)
+        self.wk = _param((d, kvo), dt, device)
+        self.wv = _param((d, kvo), dt, device)
+        self.wo = _param((qo, d), dt, device)
+        if cfg.use_bias:
+            self.bq = _param((qo,), dt, device)
+            self.bk = _param((kvo,), dt, device)
+            self.bv = _param((kvo,), dt, device)
+            self.bo = _param((d,), dt, device)
+
+    def reset(self, cfg, generator):
+        d, qo = self.wq.shape
+        for w in (self.wq, self.wk, self.wv):
+            _normal_(w, d ** -0.5, generator)
+        _normal_(self.wo, qo ** -0.5, generator)
+        if cfg.use_bias:
+            for b in (self.bq, self.bk, self.bv, self.bo):
+                b.zero_()
+
+
+def _split_heads(t, n_heads, hd):
+    b, s, _ = t.shape
+    return t.reshape(b, s, n_heads, hd).transpose(1, 2)
+
+
+def _merge_heads(t):
+    b, h, s, hd = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
+    """Write (B, Hkv, Snew, Dh) at per-row offsets ``pos`` (B,) into the
+    (B, Hkv, Smax, Dh) caches, IN PLACE.  Like JAX's dynamic_update_slice the
+    start clamps to [0, Smax - Snew], so a row whose position ran past the
+    end rewrites the cache's tail instead of raising."""
+    b, hkv, snew, dh = k_new.shape
+    start = pos.to(torch.int64).clamp(0, k_cache.shape[2] - snew)
+    idx = (start[:, None] + torch.arange(snew, device=pos.device)[None, :])
+    idx = idx[:, None, :, None].expand(b, hkv, snew, dh)
+    k_cache.scatter_(2, idx, k_new.to(k_cache.dtype))
+    v_cache.scatter_(2, idx, v_new.to(v_cache.dtype))
+    return k_cache, v_cache
+
+
+def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
+              kv_lens=None, q_offset=None, cache=None, cache_pos=None,
+              use_rope=True):
+    """Returns (out, new_cache_kv_or_None).
+
+    - ``cache``: dense ``(k_cache, v_cache)`` of shape (B, Hkv, Smax, Dh), or
+      the paged ``(k_pool, v_pool, page_table)`` of a decode step (Snew ==
+      1).  New K/V are written IN PLACE at ``cache_pos`` (B,) — into the
+      lane's row of the dense cache, or scatter-stored into its tail page —
+      and attention runs over the cache.
+    - ``window``: None | int | 0-d tensor (sliding window; 2**30 = global).
+    """
+    hd = cfg.resolved_head_dim
+    xc = x.to(cdt(cfg))
+    q, k, v = xc @ p.wq, xc @ p.wk, xc @ p.wv
+    if cfg.use_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, cfg.n_kv_heads, hd)
+    v = _split_heads(v, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q, k = _rms_headdim(q), _rms_headdim(k)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
+        k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
+
+    new_cache = None
+    page_table = None
+    if cache is not None:
+        if len(cache) == 3:
+            # paged: scatter-store the new token into the lane's tail page;
+            # attention reads K/V through the page table.  The page column
+            # clips as in JAX, so a position past the table reuses its last page
+            k_pool, v_pool, page_table = cache
+            ps = k_pool.shape[2]
+            page_col = (cache_pos // ps).clamp(0, page_table.shape[1] - 1)
+            page_ids = page_table.gather(1, page_col[:, None].long())[:, 0]
+            off = cache_pos % ps
+            PG.scatter_page(k_pool, page_ids, off, k[:, :, 0, :])
+            PG.scatter_page(v_pool, page_ids, off, v[:, :, 0, :])
+            k, v = k_pool.to(cdt(cfg)), v_pool.to(cdt(cfg))
+            new_cache = (k_pool, v_pool)
+        elif len(cache) == 2:
+            k_cache, v_cache = update_kv_cache(cache[0], cache[1], k, v,
+                                               cache_pos)
+            k, v = k_cache.to(cdt(cfg)), v_cache.to(cdt(cfg))
+            new_cache = (k_cache, v_cache)
+        else:
+            raise NotImplementedError(
+                "quantized (5-tuple) paged caches are not ported yet "
+                "(ROADMAP Queue 1 item 9)")
+
+    out = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal,
+                          window=window, q_offset=q_offset,
+                          impl=cfg.attn_impl, page_table=page_table)
+    out = _merge_heads(out).to(cdt(cfg)) @ p.wo
+    if cfg.use_bias:
+        out = out + p.bo
+    return out.to(x.dtype), new_cache
+
+
+# ---------------------------------------------------------------------------
+# transformer block (pre-norm / cohere-parallel), dense MLP
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    def __init__(self, cfg, device, d_ff=None):
+        super().__init__()
+        self.ln1 = Norm(cfg, cfg.d_model, device)
+        self.attn = Attention(cfg, device)
+        self.mlp = MLP(cfg, device, d_ff)
+        self.ln2 = None if cfg.parallel_block else Norm(cfg, cfg.d_model, device)
+
+    def reset(self, cfg, generator):
+        self.attn.reset(cfg, generator)
+        self.mlp.reset(cfg, generator)
+
+
+def block_apply(p: Block, x, positions, cfg, *, causal=True, window=None,
+                kv_lens=None, q_offset=None, cache=None, cache_pos=None,
+                use_rope=True):
+    h = apply_norm(p.ln1, x, cfg)
+    attn_out, new_cache = attention(
+        p.attn, h, positions, cfg, causal=causal, window=window,
+        kv_lens=kv_lens, q_offset=q_offset, cache=cache, cache_pos=cache_pos,
+        use_rope=use_rope)
+    if cfg.parallel_block:                      # cohere: one norm, two branches
+        out = x + attn_out + mlp(p.mlp, h, cfg)
+    else:
+        h2 = x + attn_out
+        out = h2 + mlp(p.mlp, apply_norm(p.ln2, h2, cfg), cfg)
+    return out, new_cache

@@ -1,0 +1,148 @@
+"""Port parity: ``repro_torch.serve.ServeEngine.generate`` (greedy, dense and
+paged KV) against the JAX engine with its Pallas kernels in interpret mode:
+identical tokens and ``n_generated``.  Inside the port, native paged decode
+equals the gather oracle and the dense cache.  Also the port's purity (no
+JAX, no ``repro``) and its device rule (the card unless asked otherwise)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+from torch_parity import models, np_
+
+from repro.serve import ServeEngine as JaxEngine
+from repro_torch.models import dense as tdense
+from repro_torch.serve import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+MAX_NEW = 6
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg_j, params, cfg_t, model = models()
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(1, cfg_j.vocab_size, (4, 9)),
+             "lens": np.array([9, 3, 6, 1], np.int32)}
+    # a stop token that lane 1 emits mid-run, so the predicated loop retires
+    # a lane early while the others keep decoding
+    probe = JaxEngine(cfg_j, params, max_new_tokens=MAX_NEW, stop_token=-999)
+    toks = np.asarray(probe.generate({k: jnp.asarray(v)
+                                      for k, v in batch.items()})["tokens"])
+    stop = int(toks[1, 2])
+    return cfg_j, params, cfg_t, model, batch, stop
+
+
+def _jax_generate(cfg, params, batch, stop, **kw):
+    eng = JaxEngine(cfg, params, max_new_tokens=MAX_NEW, stop_token=stop)
+    res = eng.generate({k: jnp.asarray(v) for k, v in batch.items()}, **kw)
+    return np_(res["tokens"]), np_(res["n_generated"])
+
+
+def _torch_generate(cfg, model, batch, stop, paged_attn="native", **kw):
+    eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=stop,
+                      paged_attn=paged_attn, device="cpu")
+    res = eng.generate(batch, **kw)
+    return np_(res["tokens"]), np_(res["n_generated"])
+
+
+@pytest.mark.parametrize("page_size", [None, 8])
+def test_generate_matches_jax(setup, page_size):
+    cfg_j, params, cfg_t, model, batch, stop = setup
+    tok_j, n_j = _jax_generate(cfg_j, params, batch, stop, page_size=page_size)
+    tok_t, n_t = _torch_generate(cfg_t, model, batch, stop, page_size=page_size)
+    np.testing.assert_array_equal(tok_t, tok_j)
+    np.testing.assert_array_equal(n_t, n_j)
+    assert n_t.min() < MAX_NEW <= n_t.max()        # one lane stopped early
+
+
+def test_native_paged_equals_gather_oracle_and_dense(setup):
+    _, _, cfg_t, model, batch, stop = setup
+    dense = _torch_generate(cfg_t, model, batch, stop)
+    native = _torch_generate(cfg_t, model, batch, stop, page_size=4)
+    oracle = _torch_generate(cfg_t, model, batch, stop, page_size=4,
+                             paged_attn="gather")
+    for got in (native, oracle):
+        np.testing.assert_array_equal(got[0], dense[0])
+        np.testing.assert_array_equal(got[1], dense[1])
+
+
+def test_stochastic_sampling_raises(setup):
+    _, _, cfg_t, model, batch, stop = setup
+    eng = ServeEngine(cfg_t, model, max_new_tokens=2, device="cpu")
+
+    class Stochastic:
+        greedy = False
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        eng.generate(batch, sampling=Stochastic())
+
+
+def test_default_device_is_the_gpu(setup):
+    """Without CUDA, the entry points refuse to run rather than fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device is valid")
+    _, _, cfg_t, model, _, _ = setup
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg_t, model, device=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdense.init(cfg_t)
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)"
+                        r"|from\s+repro\b(?!_))", re.M)
+
+
+def test_port_sources_import_no_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import importlib, pkgutil, sys, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_launcher_static_on_the_cpu(capsys):
+    """``launch.serve --static`` serves one reduced batch, dense and paged,
+    with the same tokens."""
+    from repro_torch.launch import serve
+    outs = []
+    for extra in ([], ["--page-size", "4"]):
+        serve.main(["--arch", "stablelm_3b", "--static", "--device", "cpu",
+                    "--batch", "2", "--max-new", "3"] + extra)
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0].count("req") == 2
+
+
+@pytest.mark.parametrize("argv,item", [
+    ([], "Queue 1 item 7"),
+    (["--static", "--mesh", "1x1"], "Queue 1 item 14"),
+    (["--static", "--page-dtype", "int8"], "Queue 1 item 9"),
+    (["--static", "--arch", "olmoe_1b_7b"], "Queue 1 item 10"),
+    (["--static", "--arch", "mamba2_130m"], "Queue 1 item 11"),
+    (["--static", "--arch", "seamless_m4t_large_v2"], "Queue 1 item 12"),
+])
+def test_launcher_names_the_roadmap_item_of_unported_modes(argv, item):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match=item):
+        serve.main(["--device", "cpu"] + argv)
