@@ -7,6 +7,8 @@ import importlib
 
 ARCHS = [
     "stablelm_3b",
+    "mamba2_130m",
+    "zamba2_1_2b",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

@@ -1,9 +1,10 @@
 """The hand-written Hopper flash-attention kernels and their ctypes wrappers.
 
 ``csrc/flash_attention.cu`` holds both kernels (its header says which TPU
-kernel each replaces and what bounds it).  It is compiled at first use with
-``nvcc`` for ``sm_90a`` into ``build/`` at the repo root, named by the hash
-of the source so an edited source rebuilds, and loaded with ``ctypes``.
+kernel each replaces and what bounds it).  ``kernels._build`` compiles it at
+first use with ``nvcc`` for ``sm_90a`` into ``build/`` at the repo root,
+named by the hash of the source so an edited source rebuilds, and loads it
+with ``ctypes``.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, raise on anything the kernel does not take, allocate the output
@@ -15,83 +16,26 @@ integer launch count (``flash_dense_cuda.launches``,
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._build import Library, raise_on
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
+LIBRARY = Library(SOURCE, {
     # q, k, v, o, kv_lens, q_offset, window, b, hq, hkv, sq, skv, d, causal,
     # scale, is_bf16, stream
     "flash_attention_dense": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P],
     # q, k_pool, v_pool, o, table, kv_lens, q_offset, window, b, hq, hkv, sq,
     # d, page_size, n_pages, n_pool, causal, scale, is_bf16, stream
     "flash_attention_paged": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _P],
-}
-
-_lock = threading.Lock()
-_lib = None
-last_build = {}        # the nvcc command and seconds of this process's build
-
-
-def nvcc_path() -> str:
-    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
-    else ``/usr/local/cuda/bin/nvcc``.  Raises if there is none."""
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and Path(c).is_file():
-            return c
-    raise RuntimeError("nvcc not found: the flash-attention kernels are built "
-                       "from source at first use and need the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile the kernels (once per source hash) and return the library."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libflash_attention_{digest}.so"
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    last_build.update(cmd=" ".join(cmd), seconds=time.perf_counter() - t0)
-    return out
-
-
-def _library():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+})
 
 
 def _check(cond: bool, msg: str):
@@ -117,11 +61,6 @@ def _check_common(q, tensors: dict, ints: dict, b: int):
     _check(tuple(ints["window"].shape) == (1,), "window must be (1,)")
 
 
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
 def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
                      scale: float):
     """Dense kernel: q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) -> (B,Hq,Sq,D) in q's
@@ -134,14 +73,14 @@ def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
     hkv, skv = k.shape[1], k.shape[2]
     _check(hq % hkv == 0, f"Hq={hq} is not a multiple of Hkv={hkv}")
     out = torch.empty_like(q)
-    lib = _library()
+    lib = LIBRARY.get()
     err = lib.flash_attention_dense(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         kv_lens.data_ptr(), q_offset.data_ptr(), window.data_ptr(),
         b, hq, hkv, sq, skv, d, int(causal), float(scale),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "flash_attention_dense")
+    raise_on(err, "flash_attention_dense")
     flash_dense_cuda.launches += 1
     return out
 
@@ -163,14 +102,14 @@ def flash_paged_cuda(q, k_pool, v_pool, page_table, kv_lens, q_offset, window,
            "page_table must be (B, n_pages)")
     n_pages = page_table.shape[1]
     out = torch.empty_like(q)
-    lib = _library()
+    lib = LIBRARY.get()
     err = lib.flash_attention_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         page_table.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
         window.data_ptr(), b, hq, hkv, sq, d, ps, n_pages, n_pool,
         int(causal), float(scale), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "flash_attention_paged")
+    raise_on(err, "flash_attention_paged")
     flash_paged_cuda.launches += 1
     return out
 

@@ -37,8 +37,12 @@ def _defaults(b, sq, skv, kv_lens, q_offset, causal, device):
 
 
 def _window_vec(window, device):
-    w = NO_WINDOW if window is None else window
-    return torch.as_tensor(w, device=device).to(torch.int32).reshape(1)
+    if isinstance(window, torch.Tensor):
+        return window.to(device=device, dtype=torch.int32).reshape(1)
+    # a fill, not a tensor made from a host int: that would be a blocking
+    # host-to-device copy on every call
+    w = NO_WINDOW if window is None else int(window)
+    return torch.full((1,), w, dtype=torch.int32, device=device)
 
 
 def _use_plain(q, impl):

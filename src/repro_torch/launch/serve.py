@@ -3,6 +3,7 @@ one static batch through ``ServeEngine.generate`` (greedy).
 
     python -m repro_torch.launch.serve --arch stablelm_3b --static
     python -m repro_torch.launch.serve --arch stablelm_3b --static --no-reduce
+    python -m repro_torch.launch.serve --arch zamba2_1_2b --static --page-size 16
 
 Dims are reduced by default, as in ``repro.launch.serve``; ``--no-reduce``
 runs the published widths.  The continuous-batching scheduler (the JAX
@@ -28,6 +29,13 @@ REDUCE = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=256, n_heads=4,
               n_kv_heads=2, head_dim=16, n_cross_tokens=16,
               param_dtype="float32", compute_dtype="float32")
 
+# the JAX launcher's per-family extras on top of REDUCE
+REDUCE_FAMILY = {
+    "ssm": dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16),
+    "hybrid": dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16, n_layers=5,
+                   shared_attn_period=2),
+}
+
 # the JAX launcher's archs that the port cannot serve yet -> ROADMAP item
 PENDING_ARCHS = {
     "llama_3_2_vision_11b": "Queue 1 item 12 (dense VLM branch)",
@@ -36,8 +44,6 @@ PENDING_ARCHS = {
     "command_r_plus_104b": "a config module (dense family, not ported yet)",
     "stablelm_12b": "a config module (dense family, not ported yet)",
     "gemma3_27b": "a config module (dense family, not ported yet)",
-    "zamba2_1_2b": "Queue 1 item 11 (hybrid)",
-    "mamba2_130m": "Queue 1 item 11 (ssm)",
     "seamless_m4t_large_v2": "Queue 1 item 12 (encdec)",
 }
 
@@ -83,7 +89,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:
-        cfg = cfg.replace(**REDUCE)
+        cfg = cfg.replace(**{**REDUCE, **REDUCE_FAMILY.get(cfg.family, {})})
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = get_model(cfg).init(cfg, gen, device)
     rng = np.random.RandomState(args.seed)

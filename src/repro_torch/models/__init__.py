@@ -1,5 +1,5 @@
-"""Model zoo of the port (the dense family so far) and the cache lane and
-paged-layout interface of ``repro.models``.
+"""Model zoo of the port (the dense, ssm and hybrid families) and the cache
+lane and paged-layout interface of ``repro.models``.
 
 A decode cache is a dict of tensors, each with ONE request-lane axis
 declared by the family's ``cache_batch_axes(cfg)``.  A paged cache replaces
@@ -11,26 +11,29 @@ each KV tensor's per-lane token axis with a shared page POOL
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 
 from repro_torch.core import paging as PG
 
 from .config import ModelConfig  # noqa: F401
 
+# each ported family's module is named after it
+_PORTED = ("dense", "ssm", "hybrid")
 # families still to port -> the ROADMAP item that ports them
-_PENDING = {"moe": "Queue 1 item 10", "ssm": "Queue 1 item 11",
-            "hybrid": "Queue 1 item 11", "encdec": "Queue 1 item 12"}
+_PENDING = {"moe": "Queue 1 item 10", "encdec": "Queue 1 item 12"}
 
 
 def get_model(cfg: "ModelConfig"):
     """Return the module implementing cfg.family's model API:
-    init(cfg, generator, device) -> DenseLM; prefill(model, cfg, batch,
-    cache) -> (logits_last, cache); decode(model, cfg, batch, cache) ->
-    (logits, cache); make_cache / make_paged_cache / cache_batch_axes /
+    init(cfg, generator, device) -> the family's model (``DenseLM``,
+    ``SSMLM`` or ``HybridLM``); prefill(model, cfg, batch, cache) ->
+    (logits_last, cache); decode(model, cfg, batch, cache) -> (logits,
+    cache); make_cache / make_paged_cache / cache_batch_axes /
     paged_cache_spec."""
-    if cfg.family == "dense":
-        from . import dense
-        return dense
+    if cfg.family in _PORTED:
+        return importlib.import_module(f"{__name__}.{cfg.family}")
     item = _PENDING.get(cfg.family)
     if item is None:
         raise ValueError(f"unknown family {cfg.family!r}")
@@ -103,6 +106,8 @@ def to_paged(cfg, cache, *, page_size: int, pool_pages=None):
     Token axes are zero-padded up to a page multiple.  Gathering the result
     through ``paged_view`` reproduces the dense cache exactly."""
     spec = get_model(cfg).paged_cache_spec(cfg)
+    if not spec:
+        raise ValueError(f"family '{cfg.family}' has no pageable KV state")
     key0, lead0 = next(iter(spec.items()))
     b = cache[key0].shape[len(lead0)]
     max_len = cache[key0].shape[len(lead0) + 2]

@@ -1,9 +1,10 @@
-"""Carry weights across from the JAX package's dense parameter tree.
+"""Carry weights across from the JAX package's parameter trees.
 
-``from_jax_params`` takes the tree that ``repro.models.dense.init`` returns,
-after ``jax.tree.map(np.asarray, params)``: nested dicts of numpy arrays
-whose ``blocks`` leaves are stacked over a leading layer axis.  It imports no
-JAX: only numpy arrays cross over.
+``from_jax_params`` takes the tree that the family's JAX ``init`` returns,
+after ``jax.tree.map(np.asarray, params)``: nested dicts of numpy arrays.
+dense and ssm stack ``blocks`` over a leading layer axis; hybrid stacks
+``main`` over (n_groups, period) and ``tail`` over its layers, and keeps
+``shared`` unstacked.  It imports no JAX: only numpy arrays cross over.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 
-from . import dense
+from . import dense, hybrid, ssm
 
 
 def _copy(dst: torch.Tensor, src):
@@ -33,14 +34,24 @@ def _copy_module(mod, tree: dict, layer=None):
             _copy(dst, arr if layer is None else arr[layer])
 
 
-def from_jax_params(cfg, params_np: dict, device=None) -> dense.DenseLM:
-    """Build the port's ``DenseLM`` from a numpy copy of the JAX dense
-    params: one ``Block`` per layer, matmul weights and embeddings cast to
-    ``cfg.compute_dtype``, norms in f32."""
+def from_jax_params(cfg, params_np: dict, device=None):
+    """Build the port's model of ``cfg.family`` (``DenseLM``, ``SSMLM`` or
+    ``HybridLM``) from a numpy copy of the JAX params: matmul and conv
+    weights and embeddings cast to ``cfg.compute_dtype``; norms, ``A_log``,
+    ``D`` and ``dt_bias`` in f32."""
     dev = resolve_device(device)
-    model = dense.DenseLM(cfg, dev)
+    if cfg.family == "hybrid":
+        model = hybrid.HybridLM(cfg, dev)
+        _copy_module(model.shared, params_np["shared"])
+        for gi, group in enumerate(model.main):
+            for li, blk in enumerate(group):
+                _copy_module(blk, params_np["main"], layer=(gi, li))
+        for li, blk in enumerate(model.tail):
+            _copy_module(blk, params_np["tail"], layer=li)
+    else:
+        model = (ssm.SSMLM if cfg.family == "ssm" else dense.DenseLM)(cfg, dev)
+        for li, blk in enumerate(model.blocks):
+            _copy_module(blk, params_np["blocks"], layer=li)
     _copy_module(model.embed, params_np["embed"])
     _copy_module(model.final_norm, params_np["final_norm"])
-    for li, blk in enumerate(model.blocks):
-        _copy_module(blk, params_np["blocks"], layer=li)
     return model

@@ -39,7 +39,9 @@ def _is_greedy(sampling) -> bool:
 
 @dataclasses.dataclass
 class ServeEngine:
-    """Generation engine over one model config + weights (a ``DenseLM``).
+    """Generation engine over one model config + weights: the family's
+    model (``DenseLM``, ``SSMLM`` or ``HybridLM``), whose ``device`` says
+    where the weights live.
 
     ``device`` defaults to the card and raises if it is absent; pass
     ``device="cpu"`` to run on the CPU.  The weights must already live on

@@ -134,12 +134,32 @@ def test_launcher_static_on_the_cpu(capsys):
     assert outs[0] == outs[1] and outs[0].count("req") == 2
 
 
+def test_launcher_serves_mamba2_on_the_cpu(capsys):
+    """``launch.serve --static`` serves the ssm family (dense cache only)."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "mamba2_130m", "--static", "--device", "cpu",
+                "--batch", "2", "--max-new", "3"])
+    assert capsys.readouterr().out.count("req") == 2
+
+
+def test_launcher_serves_zamba2_dense_and_paged(capsys):
+    """``launch.serve --static`` serves the hybrid family with the dense and
+    the paged cache, with the same tokens."""
+    from repro_torch.launch import serve
+    outs = []
+    for extra in ([], ["--page-size", "4"]):
+        serve.main(["--arch", "zamba2_1_2b", "--static", "--device", "cpu",
+                    "--batch", "2", "--max-new", "3"] + extra)
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0].count("req") == 2
+
+
 @pytest.mark.parametrize("argv,item", [
     ([], "Queue 1 item 7"),
     (["--static", "--mesh", "1x1"], "Queue 1 item 14"),
     (["--static", "--page-dtype", "int8"], "Queue 1 item 9"),
     (["--static", "--arch", "olmoe_1b_7b"], "Queue 1 item 10"),
-    (["--static", "--arch", "mamba2_130m"], "Queue 1 item 11"),
+    (["--static", "--arch", "llama_3_2_vision_11b"], "Queue 1 item 12"),
     (["--static", "--arch", "seamless_m4t_large_v2"], "Queue 1 item 12"),
 ])
 def test_launcher_names_the_roadmap_item_of_unported_modes(argv, item):

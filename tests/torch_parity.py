@@ -1,10 +1,13 @@
-"""Shared set-up of the ``test_torch_*`` parity tests: one tiny dense config
-for both packages, and a JAX model with its converted PyTorch twin.
+"""Shared set-up of the ``test_torch_*`` parity tests: tiny configs for both
+packages, and a JAX model with its converted PyTorch twin.
 
-The JAX side runs with ``attn_impl="kernel"``, so its Pallas kernels run in
-interpret mode as the JAX package's own tests run them.  The config is the
-``BASE`` of ``test_paged_cache.py`` with stablelm's layernorm and 25%
-partial rotary, in f32.
+The JAX side runs with ``attn_impl="kernel"`` and ``ssd_impl="kernel"``, so
+its Pallas kernels run in interpret mode as the JAX package's own tests run
+them.  The dense config is the ``BASE`` of ``test_paged_cache.py`` with
+stablelm's layernorm and 25% partial rotary, in f32; ``FAMILY`` holds the
+overrides of the ssm (2 layers) and hybrid (3 layers, the shared block
+every 2, so one group and a one-block tail) twins, at the JAX launcher's
+reduced SSM sizes.
 """
 
 import functools
@@ -13,7 +16,7 @@ import jax
 import numpy as np
 
 from repro.models import ModelConfig as JaxConfig
-from repro.models import dense as jax_dense
+from repro.models import get_model as jax_get_model
 from repro_torch.models import ModelConfig as TorchConfig
 from repro_torch.models.convert import from_jax_params
 
@@ -22,22 +25,34 @@ BASE = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
             compute_dtype="float32", norm="layernorm",
             partial_rotary_factor=0.25)
 TOL = dict(atol=1e-4, rtol=1e-4)
+_SSM = dict(norm="rmsnorm", partial_rotary_factor=1.0, ssm_state=16,
+            ssm_headdim=16, ssm_chunk=16)
+FAMILY = {
+    "ssm": dict(_SSM, family="ssm"),
+    "hybrid": dict(_SSM, family="hybrid", n_layers=3, shared_attn_period=2),
+}
 
 
 def configs(**over):
     """(JAX config with Pallas kernels, port config) for the same model."""
     kw = dict(BASE, **over)
-    return JaxConfig(**kw, attn_impl="kernel"), TorchConfig(**kw)
+    return (JaxConfig(**kw, attn_impl="kernel", ssd_impl="kernel"),
+            TorchConfig(**kw))
 
 
 @functools.lru_cache(maxsize=None)
 def models(seed=0, **over):
-    """(jax cfg, jax params, torch cfg, torch DenseLM on the CPU), built once
+    """(jax cfg, jax params, torch cfg, torch model on the CPU), built once
     per (seed, overrides); tests read the weights and never write them."""
     cfg_j, cfg_t = configs(**over)
-    params, _ = jax_dense.init(jax.random.PRNGKey(seed), cfg_j)
+    params, _ = jax_get_model(cfg_j).init(jax.random.PRNGKey(seed), cfg_j)
     params_np = jax.tree.map(np.asarray, params)
     return cfg_j, params, cfg_t, from_jax_params(cfg_t, params_np, device="cpu")
+
+
+def family_models(family, seed=0):
+    """``models`` for the ssm or hybrid twin."""
+    return models(seed, **FAMILY[family])
 
 
 def np_(x):
