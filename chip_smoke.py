@@ -5,17 +5,21 @@
 1. Builds the hand-written CUDA kernels from the sources in the checkout:
    one ``nvcc`` per source, all started together.
 2. Holds each kernel against its plain PyTorch version on the card (flash
-   attention in f32 at atol = rtol = 1e-5, the SSD scan in f32 at 1e-4 as
-   its exp and cumsum run in another order; bf16 at 2e-2, the output being
-   rounded to bf16), and times each at the shapes the serving path gives it,
-   beside its plain version, its roofline bound and (dense attention only)
-   one PyTorch library call.
+   attention in f32 at atol = rtol = 1e-5, over int8/fp8 pools at 1e-4 as
+   the widened values differ from the plain path's by rounding; the SSD
+   scan in f32 at 1e-4 as its exp and cumsum run in another order; bf16 at
+   2e-2, the output being rounded to bf16; the MoE dispatch ranks exactly),
+   and times each at the shapes the serving path gives it, beside its plain
+   version, its roofline bound and (dense attention only) one PyTorch
+   library call.
 3. Serves 8 greedy requests through ``ServeEngine.generate`` at the full
-   width of stablelm-3b (dense family), zamba2-1.2b (hybrid) and
-   mamba2-130m (ssm), random weights from seed 0, with the dense and (where
-   the family pages) the paged KV cache, counting kernel launches in each
-   run, and checks the outputs: finite logits, launch counts, first-step
-   logits against the plain path and across cache layouts.
+   width of stablelm-3b (dense family), zamba2-1.2b (hybrid), mamba2-130m
+   (ssm) and olmoe-1b-7b (moe), random weights from seed 0, with the dense
+   and (where the family pages) the paged KV cache, full precision and
+   int8/fp8, counting kernel launches in each run, and checks the outputs:
+   finite logits, launch counts, first-step logits against the plain path,
+   across cache layouts, and of quantized native decode against the gather
+   oracle over the same pool bytes and against a truncating oracle.
 4. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
@@ -26,6 +30,7 @@ fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -40,6 +45,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SRC_SSD = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SRC_MOE = "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch.cu"
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 N_REQ, MAX_NEW, PAGE_SIZE = 8, 64, 16
@@ -96,10 +102,13 @@ def rel_err(got, want) -> float:
 def kernel_wrappers():
     """Each kernel's name -> its wrapper, which holds the launch count."""
     from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.kernels.ssd_scan import kernel as SK
     return {"flash_attention_dense": K.flash_dense_cuda,
             "flash_attention_paged": K.flash_paged_cuda,
-            "ssd_scan": SK.ssd_scan_cuda}
+            "flash_attention_paged_quant": K.flash_paged_quant_cuda,
+            "ssd_scan": SK.ssd_scan_cuda,
+            "moe_positions": MK.moe_positions_cuda}
 
 
 def reset_counts() -> None:
@@ -117,9 +126,11 @@ def read_counts() -> dict:
 
 def build_all():
     from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.kernels.ssd_scan import kernel as SK
 
-    libs = {"flash_attention": K.LIBRARY, "ssd_scan": SK.LIBRARY}
+    libs = {"flash_attention": K.LIBRARY, "ssd_scan": SK.LIBRARY,
+            "moe_dispatch": MK.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(lib.build) for name, lib in libs.items()}
@@ -211,6 +222,95 @@ def check_kernels(flash_attention):
           f"(f32 atol=rtol=1e-5, bf16 2e-2): max |err| dense "
           f"{worst['dense']:.3g}, paged {worst['paged']:.3g}", flush=True)
     return worst
+
+
+def _quant_pools(gen, n_pool, hkv, ps, d, page_dtype):
+    """Random K or V pages truncated to ``page_dtype`` by the port's own
+    quantize_block: (narrow pool, f32 scale pool)."""
+    from repro_torch.core import paging as PG
+    return PG.quantize_block(
+        torch.randn(n_pool, hkv, ps, d, generator=gen, device="cuda") * 2.0,
+        PG.resolve_page_dtype(page_dtype))
+
+
+def check_quant_kernel(flash_attention):
+    """The paged kernel over int8 and fp8 pools against the plain path
+    (extending gather, then the reference), q in f32 and bf16: head dims 48,
+    64, 80 and 128 (16-byte loads of 16 narrow elements), page sizes 8 and
+    16, GQA group 1 and 4, one and three query rows, ragged kv_lens with
+    stale out-of-strip table entries, a sliding window, and an empty lane.
+    A head dim that is not a multiple of 16 is refused."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for page_dtype in ("int8", "fp8"):
+            for d, ps, group, window, sq in ((64, 16, 1, None, 1),
+                                             (80, 16, 4, None, 1),
+                                             (128, 8, 2, 11, 1),
+                                             (48, 8, 1, None, 3)):
+                b, hkv, n_pages = 3, 2, 6
+                n_pool = b * n_pages + 5
+                skv = n_pages * ps
+                kp, ks = _quant_pools(gen, n_pool, hkv, ps, d, page_dtype)
+                vp, vs = _quant_pools(gen, n_pool, hkv, ps, d, page_dtype)
+                q = torch.randn(b, hkv * group, sq, d, generator=gen,
+                                device="cuda").to(dtype)
+                table = torch.randperm(n_pool, generator=gen, device="cuda")[
+                    :b * n_pages].reshape(b, n_pages).to(torch.int32)
+                kv_lens = torch.tensor([skv, skv // 2 + 1, 0], dtype=torch.int32,
+                                       device="cuda")
+                table[1, (skv // 2 + 1 + ps - 1) // ps:] = 10 ** 6   # stale ids
+                kw = dict(kv_lens=kv_lens, causal=True, window=window,
+                          q_offset=(kv_lens - sq).clamp_min(0), page_table=table,
+                          k_scale=ks, v_scale=vs)
+                got = flash_attention(q, kp, vp, impl="kernel", **kw)
+                want = flash_attention(q, kp, vp, impl="naive", **kw)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+                check(not got[2].any(), "an empty lane reads 0")
+                worst = max(worst, float((got.float() - want.float()).abs().max()))
+    kp, ks = _quant_pools(gen, 4, 1, 8, 40, "int8")
+    q = torch.zeros(1, 1, 1, 40, device="cuda")
+    ints = [torch.zeros(n, dtype=torch.int32, device="cuda") for n in (1, 1, 1)]
+    try:
+        K.flash_paged_quant_cuda(q, kp, kp, ks, ks, torch.zeros(
+            1, 1, dtype=torch.int32, device="cuda"), *ints, causal=False, scale=1.0)
+    except ValueError as e:
+        check("multiple of 16" in str(e), f"head dim 40 refused: {e}")
+    else:
+        check(False, "a quantized pool of head dim 40 must be refused")
+    print(f"[kernels] flash_attention_paged_quant checked against the plain "
+          f"path (f32 atol=rtol=1e-4, bf16 2e-2; int8 and fp8 pools): max "
+          f"|err| {worst:.3g}", flush=True)
+    return worst
+
+
+def check_moe_positions():
+    """The dispatch-rank kernel against ``moe_positions_ref``, exactly:
+    T*K not a multiple of the 256-assignment tile, one tile and many, more
+    than 256 tiles (the scan's carry across chunks), -1 ids and ids >= E,
+    E = 4 and 64, K = 2, 6 and 8, and the olmoe prefill shape."""
+    from repro_torch.kernels.moe_dispatch import moe_positions
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = ((8, 8, 64), (5, 2, 4), (1000, 6, 64), (7704, 8, 64),
+             (20001, 8, 64), (333, 2, 4))
+    for t, k, e in cases:
+        ids = torch.randint(0, e, (t, k), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        odd = torch.rand((t, k), generator=gen, device="cuda")
+        ids = torch.where(odd < 0.05, -1, ids)
+        ids = torch.where(odd > 0.97, e + (ids % 7), ids).contiguous()
+        got = moe_positions(ids, e, impl="kernel")
+        want = moe_positions(ids, e, impl="naive")
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("pos", "counts")):
+            check(g.dtype == w.dtype == torch.int32 and torch.equal(g, w),
+                  f"moe_positions {what} equal to the plain version at "
+                  f"T={t} K={k} E={e}")
+    print(f"[kernels] moe_positions checked against moe_positions_ref "
+          f"(exact): {len(cases)} cases, (T, K, E) in {cases}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +410,31 @@ def time_kernels(cfg, lens, max_len, gpu):
         flops=4 * h * d * live,
         bytes=item * (2 * q1.numel() + 2 * hkv * d * live) + 4 * tab_c.numel(),
         max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
+    del kview, vview
+
+    # the quantized paged kernel, decode call: the same pages truncated to
+    # int8 and to fp8 by the port's quantize_block, with their scale pools
+    for page_dtype in ("int8", "fp8"):
+        qdt = PG.resolve_page_dtype(page_dtype)
+        (kq, ksc), (vq, vsc) = PG.quantize_block(kp, qdt), PG.quantize_block(vp, qdt)
+        kern = lambda: K.flash_paged_quant_cuda(q1, kq, vq, ksc, vsc, tab_c, kv1,
+                                                lens_t, win, causal=False,
+                                                scale=scale)
+        plain = lambda: R.mha_ref(q1, PG.gather_pages(kq, tab_c, scale=ksc),
+                                  PG.gather_pages(vq, tab_c, scale=vsc),
+                                  kv_lens=kv1, q_offset=lens_t)
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out_k, out_p, atol=2e-2, rtol=2e-2)
+        rows[f"paged_decode_{page_dtype}"] = dict(
+            shape=f"q {tuple(q1.shape)} pools {tuple(kq.shape)} {page_dtype} "
+                  f"+ scales {tuple(ksc.shape)} f32, ps {PAGE_SIZE}, q bf16",
+            ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20), library_ms=None,
+            flops=4 * h * d * live,
+            bytes=(item * 2 * q1.numel() + 2 * hkv * d * live
+                   + 4 * 2 * hkv * live + 4 * tab_c.numel()),
+            max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
+        del kq, vq, ksc, vsc
     for name, r in rows.items():
         _bound(r)
         lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -317,6 +442,42 @@ def time_kernels(cfg, lens, max_len, gpu):
               f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|err| "
               f"{r['max_abs_err']:.3g}  [{gpu}]", flush=True)
+    return rows
+
+
+def time_moe_positions(lens, gpu):
+    """The dispatch-rank kernel at olmoe's shapes: the prefill call ranks
+    every position of the padded (8, S) batch (T = 8 * S, K = 8, E = 64),
+    the decode call one token per lane (T = 8), beside the plain version and
+    the byte bound (4 bytes read and 4 written per assignment, 4 per
+    count; the integer operations are a few per assignment)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.kernels.moe_dispatch.ref import moe_positions_ref
+
+    cfg = get_config("olmoe_1b_7b")
+    e, k = cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    for name, t in (("prefill", len(lens) * int(max(lens))), ("decode", len(lens))):
+        ids = torch.randint(0, e, (t, k), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        kern = lambda: MK.moe_positions_cuda(ids, e)
+        plain = lambda: moe_positions_ref(ids, e)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"moe_positions at ({t}, {k}) equal to the plain version")
+        rows[name] = dict(shape=f"ids ({t}, {k}) int32, E {e}",
+                          ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20),
+                          library_ms=None, flops=0, bytes=8 * t * k + 4 * e,
+                          max_abs_err=0.0)
+    for name, r in rows.items():
+        _bound(r)
+        print(f"[time] moe_positions {name}: {r['shape']}: kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, library null (no one PyTorch "
+              f"call computes the ranks), bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), exact  [{gpu}]", flush=True)
     return rows
 
 
@@ -431,21 +592,81 @@ WIDTHS = {
                         ssm_state=64, ssm_headdim=64, shared_attn_period=6),
     "mamba2_130m": dict(n_layers=24, d_model=768, vocab_size=50280,
                         padded_vocab=50304, ssm_state=128, ssm_headdim=64),
+    "olmoe_1b_7b": dict(n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16,
+                        resolved_head_dim=128, d_ff=1024, n_experts=64,
+                        top_k=8, vocab_size=50304),
 }
-# first-step logits, kernel path against plain path: the dense family is
-# checked on its bf16 weights (as since it was first served); the ssm and
-# hybrid families on f32 weights from the same seed, with their bf16 figure
-# reported beside, since bf16 rounding grows through random layers
+# the caches each model is served with: (run, page_size, page_dtype)
+RUNS = {
+    "stablelm_3b": (("dense", None, None), ("paged", PAGE_SIZE, None),
+                    ("int8", PAGE_SIZE, "int8"), ("fp8", PAGE_SIZE, "fp8")),
+    "zamba2_1_2b": (("dense", None, None), ("paged", PAGE_SIZE, None),
+                    ("int8", PAGE_SIZE, "int8")),
+    "mamba2_130m": (("dense", None, None),),
+    "olmoe_1b_7b": (("dense", None, None), ("paged", PAGE_SIZE, None),
+                    ("int8", PAGE_SIZE, "int8")),
+}
+# first-step logits, kernel path against plain path (quantized native decode
+# included: both read the same pool bytes) and quantized native decode
+# against the gather oracle: checked on f32 weights from the same seed (bf16
+# rounding grows through random layers), with the bf16 figures reported
+# beside; the dense family's bf16 kernel-vs-plain figure is also checked, as
+# since it was first served.  Native decode attends to the new token's
+# truncated K/V, the gather oracle (as the JAX engine's) to its full-precision
+# K/V: at fp8's 3 mantissa bits that one token moves the logits by more than
+# LIMIT_F32, so the fp8 native-vs-gather figure is reported, not checked.
+# Both narrow types are also held against a truncating oracle: the gather
+# oracle whose dense decode truncates the new token's K/V on store, as native
+# decode does (``truncating_kv_store``), which faults in the native store
+# (bytes, scales, type) would move.
+# The MoE plain path ranks with the kernel too (its ranks are integers, held
+# exactly equal above)
 LIMIT_BF16, LIMIT_F32 = 2e-2, 1e-3
 PLAIN = dict(attn_impl="naive", ssd_impl="naive")
 
 
+@contextlib.contextmanager
+def truncating_kv_store(page_dtype):
+    """Within the block, a dense decode truncates the new token's K/V to
+    ``page_dtype`` by ``quantize_block`` and widens them again before it
+    stores them: the K/V that native quantized decode attends to."""
+    from repro_torch.core import paging as PG
+    from repro_torch.models import layers as L
+
+    dtype = PG.resolve_page_dtype(page_dtype)
+    store = L.update_kv_cache
+    trunc = lambda x: PG.dequantize(*PG.quantize_block(x, dtype)).to(x.dtype)
+    L.update_kv_cache = lambda kc, vc, k, v, pos: store(kc, vc, trunc(k),
+                                                        trunc(v), pos)
+    try:
+        yield
+    finally:
+        L.update_kv_cache = store
+
+
+def _want_launches(cfg, page_size, page_dtype, steps):
+    """Each kernel's launches in one ``generate`` of the smoke workload."""
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // cfg.shared_attn_period}[cfg.family]
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want["flash_attention_dense"] = attn                 # prefill
+    decode = ("flash_attention_dense" if page_size is None else
+              "flash_attention_paged_quant" if page_dtype else
+              "flash_attention_paged")
+    want[decode] += attn * steps
+    if cfg.family in ("ssm", "hybrid"):
+        want["ssd_scan"] = cfg.n_layers                   # prefill
+    if cfg.family == "moe":
+        want["moe_positions"] = (cfg.n_layers - cfg.first_k_dense) * (1 + steps)
+    return want
+
+
 def serve_model(arch, gpu):
     """One model at its published widths through ``ServeEngine.generate``:
-    8 prompts, 64 new tokens each, with the dense and (where the family
-    pages) the paged cache; every kernel's launches counted in each run."""
+    8 prompts, 64 new tokens each, with each cache of ``RUNS[arch]``; every
+    kernel's launches counted in each run."""
     from repro_torch.configs import get_config
-    from repro_torch.models import get_model, to_paged
+    from repro_torch.models import get_model, paged_view, to_paged
     from repro_torch.sample import greedy_tokens
     from repro_torch.serve import ServeEngine
 
@@ -454,11 +675,10 @@ def serve_model(arch, gpu):
     widths = WIDTHS[arch]
     got = {k: getattr(cfg, k) for k in widths}
     check(got == widths, f"{arch} widths {got}, published {widths}")
-    attn_layers = {"dense": cfg.n_layers, "ssm": 0,
-                   "hybrid": cfg.n_layers // cfg.shared_attn_period}[cfg.family]
-    ssd_layers = 0 if cfg.family == "dense" else cfg.n_layers
     pages = bool(fam.paged_cache_spec(cfg))
+    quant = [dt for _, _, dt in RUNS[arch] if dt]
     seed0 = lambda: torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = fam.init(cfg, seed0(), "cuda")
     torch.cuda.synchronize()
@@ -475,16 +695,16 @@ def serve_model(arch, gpu):
     batch = {"tokens": torch.from_numpy(tokens).cuda(),
              "lens": torch.from_numpy(lens).cuda()}
     max_len = s + MAX_NEW
-    # stop token -1: argmax never emits it, so every lane decodes its budget
-    eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=-1)
     eng_warm = ServeEngine(cfg, model, max_new_tokens=2, stop_token=-1)
     eng_warm.generate({"tokens": batch["tokens"][:2, :16]})    # cuBLAS warm-up
     torch.cuda.synchronize()
 
     runs = {}
     steps = MAX_NEW - 1
-    for name, page_size in (("dense", None),) + ((("paged", PAGE_SIZE),)
-                                                  if pages else ()):
+    for name, page_size, page_dtype in RUNS[arch]:
+        # stop token -1: argmax never emits it, so every lane decodes its budget
+        eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=-1,
+                          page_dtype=page_dtype)
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -496,14 +716,13 @@ def serve_model(arch, gpu):
         toks = res["tokens"].cpu().numpy()
         check((n_gen == MAX_NEW).all(), f"n_generated {n_gen}")
         check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token ids in the vocab")
-        want = {"flash_attention_dense": attn_layers * (1 + (0 if page_size else steps)),
-                "flash_attention_paged": attn_layers * (steps if page_size else 0),
-                "ssd_scan": ssd_layers}
+        want = _want_launches(cfg, page_size, page_dtype, steps)
         check(counts == want, f"{arch} {name} launches {counts}, expected {want}")
         runs[name] = dict(tokens=toks, total_s=total, counts=counts,
                           cache=res["cache"])
-        print(f"[full] {cfg.name} generate {name}: launches {counts} "
-              f"(expected {want})", flush=True)
+        print(f"[full] {cfg.name} generate {name}: launches "
+              f"{ {k: v for k, v in counts.items() if v} } (as expected)",
+              flush=True)
 
     # prefill alone, timed apart from the runs above (same inputs)
     def prefill():
@@ -526,21 +745,43 @@ def serve_model(arch, gpu):
               f"[{gpu}]", flush=True)
     if pages:
         same = float((runs["dense"]["tokens"] == runs["paged"]["tokens"]).mean())
-        print(f"[full] {cfg.name} identical tokens dense vs paged: {same:.4f} "
-              "(reported, not asserted: bf16 near-ties may flip)", flush=True)
+        if cfg.family == "moe":
+            check(same == 1.0, f"{cfg.name} dense and paged tokens identical")
+            print(f"[full] {cfg.name} identical tokens dense vs paged: {same:.4f} "
+                  "(held)", flush=True)
+        else:
+            print(f"[full] {cfg.name} identical tokens dense vs paged: {same:.4f} "
+                  "(reported, not asserted: bf16 near-ties may flip)", flush=True)
+    for dt in quant:
+        same = float((runs[dt]["tokens"] == runs["paged"]["tokens"]).mean())
+        print(f"[full] {cfg.name} tokens of the {dt} pages equal to the "
+              f"full-precision paged run: {same:.4f} (reported: quantization "
+              "may change tokens)", flush=True)
+    for name, r in runs.items():
+        profile_decode(model, cfg, name, r.pop("cache"), r["tokens"][:, -1], gpu)
 
-    # first decode step: kernel path vs plain path, and dense vs paged cache
+    # first decode step: kernel path vs plain path, dense vs paged cache, and
+    # quantized native decode vs the gather oracle over the same pool bytes
     def first_step(m, c, tok=None):
         cache = fam.make_cache(c, N_REQ, max_len, device="cuda")
         lp, cache = fam.prefill(m, c, batch, cache)
         tok = greedy_tokens(lp) if tok is None else tok
         step = {"token": tok[:, None]}
         out = {"prefill": lp, "tok": tok}
+        clone = lambda d: {k: v.clone() for k, v in d.items()}
         if pages:      # decode writes the cache in place: page a copy
-            paged = to_paged(c, {k: v.clone() for k, v in cache.items()},
-                             page_size=PAGE_SIZE)
+            paged = to_paged(c, clone(cache), page_size=PAGE_SIZE)
             out["paged"], _ = fam.decode(m, c, step, paged)
             del paged
+        for dt in quant:
+            qc = to_paged(c, clone(cache), page_size=PAGE_SIZE, page_dtype=dt)
+            view = paged_view(c, clone(qc))       # widened before decode writes
+            trunc = clone(view)
+            out[f"{dt} native"], _ = fam.decode(m, c, step, qc)
+            out[f"{dt} gather"], _ = fam.decode(m, c, step, view)
+            with truncating_kv_store(dt):
+                out[f"{dt} truncating"], _ = fam.decode(m, c, step, trunc)
+            del qc, view, trunc
         out["decode"], _ = fam.decode(m, c, step, cache)
         for t in (v for k, v in out.items() if k != "tok"):
             check(t.shape == (N_REQ, cfg.padded_vocab)
@@ -556,32 +797,45 @@ def serve_model(arch, gpu):
              "decode kernel vs plain": err(fast["decode"], slow["decode"])}
         if pages:
             e["decode paged vs dense"] = err(fast["paged"], fast["decode"])
+        for dt in quant:
+            e[f"decode {dt} native kernel vs plain"] = err(
+                fast[f"{dt} native"], slow[f"{dt} native"])
+            e[f"decode {dt} native vs gather oracle"] = err(
+                fast[f"{dt} native"], fast[f"{dt} gather"])
+            e[f"decode {dt} native vs truncating oracle"] = err(
+                fast[f"{dt} native"], fast[f"{dt} truncating"])
         return e
 
     with torch.inference_mode():
         fast = first_step(model, cfg)
         bf16 = errs(fast, first_step(model, cfg.replace(**PLAIN), fast["tok"]))
-        del fast
-        if cfg.family == "dense":
-            checked, limit, kind = bf16, LIMIT_BF16, "bf16"
-        else:
-            cfg32 = cfg.replace(compute_dtype="float32")
-            model32 = fam.init(cfg32, seed0(), "cuda")
-            fast = first_step(model32, cfg32)
-            checked = errs(fast, first_step(model32, cfg32.replace(**PLAIN),
-                                            fast["tok"]))
-            limit, kind = LIMIT_F32, "f32 weights"
-            del model32, fast
-    for what, e in checked.items():
-        print(f"[full] {cfg.name} first-step logits {what}: max|d|/max|ref| = "
-              f"{e:.3g} (limit {limit:g}, {kind})", flush=True)
-        check(e <= limit, f"{cfg.name} first-step logits {what}: {e} > {limit}")
-    if checked is not bf16:
-        for what, e in bf16.items():
+        del fast, model, eng, eng_warm
+        torch.cuda.empty_cache()
+        cfg32 = cfg.replace(compute_dtype="float32")
+        model32 = fam.init(cfg32, seed0(), "cuda")
+        fast = first_step(model32, cfg32)
+        f32 = errs(fast, first_step(model32, cfg32.replace(**PLAIN), fast["tok"]))
+        del model32, fast
+        torch.cuda.empty_cache()
+    checks = [({k: v for k, v in f32.items() if "fp8 native vs gather" not in k},
+               LIMIT_F32, "f32 weights")]
+    if cfg.family == "dense":
+        checks.append(({k: bf16[k] for k in ("prefill kernel vs plain",
+                                             "decode kernel vs plain")},
+                       LIMIT_BF16, "bf16 weights"))
+    for errs_, limit, kind in checks:
+        for what, e in errs_.items():
             print(f"[full] {cfg.name} first-step logits {what}: max|d|/max|ref| "
-                  f"= {e:.3g} (bf16 weights, reported, not checked)", flush=True)
-    for name, r in runs.items():
-        profile_decode(model, cfg, name, r.pop("cache"), r["tokens"][:, -1], gpu)
+                  f"= {e:.3g} (limit {limit:g}, {kind})", flush=True)
+            check(e <= limit, f"{cfg.name} first-step logits {what} ({kind}): "
+                  f"{e} > {limit}")
+    reported = [(f32, "f32 weights"), (bf16, "bf16 weights")]
+    for errs_, kind in reported:
+        held = [e for e, _, k in checks if k == kind]
+        for what, e in errs_.items():
+            if not any(what in h for h in held):
+                print(f"[full] {cfg.name} first-step logits {what}: max|d|/max|ref| "
+                      f"= {e:.3g} ({kind}, reported, not checked)", flush=True)
     return cfg, lens, max_len, runs
 
 
@@ -650,13 +904,26 @@ def main() -> int:
           f"  torch {torch.__version__} cuda {torch.version.cuda}  [{gpu}]",
           flush=True)
 
-    build_all()
-    check_kernels(flash_attention)
-    check_ssd()
-    served = {arch: serve_model(arch, gpu) for arch in WIDTHS}
+    t_start = time.perf_counter()
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s (at "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+        return out
+
+    phase("build", build_all)
+    phase("check flash", check_kernels, flash_attention)
+    phase("check flash quant", check_quant_kernel, flash_attention)
+    phase("check ssd", check_ssd)
+    phase("check moe_positions", check_moe_positions)
+    served = {arch: phase(f"serve {arch}", serve_model, arch, gpu)
+              for arch in WIDTHS}
     cfg, lens, max_len, _ = served["stablelm_3b"]
-    rows = time_kernels(cfg, lens, max_len, gpu)
-    ssd_rows = time_ssd(lens, gpu)
+    rows = phase("time flash", time_kernels, cfg, lens, max_len, gpu)
+    ssd_rows = phase("time ssd", time_ssd, lens, gpu)
+    moe_rows = phase("time moe_positions", time_moe_positions, lens, gpu)
 
     launches = {k: sum(r["counts"][k] for *_, runs in served.values()
                        for r in runs.values()) for k in kernel_wrappers()}
@@ -667,8 +934,12 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:237"),
             ("flash_attention_paged", rows["paged_decode"], SRC_CU,
              "src/repro/kernels/flash_attention/kernel.py:165"),
+            ("flash_attention_paged_quant", rows["paged_decode_int8"], SRC_CU,
+             "src/repro/kernels/flash_attention/kernel.py:137"),
             ("ssd_scan", ssd_rows["zamba2_1_2b"], SRC_SSD,
-             "src/repro/kernels/ssd_scan/kernel.py:80")):
+             "src/repro/kernels/ssd_scan/kernel.py:80"),
+            ("moe_positions", moe_rows["prefill"], SRC_MOE,
+             "src/repro/kernels/moe_dispatch/kernel.py:55")):
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

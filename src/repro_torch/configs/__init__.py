@@ -6,6 +6,8 @@ from __future__ import annotations
 import importlib
 
 ARCHS = [
+    "olmoe_1b_7b",
+    "moonshot_v1_16b_a3b",
     "stablelm_3b",
     "mamba2_130m",
     "zamba2_1_2b",

@@ -1,10 +1,11 @@
-// Predicated flash attention for Hopper (sm_90a): dense and paged forward.
+// Predicated flash attention for Hopper (sm_90a): dense and paged forward,
+// the paged one over full-precision or quantized (int8 / fp8 e4m3) pools.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention/kernel.py:
-//   flash_attention_dense <- flash_attention_pallas (_flash_kernel -> _flash_tile)
-//   flash_attention_paged <- flash_attention_pallas_paged (_flash_kernel_paged),
-//                            full-precision pools only (the int8/fp8 body
-//                            _flash_kernel_paged_quant is not ported yet)
+//   flash_attention_dense       <- flash_attention_pallas (_flash_kernel -> _flash_tile)
+//   flash_attention_paged       <- flash_attention_pallas_paged (_flash_kernel_paged)
+//   flash_attention_paged_quant <- flash_attention_pallas_paged over int8/fp8
+//                                  pools (_flash_kernel_paged_quant)
 //
 // Both compute the same function: online-softmax attention where key kpos is
 // live for query qpos iff  kpos < kv_lens[b]  and (causal) qpos >= kpos  and
@@ -12,7 +13,10 @@
 // GQA maps query head h to KV head h / (Hq / Hkv).  A row with no live key
 // returns 0.  Inputs are f32 or bf16; the arithmetic is f32; the output has
 // the type of q.  The paged kernel reads logical page j of lane b from
-// physical page table[b, j] of a (P, Hkv, ps, D) pool.
+// physical page table[b, j] of a (P, Hkv, ps, D) pool.  The quantized paged
+// kernel computes the same function over narrow pools: element x of page p,
+// KV head h, slot s widens to float(x) * scale[p, h, s] (f32 scale pools of
+// shape (P, Hkv, ps)), in f32, before the unchanged online softmax.
 //
 // What bounds it on an H100.  Decode (Sq = 1, the path's every step) reads
 // each K/V byte once and does ~1 FLOP per byte: it is bound by device memory
@@ -34,12 +38,18 @@
 // at the end, so all warps stream K/V instead of one; (4) stages each K/V
 // tile with 16-byte loads where the head dim and the pointers allow it, kBatch
 // of them in flight per thread before their shared-memory stores, so a tile
-// costs about one memory latency and not one per element.
+// costs about one memory latency and not one per element.  The quantized
+// kernel is the same template with a narrow storage type: one 16-byte load
+// brings 16 elements instead of 8, so decode reads about half the bytes of
+// the bf16 pools; the f32 scale of each key row is read beside its chunk
+// (the ps scales of a page are one 64-byte row at ps 16, shared through L1)
+// and the product is taken as the element is widened into shared memory.
 //
 // C interface for ctypes: pointers and the stream are void*, every entry
 // point returns cudaGetLastError() as an int (0 = launched).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -60,6 +70,20 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Narrow storage types: pools of these carry per-slot f32 scales.
+template <typename KV>
+struct Narrow {
+  static constexpr bool value = false;
+};
+template <>
+struct Narrow<int8_t> {
+  static constexpr bool value = true;
+};
+template <>
+struct Narrow<__nv_fp8_e4m3> {
+  static constexpr bool value = true;
+};
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -91,10 +115,14 @@ struct Args {
   int causal;
   int splits;         // warps that share one row group, each on its own keys
   float scale;
+  const float* k_scale;  // quantized pools only: (P, Hkv, ps)
+  const float* v_scale;
 };
 
 // How a tile of K/V reaches shared memory: one element of type T per load,
 // or (kVec) one 16-byte chunk of n elements, widened to f32 at the store.
+// T is the pool's storage type: f32 or bf16 (either way), int8 or fp8 e4m3
+// (16-byte chunks only).
 template <typename T, bool kVec>
 struct Loader {
   static constexpr int n = 1;
@@ -135,42 +163,81 @@ struct Loader<__nv_bfloat16, true> {
   }
 };
 
-// Element offset of key row `key` of KV head hk of lane b.
+template <>
+struct Loader<int8_t, true> {
+  static constexpr int n = 16;
+  using Raw = uint4;
+  __device__ static Raw load(const int8_t* p) { return *reinterpret_cast<const uint4*>(p); }
+  __device__ static Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  __device__ static void widen(Raw r, float* out) {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < n; ++i) out[i] = static_cast<float>(e[i]);
+  }
+};
+
+template <>
+struct Loader<__nv_fp8_e4m3, true> {
+  static constexpr int n = 16;
+  using Raw = uint4;
+  __device__ static Raw load(const __nv_fp8_e4m3* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ static Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  __device__ static void widen(Raw r, float* out) {
+    const __nv_fp8_e4m3* e = reinterpret_cast<const __nv_fp8_e4m3*>(&r);
+#pragma unroll
+    for (int i = 0; i < n; ++i) out[i] = static_cast<float>(e[i]);
+  }
+};
+
+// Row index of key `key` of KV head hk of lane b: the row's element offset
+// is this times d; in a quantized pool it also indexes the row's scale.
 template <bool kPaged>
-__device__ __forceinline__ size_t kv_row(const Args& a, int b, int hk, long long key) {
+__device__ __forceinline__ size_t kv_slot(const Args& a, int b, int hk, long long key) {
   if (kPaged) {
     const int page = (int)(key / a.ps);
     const int slot = (int)(key - (long long)page * a.ps);
     int phys = a.table[(size_t)b * a.n_pages + page];
     phys = min(max(phys, 0), a.n_pool - 1);
-    return (((size_t)phys * a.hkv + hk) * a.ps + slot) * a.d;
+    return ((size_t)phys * a.hkv + hk) * a.ps + slot;
   }
-  return (((size_t)b * a.hkv + hk) * a.skv + key) * a.d;
+  return ((size_t)b * a.hkv + hk) * a.skv + key;
 }
 
 // Stage keys [t0, t0 + tile) into ks (stride ldk) and vs (stride d) as f32;
 // keys at or past k_end read as 0.  Each thread issues kBatch loads of K and
-// of V before it stores any of them.
-template <typename T, bool kPaged, bool kVec>
-__device__ __forceinline__ void stage_kv(const Args& a, const T* kg, const T* vg, float* ks,
+// of V before it stores any of them.  A narrow KV widens to float(x) * scale
+// of its row.
+template <typename KV, bool kPaged, bool kVec>
+__device__ __forceinline__ void stage_kv(const Args& a, const KV* kg, const KV* vg, float* ks,
                                          float* vs, int ldk, int b, int hk, long long t0,
                                          long long k_end, int tile) {
-  using L = Loader<T, kVec>;
+  using L = Loader<KV, kVec>;
+  constexpr bool kQuant = Narrow<KV>::value;
   const int d = a.d;
   const int per_row = d / L::n;
   const int total = tile * per_row;
   for (int base = threadIdx.x; base < total; base += kBatch * blockDim.x) {
     typename L::Raw kr[kBatch], vr[kBatch];
+    float ksc[kBatch], vsc[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int c = base + u * blockDim.x;
       const int j = c / per_row;
       kr[u] = L::zero();
       vr[u] = L::zero();
+      ksc[u] = 0.f;
+      vsc[u] = 0.f;
       if (c < total && t0 + j < k_end) {
-        const size_t off = kv_row<kPaged>(a, b, hk, t0 + j) + (size_t)(c - j * per_row) * L::n;
+        const size_t row = kv_slot<kPaged>(a, b, hk, t0 + j);
+        const size_t off = row * d + (size_t)(c - j * per_row) * L::n;
         kr[u] = L::load(kg + off);
         vr[u] = L::load(vg + off);
+        if constexpr (kQuant) {
+          ksc[u] = a.k_scale[row];
+          vsc[u] = a.v_scale[row];
+        }
       }
     }
 #pragma unroll
@@ -182,6 +249,13 @@ __device__ __forceinline__ void stage_kv(const Args& a, const T* kg, const T* vg
         float kf[L::n], vf[L::n];
         L::widen(kr[u], kf);
         L::widen(vr[u], vf);
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int i = 0; i < L::n; ++i) {
+            kf[i] *= ksc[u];
+            vf[i] *= vsc[u];
+          }
+        }
 #pragma unroll
         for (int i = 0; i < L::n; ++i) {
           ks[j * ldk + e0 + i] = kf[i];
@@ -193,8 +267,9 @@ __device__ __forceinline__ void stage_kv(const Args& a, const T* kg, const T* vg
 }
 
 // One block: dense -> (query chunk, query head, lane); paged -> (KV head,
-// lane), walking every (head of the group, query row) in chunks.
-template <typename T, bool kPaged, bool kVec>
+// lane), walking every (head of the group, query row) in chunks.  q and the
+// output are T; K/V are stored as KV (T itself, or a narrow type).
+template <typename T, typename KV, bool kPaged, bool kVec>
 __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
   extern __shared__ float smem[];
   const int d = a.d;
@@ -207,8 +282,8 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
   float* vs = ks + tile * ldk;           // (tile, d)
 
   const T* qg = static_cast<const T*>(a.q);
-  const T* kg = static_cast<const T*>(a.k);
-  const T* vg = static_cast<const T*>(a.v);
+  const KV* kg = static_cast<const KV*>(a.k);
+  const KV* vg = static_cast<const KV*>(a.v);
   T* og = static_cast<T*>(a.o);
 
   const int b = blockIdx.z;
@@ -269,7 +344,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
 
     for (long long t0 = (k_begin / kBK) * kBK; t0 < k_end; t0 += tile) {
       __syncthreads();                   // every warp is done with the last tile
-      stage_kv<T, kPaged, kVec>(a, kg, vg, ks, vs, ldk, b, hk, t0, k_end, tile);
+      stage_kv<KV, kPaged, kVec>(a, kg, vg, ks, vs, ldk, b, hk, t0, k_end, tile);
       __syncthreads();
       if (!computes) continue;
 
@@ -383,29 +458,36 @@ int splits_for(int rows) {
   return 1;
 }
 
-template <typename T, bool kPaged, bool kVec>
+template <typename T, typename KV, bool kPaged, bool kVec>
 int launch_as(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T, kPaged, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, KV, kPaged, kVec>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  flash_fwd<T, kPaged, kVec><<<grid, kWarps * kWarp, smem, stream>>>(a);
+  flash_fwd<T, KV, kPaged, kVec><<<grid, kWarps * kWarp, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // 16-byte K/V loads need every key row to start on a 16-byte boundary.
-template <typename T, bool kPaged>
+// Narrow pools are read only so (D a multiple of 16, aligned pools).
+template <typename T, typename KV, bool kPaged>
 int launch(const Args& a, int grid_x, int grid_y, int grid_z, cudaStream_t stream) {
   const int bq = (kWarps / a.splits) * kRows;
   const int tile = a.splits * kBK;
   const size_t smem = sizeof(float) * ((size_t)bq * a.d + (size_t)tile * (2 * a.d + 1));
   const dim3 grid(grid_x, grid_y, grid_z);
-  const bool vec = a.d % Loader<T, true>::n == 0 && aligned16(a.k) && aligned16(a.v);
-  return vec ? launch_as<T, kPaged, true>(a, grid, smem, stream)
-             : launch_as<T, kPaged, false>(a, grid, smem, stream);
+  const bool vec = a.d % Loader<KV, true>::n == 0 && aligned16(a.k) && aligned16(a.v);
+  if constexpr (Narrow<KV>::value) {
+    return vec ? launch_as<T, KV, kPaged, true>(a, grid, smem, stream)
+               : (int)cudaErrorInvalidValue;
+  } else {
+    return vec ? launch_as<T, KV, kPaged, true>(a, grid, smem, stream)
+               : launch_as<T, KV, kPaged, false>(a, grid, smem, stream);
+  }
 }
 
 bool bad_shape(int b, int hq, int hkv, int sq, int d) {
@@ -426,8 +508,8 @@ extern "C" int flash_attention_dense(const void* q, const void* k, const void* v
   const int bq = (kWarps / a.splits) * kRows;
   const int grid_x = (sq + bq - 1) / bq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16, false>(a, grid_x, hq, b, st)
-                 : launch<float, false>(a, grid_x, hq, b, st);
+  return is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, false>(a, grid_x, hq, b, st)
+                 : launch<float, float, false>(a, grid_x, hq, b, st);
 }
 
 extern "C" int flash_attention_paged(const void* q, const void* k_pool, const void* v_pool,
@@ -444,6 +526,32 @@ extern "C" int flash_attention_paged(const void* q, const void* k_pool, const vo
          hq, hkv, sq, n_pages * page_size, d, page_size, n_pages, n_pool, causal,
          splits_for(rows < 16 ? rows : 16), scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16, true>(a, 1, hkv, b, st)
-                 : launch<float, true>(a, 1, hkv, b, st);
+  return is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, true>(a, 1, hkv, b, st)
+                 : launch<float, float, true>(a, 1, hkv, b, st);
+}
+
+// The paged kernel over int8 (is_fp8 = 0) or fp8 e4m3 (is_fp8 = 1) pools
+// with f32 scale pools (P, Hkv, ps); q and o are f32 or bf16; d is a
+// multiple of 16 and the pools start on 16-byte boundaries.
+extern "C" int flash_attention_paged_quant(const void* q, const void* k_pool,
+                                           const void* v_pool, const float* k_scale,
+                                           const float* v_scale, void* o,
+                                           const int* page_table, const int* kv_lens,
+                                           const int* q_offset, const int* window, int b,
+                                           int hq, int hkv, int sq, int d, int page_size,
+                                           int n_pages, int n_pool, int causal, float scale,
+                                           int is_bf16, int is_fp8, void* stream) {
+  if (bad_shape(b, hq, hkv, sq, d) || page_size < 1 || n_pages < 1 || n_pool < 1)
+    return (int)cudaErrorInvalidValue;
+  if (sq == 0) return (int)cudaGetLastError();
+  const int rows = (hq / hkv) * sq;
+  Args a{q, k_pool, v_pool, o, kv_lens, q_offset, window, page_table,
+         hq, hkv, sq, n_pages * page_size, d, page_size, n_pages, n_pool, causal,
+         splits_for(rows < 16 ? rows : 16), scale, k_scale, v_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_fp8)
+    return is_bf16 ? launch<__nv_bfloat16, __nv_fp8_e4m3, true>(a, 1, hkv, b, st)
+                   : launch<float, __nv_fp8_e4m3, true>(a, 1, hkv, b, st);
+  return is_bf16 ? launch<__nv_bfloat16, int8_t, true>(a, 1, hkv, b, st)
+                 : launch<float, int8_t, true>(a, 1, hkv, b, st);
 }

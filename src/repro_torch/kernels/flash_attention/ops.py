@@ -53,7 +53,8 @@ def _use_plain(q, impl):
 
 def flash_attention(q, k, v, *, kv_lens=None, causal: bool = False,
                     window=None, q_offset=None, scale: float | None = None,
-                    impl: str = "kernel", page_table=None):
+                    impl: str = "kernel", page_table=None, k_scale=None,
+                    v_scale=None):
     """Predicated attention.  q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).
 
     - ``kv_lens``: (B,) valid KV lengths (default Skv).
@@ -63,11 +64,17 @@ def flash_attention(q, k, v, *, kv_lens=None, causal: bool = False,
       to Skv - Sq under ``causal`` (suffix alignment), else 0.
     - ``page_table``: (B, n_pages) int32 — PAGED mode: ``k``/``v`` are page
       pools (P, Hkv, page_size, D) read through the table.
+    - ``k_scale`` / ``v_scale``: (P, Hkv, page_size) f32 scale pools of a
+      QUANTIZED paged cache (int8 or float8_e4m3fn pools): K/V widen to
+      ``q8 * scale`` at the point of use.  Paged mode only.
     """
     if page_table is not None:
         return _flash_paged(q, k, v, page_table, kv_lens=kv_lens,
                             causal=causal, window=window, q_offset=q_offset,
-                            scale=scale, impl=impl)
+                            scale=scale, impl=impl, k_scale=k_scale,
+                            v_scale=v_scale)
+    if k_scale is not None or v_scale is not None:
+        raise ValueError("quantized K/V scales require page_table (paged mode)")
     b, hq, sq, d = q.shape
     skv = k.shape[2]
     kv_lens, q_offset = _defaults(b, sq, skv, kv_lens, q_offset, causal,
@@ -82,8 +89,11 @@ def flash_attention(q, k, v, *, kv_lens=None, causal: bool = False,
 
 
 def _flash_paged(q, k_pool, v_pool, page_table, *, kv_lens, causal, window,
-                 q_offset, scale, impl):
-    """Paged dispatch: pools + page table instead of dense K/V."""
+                 q_offset, scale, impl, k_scale=None, v_scale=None):
+    """Paged dispatch: pools + page table instead of dense K/V; narrow pools
+    with their scale pools when quantized."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("a quantized cache needs both k_scale and v_scale")
     b, hq, sq, d = q.shape
     ps = k_pool.shape[2]
     n_pages = page_table.shape[1]
@@ -96,12 +106,17 @@ def _flash_paged(q, k_pool, v_pool, page_table, *, kv_lens, causal, window,
     page_table = torch.where(_paging.page_whilelt(kv_lens, n_pages, ps),
                              page_table.to(torch.int32), 0)
     if _use_plain(q, impl):
-        k = _paging.gather_pages(k_pool, page_table)
-        v = _paging.gather_pages(v_pool, page_table)
+        # the extending gather widens a quantized pool to f32 here
+        k = _paging.gather_pages(k_pool, page_table, scale=k_scale)
+        v = _paging.gather_pages(v_pool, page_table, scale=v_scale)
         return _ref.mha_ref(q, k, v, kv_lens=kv_lens, causal=causal,
                             window=window, q_offset=q_offset, scale=scale)
-    return _kernel.flash_paged_cuda(
-        q.contiguous(), k_pool.contiguous(), v_pool.contiguous(),
-        page_table.contiguous(), kv_lens, q_offset,
-        _window_vec(window, q.device), causal=causal,
-        scale=float(d ** -0.5) if scale is None else float(scale))
+    args = (q.contiguous(), k_pool.contiguous(), v_pool.contiguous())
+    kw = dict(causal=causal,
+              scale=float(d ** -0.5) if scale is None else float(scale))
+    rest = (page_table.contiguous(), kv_lens, q_offset,
+            _window_vec(window, q.device))
+    if k_scale is not None:
+        return _kernel.flash_paged_quant_cuda(
+            *args, k_scale.contiguous(), v_scale.contiguous(), *rest, **kw)
+    return _kernel.flash_paged_cuda(*args, *rest, **kw)

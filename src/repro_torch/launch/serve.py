@@ -4,10 +4,13 @@ one static batch through ``ServeEngine.generate`` (greedy).
     python -m repro_torch.launch.serve --arch stablelm_3b --static
     python -m repro_torch.launch.serve --arch stablelm_3b --static --no-reduce
     python -m repro_torch.launch.serve --arch zamba2_1_2b --static --page-size 16
+    python -m repro_torch.launch.serve --arch olmoe_1b_7b --static \
+        --page-size 16 --page-dtype int8
 
 Dims are reduced by default, as in ``repro.launch.serve``; ``--no-reduce``
-runs the published widths.  The continuous-batching scheduler (the JAX
-launcher's default mode), ``--mesh`` and ``--page-dtype`` are not ported
+runs the published widths.  ``--page-dtype int8|fp8`` stores the paged
+cache's pools narrow and needs ``--page-size``.  The continuous-batching
+scheduler (the JAX launcher's default mode) and ``--mesh`` are not ported
 yet and exit naming the ROADMAP item that ports them.
 """
 
@@ -34,13 +37,12 @@ REDUCE_FAMILY = {
     "ssm": dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16),
     "hybrid": dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16, n_layers=5,
                    shared_attn_period=2),
+    "moe": dict(n_experts=8, top_k=2, d_ff_dense=128),
 }
 
 # the JAX launcher's archs that the port cannot serve yet -> ROADMAP item
 PENDING_ARCHS = {
     "llama_3_2_vision_11b": "Queue 1 item 12 (dense VLM branch)",
-    "olmoe_1b_7b": "Queue 1 item 10 (moe)",
-    "moonshot_v1_16b_a3b": "Queue 1 item 10 (moe)",
     "command_r_plus_104b": "a config module (dense family, not ported yet)",
     "stablelm_12b": "a config module (dense family, not ported yet)",
     "gemma3_27b": "a config module (dense family, not ported yet)",
@@ -81,8 +83,9 @@ def main(argv=None):
                  "(ROADMAP Queue 1 item 7); run with --static")
     if args.mesh is not None:
         sys.exit("mesh-sharded serving is not ported yet (ROADMAP Queue 1 item 14)")
-    if args.page_dtype is not None:
-        sys.exit("quantized KV pages are not ported yet (ROADMAP Queue 1 item 9)")
+    if args.page_dtype is not None and args.page_size is None:
+        ap.error("--page-dtype requires --page-size (quantization lives in "
+                 "the page pools)")
     if args.temperature is not None:
         sys.exit("stochastic sampling is not ported yet (ROADMAP Queue 1 item 5)")
 
@@ -97,7 +100,8 @@ def main(argv=None):
                                    (args.batch, args.prompt_len)),
              "lens": rng.randint(4, args.prompt_len + 1, args.batch)}
     eng = ServeEngine(cfg, params, max_new_tokens=args.max_new, stop_token=7,
-                      paged_attn=args.paged_attn, device=device)
+                      paged_attn=args.paged_attn, page_dtype=args.page_dtype,
+                      device=device)
     res = eng.generate(batch, page_size=args.page_size)
     for i in range(args.batch):
         n = int(res["n_generated"][i])

@@ -1,12 +1,14 @@
-"""Model zoo of the port (the dense, ssm and hybrid families) and the cache
-lane and paged-layout interface of ``repro.models``.
+"""Model zoo of the port (the dense, moe, ssm and hybrid families) and the
+cache lane and paged-layout interface of ``repro.models``.
 
 A decode cache is a dict of tensors, each with ONE request-lane axis
 declared by the family's ``cache_batch_axes(cfg)``.  A paged cache replaces
 each KV tensor's per-lane token axis with a shared page POOL
 (``<key>_pages``: lead + (P, Hkv, page_size, D)) plus one per-lane int32
-``page_table`` (B, n_pages).  The lane movers below return new tensors;
-``paged_writeback`` writes the pools in place.
+``page_table`` (B, n_pages).  A QUANTIZED paged cache holds int8/fp8 pools
+with f32 scale pools (``<key>_pages_scale``: lead + (P, Hkv, page_size)).
+The lane movers below return new tensors; ``paged_writeback`` writes the
+pools in place.
 """
 
 from __future__ import annotations
@@ -20,15 +22,15 @@ from repro_torch.core import paging as PG
 from .config import ModelConfig  # noqa: F401
 
 # each ported family's module is named after it
-_PORTED = ("dense", "ssm", "hybrid")
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 # families still to port -> the ROADMAP item that ports them
-_PENDING = {"moe": "Queue 1 item 10", "encdec": "Queue 1 item 12"}
+_PENDING = {"encdec": "Queue 1 item 12"}
 
 
 def get_model(cfg: "ModelConfig"):
     """Return the module implementing cfg.family's model API:
     init(cfg, generator, device) -> the family's model (``DenseLM``,
-    ``SSMLM`` or ``HybridLM``); prefill(model, cfg, batch, cache) ->
+    ``MoELM``, ``SSMLM`` or ``HybridLM``); prefill(model, cfg, batch, cache) ->
     (logits_last, cache); decode(model, cfg, batch, cache) -> (logits,
     cache); make_cache / make_paged_cache / cache_batch_axes /
     paged_cache_spec."""
@@ -94,17 +96,28 @@ def is_paged(cache) -> bool:
     return isinstance(cache, dict) and "page_table" in cache
 
 
+def is_quantized(cache) -> bool:
+    """True when the paged cache stores its pools NARROW (int8/fp8) with
+    per-slot scale pools under ``<key>_pages_scale``."""
+    return isinstance(cache, dict) and any(
+        k.endswith("_pages_scale") for k in cache)
+
+
 def paged_decode_ok(cfg) -> bool:
     """True when cfg's family decode() consumes a paged cache natively."""
     fn = getattr(get_model(cfg), "paged_decode_ok", None)
     return bool(fn and fn(cfg))
 
 
-def to_paged(cfg, cache, *, page_size: int, pool_pages=None):
+def to_paged(cfg, cache, *, page_size: int, pool_pages=None, page_dtype=None):
     """Convert a DENSE cache to the paged layout with identity page tables
     (lane b's logical block j lives in physical page ``b * n_pages + j``).
     Token axes are zero-padded up to a page multiple.  Gathering the result
-    through ``paged_view`` reproduces the dense cache exactly."""
+    through ``paged_view`` reproduces the dense cache exactly.
+
+    With ``page_dtype`` the pools store NARROW: each token row truncates to
+    int8/fp8 against its absmax scale (``<key>_pages_scale``), and the round
+    trip through ``paged_view`` is identity up to quantization error."""
     spec = get_model(cfg).paged_cache_spec(cfg)
     if not spec:
         raise ValueError(f"family '{cfg.family}' has no pageable KV state")
@@ -117,21 +130,34 @@ def to_paged(cfg, cache, *, page_size: int, pool_pages=None):
     if pool_pages < need:
         raise ValueError(f"pool_pages={pool_pages} < {need} needed for the "
                          f"identity layout ({b} lanes x {n_pages} pages)")
+    qdt = PG.resolve_page_dtype(page_dtype)
     out = {k: v for k, v in cache.items() if k not in spec}
     for key, lead in spec.items():
         nl = len(lead)
         v = cache[key]                               # lead+(B,Hkv,S,D)
         hkv, s, d = v.shape[nl + 1:]
         pool = torch.zeros(lead + (pool_pages, hkv, page_size, d),
-                           dtype=v.dtype, device=v.device)
+                           dtype=v.dtype if qdt is None else qdt,
+                           device=v.device)
         # page-by-page copy: never holds a second padded copy of the cache
-        blocks = pool.narrow(nl, 0, need).view(
+        blocks = PG.as_bytes(pool).narrow(nl, 0, need).view(
             lead + (b, n_pages, hkv, page_size, d))
+        if qdt is not None:
+            scale = torch.zeros(lead + (pool_pages, hkv, page_size),
+                                dtype=torch.float32, device=v.device)
+            scales = scale.narrow(nl, 0, need).view(
+                lead + (b, n_pages, hkv, page_size))
+            out[key + "_pages_scale"] = scale
         for j in range(n_pages):
             lo, hi = j * page_size, min((j + 1) * page_size, s)
-            if lo < hi:
-                blocks.select(nl + 1, j).narrow(nl + 2, 0, hi - lo).copy_(
-                    v.narrow(nl + 2, lo, hi - lo))
+            if lo >= hi:
+                continue
+            src = v.narrow(nl + 2, lo, hi - lo)
+            if qdt is not None:                      # truncating store
+                src, sc = PG.quantize_block(src, qdt)
+                scales.select(nl + 1, j).narrow(nl + 2, 0, hi - lo).copy_(sc)
+            blocks.select(nl + 1, j).narrow(nl + 2, 0, hi - lo).copy_(
+                PG.as_bytes(src))
         out[key + "_pages"] = pool
     dev = cache[key0].device
     out["page_table"] = (
@@ -142,20 +168,24 @@ def to_paged(cfg, cache, *, page_size: int, pool_pages=None):
 
 def paged_view(cfg, cache):
     """Materialize the dense logical view of a paged cache through the page
-    table.  Non-paged per-lane entries pass through."""
+    table.  Non-paged per-lane entries pass through.  On a quantized cache
+    the gather widens the pools, so the view is f32."""
     spec = get_model(cfg).paged_cache_spec(cfg)
     table = cache["page_table"]
     out = {k: v for k, v in cache.items()
-           if k != "page_table" and not k.endswith("_pages")}
+           if k != "page_table" and not k.endswith("_pages")
+           and not k.endswith("_pages_scale")}
     for key, lead in spec.items():
         out[key] = PG.gather_pages(cache[key + "_pages"], table,
-                                   n_lead=len(lead))
+                                   n_lead=len(lead),
+                                   scale=cache.get(key + "_pages_scale"))
     return out
 
 
 def paged_writeback(cfg, cache, view, pos):
     """Scatter the ONE token a decode step wrote at per-lane position ``pos``
-    from the dense ``view`` back into the page pools (IN PLACE), and carry
+    from the dense ``view`` back into the page pools (IN PLACE; truncating
+    into the narrow pools and their scale pools when quantized), and carry
     the view's other per-lane state (pos, ...) across."""
     spec = get_model(cfg).paged_cache_spec(cfg)
     table = cache["page_table"]
@@ -172,8 +202,13 @@ def paged_writeback(cfg, cache, view, pos):
         idx = pos.clamp(0, s - 1).long().reshape((1,) * len(lead) + (-1, 1, 1, 1))
         idx = idx.expand(v.shape[:-2] + (1, v.shape[-1]))
         tok = v.gather(-2, idx)[..., 0, :]           # lead+(B,Hkv,D)
-        out[key + "_pages"] = PG.scatter_page(cache[key + "_pages"], page_ids,
-                                              offsets, tok, n_lead=len(lead))
+        sc = cache.get(key + "_pages_scale")
+        if sc is not None:
+            PG.scatter_page_q(cache[key + "_pages"], sc, page_ids, offsets,
+                              tok, n_lead=len(lead))
+        else:
+            PG.scatter_page(cache[key + "_pages"], page_ids, offsets, tok,
+                            n_lead=len(lead))
     for k, v in view.items():
         if k not in spec:
             out[k] = v

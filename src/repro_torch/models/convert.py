@@ -2,9 +2,11 @@
 
 ``from_jax_params`` takes the tree that the family's JAX ``init`` returns,
 after ``jax.tree.map(np.asarray, params)``: nested dicts of numpy arrays.
-dense and ssm stack ``blocks`` over a leading layer axis; hybrid stacks
-``main`` over (n_groups, period) and ``tail`` over its layers, and keeps
-``shared`` unstacked.  It imports no JAX: only numpy arrays cross over.
+dense and ssm stack ``blocks`` over a leading layer axis; moe stacks
+``dense_blocks`` (when ``first_k_dense``) and ``blocks`` over theirs, each
+MoE layer's expert weights whole (E, ...); hybrid stacks ``main`` over
+(n_groups, period) and ``tail`` over its layers, and keeps ``shared``
+unstacked.  It imports no JAX: only numpy arrays cross over.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 
-from . import dense, hybrid, ssm
+from . import dense, hybrid, moe, ssm
 
 
 def _copy(dst: torch.Tensor, src):
@@ -35,10 +37,10 @@ def _copy_module(mod, tree: dict, layer=None):
 
 
 def from_jax_params(cfg, params_np: dict, device=None):
-    """Build the port's model of ``cfg.family`` (``DenseLM``, ``SSMLM`` or
-    ``HybridLM``) from a numpy copy of the JAX params: matmul and conv
+    """Build the port's model of ``cfg.family`` (``DenseLM``, ``MoELM``,
+    ``SSMLM`` or ``HybridLM``) from a numpy copy of the JAX params: matmul and conv
     weights and embeddings cast to ``cfg.compute_dtype``; norms, ``A_log``,
-    ``D`` and ``dt_bias`` in f32."""
+    ``D``, ``dt_bias`` and the MoE router in f32."""
     dev = resolve_device(device)
     if cfg.family == "hybrid":
         model = hybrid.HybridLM(cfg, dev)
@@ -48,6 +50,12 @@ def from_jax_params(cfg, params_np: dict, device=None):
                 _copy_module(blk, params_np["main"], layer=(gi, li))
         for li, blk in enumerate(model.tail):
             _copy_module(blk, params_np["tail"], layer=li)
+    elif cfg.family == "moe":
+        model = moe.MoELM(cfg, dev)
+        for li, blk in enumerate(model.dense_blocks):
+            _copy_module(blk, params_np["dense_blocks"], layer=li)
+        for li, blk in enumerate(model.blocks):
+            _copy_module(blk, params_np["blocks"], layer=li)
     else:
         model = (ssm.SSMLM if cfg.family == "ssm" else dense.DenseLM)(cfg, dev)
         for li, blk in enumerate(model.blocks):

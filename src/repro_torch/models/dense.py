@@ -101,12 +101,13 @@ def paged_cache_spec(cfg):
 
 
 def make_paged_cache(cfg, batch_size: int, max_len: int, *, page_size: int,
-                     pool_pages: int, dtype=None, device):
-    """Paged decode cache: shared page pools + per-lane page table + pos."""
+                     pool_pages: int, dtype=None, page_dtype=None, device):
+    """Paged decode cache: shared page pools + per-lane page table + pos;
+    with ``page_dtype`` ("int8" / "fp8") narrow pools + scale pools."""
     dtype = dtype or L.cdt(cfg)
     cache = PG.alloc_pools(paged_cache_spec(cfg), pool_pages, page_size,
                            cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
-                           device=device)
+                           device=device, page_dtype=page_dtype)
     cache["page_table"] = torch.zeros(
         (batch_size, PG.pages_needed(max_len, page_size)), dtype=torch.int32,
         device=device)
@@ -142,7 +143,7 @@ def prefill(model: DenseLM, cfg, batch, cache):
     for li, blk in enumerate(model.blocks):
         h, _ = L.block_apply(blk, h, positions, cfg, causal=True,
                              window=wins[li], kv_lens=kv_lens, q_offset=pos0,
-                             cache=(cache["k"][li], cache["v"][li]),
+                             cache=L.layer_cache(cache, "", li),
                              cache_pos=pos0)
     cache = dict(cache)
     cache["pos"] = pos0 + lens
@@ -158,24 +159,19 @@ def decode(model: DenseLM, cfg, batch, cache):
     """One-token decode: batch = {"token": (B, 1)}.  Returns (logits, cache).
 
     Reads a dense cache (``k``/``v``) or a paged one (``k_pages``/
-    ``v_pages`` + ``page_table``); either way each layer writes its new K/V
-    IN PLACE at the lane's position before attending over the cache.
+    ``v_pages`` + ``page_table``, + ``k_pages_scale``/``v_pages_scale`` when
+    quantized); either way each layer writes its new K/V IN PLACE at the
+    lane's position before attending over the cache.
     """
     token = batch["token"]
     pos = cache["pos"]                              # (B,) current lengths
     positions = pos[:, None]
     h = L.embed(model.embed, token, cfg)
     wins = layer_windows(cfg, token.device)
-    paged = "k_pages" in cache
     for li, blk in enumerate(model.blocks):
-        if paged:
-            layer_cache = (cache["k_pages"][li], cache["v_pages"][li],
-                           cache["page_table"])
-        else:
-            layer_cache = (cache["k"][li], cache["v"][li])
         h, _ = L.block_apply(blk, h, positions, cfg, causal=False,
                              window=wins[li], kv_lens=pos + 1, q_offset=pos,
-                             cache=layer_cache, cache_pos=pos)
+                             cache=L.layer_cache(cache, "", li), cache_pos=pos)
     cache = dict(cache)
     cache["pos"] = pos + 1
     h = L.apply_norm(model.final_norm, h, cfg)

@@ -111,14 +111,15 @@ def paged_cache_spec(cfg):
 
 
 def make_paged_cache(cfg, batch_size: int, max_len: int, *, page_size: int,
-                     pool_pages: int, dtype=None, device):
+                     pool_pages: int, dtype=None, page_dtype=None, device):
     """Paged decode cache: the per-lane SSM state, one page pool per group
-    for the shared block's K/V, the per-lane page table and pos."""
+    for the shared block's K/V (narrow + scale pools with ``page_dtype``),
+    the per-lane page table and pos."""
     dtype = dtype or L.cdt(cfg)
     cache = _ssm_cache(cfg, batch_size, dtype, device)
     cache.update(PG.alloc_pools(paged_cache_spec(cfg), pool_pages, page_size,
                                 cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
-                                device=device))
+                                device=device, page_dtype=page_dtype))
     cache["page_table"] = torch.zeros(
         (batch_size, PG.pages_needed(max_len, page_size)), dtype=torch.int32,
         device=device)
@@ -131,20 +132,15 @@ def _run(model: HybridLM, cfg, x, positions, cache, *, lens, q_offset,
     PLACE: each group's blocks, then the shared block on that group's K/V
     slot (``cache["shared_k"][gi]``, or the group's pools ``[gi]``: views,
     so the in-place K/V write reaches the cache), then the tail."""
-    paged = "shared_k_pages" in cache
     h = x
     for gi, group in enumerate(model.main):
         for li, blk in enumerate(group):
             h = S.run_block(blk, h, cfg, cache["conv"][gi, li],
                             cache["state"][gi, li], lens=lens,
                             decode_step=decode_step)
-        if paged:
-            kv = (cache["shared_k_pages"][gi], cache["shared_v_pages"][gi],
-                  cache["page_table"])
-        else:
-            kv = (cache["shared_k"][gi], cache["shared_v"][gi])
         h, _ = L.block_apply(model.shared, h, positions, cfg, causal=causal,
-                             kv_lens=kv_lens, q_offset=q_offset, cache=kv,
+                             kv_lens=kv_lens, q_offset=q_offset,
+                             cache=L.layer_cache(cache, "shared_", gi),
                              cache_pos=cache_pos)
     for li, blk in enumerate(model.tail):
         h = S.run_block(blk, h, cfg, cache["tail_conv"][li],

@@ -236,6 +236,22 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     return k_cache, v_cache
 
 
+def layer_cache(cache: dict, prefix: str, i: int):
+    """Slot ``i`` of the K/V stack ``prefix + "k"``/``prefix + "v"`` of a
+    cache dict, as ``attention`` takes it: views of the dense cache, or the
+    paged 3-tuple with the page table, or the quantized 5-tuple with the
+    scale pools — views, so the layer's in-place K/V write reaches the
+    cache."""
+    if "page_table" not in cache:
+        return (cache[prefix + "k"][i], cache[prefix + "v"][i])
+    kv = (cache[prefix + "k_pages"][i], cache[prefix + "v_pages"][i],
+          cache["page_table"])
+    if prefix + "k_pages_scale" in cache:
+        kv += (cache[prefix + "k_pages_scale"][i],
+               cache[prefix + "v_pages_scale"][i])
+    return kv
+
+
 def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
               kv_lens=None, q_offset=None, cache=None, cache_pos=None,
               use_rope=True):
@@ -243,9 +259,12 @@ def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
 
     - ``cache``: dense ``(k_cache, v_cache)`` of shape (B, Hkv, Smax, Dh), or
       the paged ``(k_pool, v_pool, page_table)`` of a decode step (Snew ==
-      1).  New K/V are written IN PLACE at ``cache_pos`` (B,) — into the
-      lane's row of the dense cache, or scatter-stored into its tail page —
-      and attention runs over the cache.
+      1), or the QUANTIZED paged ``(k_pool, v_pool, page_table, k_scale,
+      v_scale)`` with int8/fp8 pools and (P, Hkv, ps) f32 scale pools.  New
+      K/V are written IN PLACE at ``cache_pos`` (B,) — into the lane's row of
+      the dense cache, or scatter-stored into its tail page (truncated to
+      the narrow type first, so the token attends to its own quantized K/V)
+      — and attention runs over the cache.
     - ``window``: None | int | 0-d tensor (sliding window; 2**30 = global).
     """
     hd = cfg.resolved_head_dim
@@ -263,34 +282,41 @@ def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
         k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
 
     new_cache = None
-    page_table = None
+    page_table = k_sc = v_sc = None
     if cache is not None:
-        if len(cache) == 3:
+        if len(cache) in (3, 5):
             # paged: scatter-store the new token into the lane's tail page;
             # attention reads K/V through the page table.  The page column
-            # clips as in JAX, so a position past the table reuses its last page
-            k_pool, v_pool, page_table = cache
+            # clips as in JAX, so a position past the table reuses its last
+            # page.  The 5-tuple truncates on store and widens in the gather
+            k_pool, v_pool, page_table = cache[:3]
             ps = k_pool.shape[2]
             page_col = (cache_pos // ps).clamp(0, page_table.shape[1] - 1)
             page_ids = page_table.gather(1, page_col[:, None].long())[:, 0]
             off = cache_pos % ps
-            PG.scatter_page(k_pool, page_ids, off, k[:, :, 0, :])
-            PG.scatter_page(v_pool, page_ids, off, v[:, :, 0, :])
-            k, v = k_pool.to(cdt(cfg)), v_pool.to(cdt(cfg))
-            new_cache = (k_pool, v_pool)
+            if len(cache) == 5:
+                k_sc, v_sc = cache[3], cache[4]
+                PG.scatter_page_q(k_pool, k_sc, page_ids, off, k[:, :, 0, :])
+                PG.scatter_page_q(v_pool, v_sc, page_ids, off, v[:, :, 0, :])
+                k, v = k_pool, v_pool
+                new_cache = (k_pool, v_pool, k_sc, v_sc)
+            else:
+                PG.scatter_page(k_pool, page_ids, off, k[:, :, 0, :])
+                PG.scatter_page(v_pool, page_ids, off, v[:, :, 0, :])
+                k, v = k_pool.to(cdt(cfg)), v_pool.to(cdt(cfg))
+                new_cache = (k_pool, v_pool)
         elif len(cache) == 2:
             k_cache, v_cache = update_kv_cache(cache[0], cache[1], k, v,
                                                cache_pos)
             k, v = k_cache.to(cdt(cfg)), v_cache.to(cdt(cfg))
             new_cache = (k_cache, v_cache)
         else:
-            raise NotImplementedError(
-                "quantized (5-tuple) paged caches are not ported yet "
-                "(ROADMAP Queue 1 item 9)")
+            raise ValueError(f"a cache is a 2-, 3- or 5-tuple, got {len(cache)}")
 
     out = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal,
                           window=window, q_offset=q_offset,
-                          impl=cfg.attn_impl, page_table=page_table)
+                          impl=cfg.attn_impl, page_table=page_table,
+                          k_scale=k_sc, v_scale=v_sc)
     out = _merge_heads(out).to(cdt(cfg)) @ p.wo
     if cfg.use_bias:
         out = out + p.bo

@@ -252,7 +252,7 @@ def paged_cache_spec(cfg):
 
 def make_paged_cache(cfg, batch_size: int, max_len: int = 0, *,
                      page_size: int = 0, pool_pages: int = 0, dtype=None,
-                     device=None):
+                     page_dtype=None, device=None):
     raise ValueError(
         "ssm caches carry no per-token KV state; paging does not apply — "
         "serve this family with the dense cache (it is already O(1)/lane)")

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import paging as PG
 from repro_torch.core import predicate as P
 from repro_torch.core.device import resolve_device
 from repro_torch.models import (get_model, is_paged, paged_decode_ok,
@@ -40,8 +41,8 @@ def _is_greedy(sampling) -> bool:
 @dataclasses.dataclass
 class ServeEngine:
     """Generation engine over one model config + weights: the family's
-    model (``DenseLM``, ``SSMLM`` or ``HybridLM``), whose ``device`` says
-    where the weights live.
+    model (``DenseLM``, ``MoELM``, ``SSMLM`` or ``HybridLM``), whose
+    ``device`` says where the weights live.
 
     ``device`` defaults to the card and raises if it is absent; pass
     ``device="cpu"`` to run on the CPU.  The weights must already live on
@@ -56,6 +57,11 @@ class ServeEngine:
     # attention; "gather" is the reference oracle: materialize the dense
     # view, run the dense decode, scatter the one new token back
     paged_attn: str = "native"
+    # quantized KV pages: None (full precision) or "int8" / "fp8" — pools
+    # store narrow elements with per-slot absmax scale pools alongside
+    # (``<key>_pages_scale``), widened where attention reads them.  Applies
+    # to every paged cache this engine allocates or converts
+    page_dtype: Optional[str] = None
     device: object = None
 
     def __post_init__(self):
@@ -63,6 +69,7 @@ class ServeEngine:
         if self.paged_attn not in ("native", "gather"):
             raise ValueError(f"paged_attn must be 'native' or 'gather', "
                              f"got {self.paged_attn!r}")
+        PG.resolve_page_dtype(self.page_dtype)       # validate eagerly
         self.model = get_model(self.cfg)
         dev = self.params.device
         if dev.type != self.device.type or (
@@ -80,10 +87,12 @@ class ServeEngine:
 
     def make_paged_cache(self, b: int, max_len: int, *, page_size: int,
                          pool_pages: int):
-        """Allocate a paged cache: shared page pools + per-lane page table."""
+        """Allocate a paged cache: shared page pools + per-lane page table
+        (narrow pools + scale pools when the engine has a ``page_dtype``)."""
         return self.model.make_paged_cache(self.cfg, b, max_len,
                                            page_size=page_size,
                                            pool_pages=pool_pages,
+                                           page_dtype=self.page_dtype,
                                            device=self.device)
 
     # ------------------------------------------------------------------
@@ -115,7 +124,8 @@ class ServeEngine:
     def _cached_decode(self, batch, cache):
         """One decode step against a dense OR paged cache (native paged, or
         the "gather" oracle: dense view through the table, unchanged decode,
-        the new token scattered back)."""
+        the new token scattered back; on a quantized cache the oracle
+        dequantizes the same pool bytes and truncates the new token back)."""
         if not is_paged(cache):
             return self.model.decode(self.params, self.cfg, batch, cache)
         if self.paged_attn != "gather" and paged_decode_ok(self.cfg):
@@ -137,7 +147,8 @@ class ServeEngine:
         arrays).  Greedy only: ``sampling`` must be None, or greedy per lane.
 
         With ``page_size`` the prefilled cache is converted to the PAGED
-        layout (identity page tables) before the decode loop.  Returns dict
+        layout (identity page tables; narrow pools with the engine's
+        ``page_dtype``) before the decode loop.  Returns dict
         with tokens (B, max_new), n_generated (B,), the final active
         partition, and the cache.
         """
@@ -157,7 +168,7 @@ class ServeEngine:
             self.params, self.cfg, {"tokens": tokens, "lens": lens}, cache)
         if page_size is not None:
             cache = to_paged(self.cfg, cache, page_size=page_size,
-                             pool_pages=pool_pages)
+                             pool_pages=pool_pages, page_dtype=self.page_dtype)
         first_tok = greedy_tokens(logits)
 
         max_new = self.max_new_tokens

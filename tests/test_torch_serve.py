@@ -154,11 +154,29 @@ def test_launcher_serves_zamba2_dense_and_paged(capsys):
     assert outs[0] == outs[1] and outs[0].count("req") == 2
 
 
+@pytest.mark.parametrize("argv", [
+    ["--arch", "olmoe_1b_7b"],
+    ["--arch", "zamba2_1_2b", "--page-size", "4", "--page-dtype", "int8"],
+])
+def test_launcher_serves_moe_and_quantized_pages(argv, capsys):
+    """``launch.serve --static`` serves the moe family (the JAX launcher's
+    reduced experts) and int8 pages on the CPU."""
+    from repro_torch.launch import serve
+    serve.main(["--static", "--device", "cpu", "--batch", "2", "--max-new",
+                "3"] + argv)
+    assert capsys.readouterr().out.count("req") == 2
+
+
+def test_launcher_page_dtype_needs_page_size(capsys):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--static", "--device", "cpu", "--page-dtype", "int8"])
+    assert "--page-dtype requires --page-size" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("argv,item", [
     ([], "Queue 1 item 7"),
     (["--static", "--mesh", "1x1"], "Queue 1 item 14"),
-    (["--static", "--page-dtype", "int8"], "Queue 1 item 9"),
-    (["--static", "--arch", "olmoe_1b_7b"], "Queue 1 item 10"),
     (["--static", "--arch", "llama_3_2_vision_11b"], "Queue 1 item 12"),
     (["--static", "--arch", "seamless_m4t_large_v2"], "Queue 1 item 12"),
 ])

@@ -7,7 +7,10 @@ them.  The dense config is the ``BASE`` of ``test_paged_cache.py`` with
 stablelm's layernorm and 25% partial rotary, in f32; ``FAMILY`` holds the
 overrides of the ssm (2 layers) and hybrid (3 layers, the shared block
 every 2, so one group and a one-block tail) twins, at the JAX launcher's
-reduced SSM sizes.
+reduced SSM sizes, and of the moe twins: the moe config of
+``test_paged_cache._family_cfg`` (one dense layer, 4 experts top-2,
+capacity factor 4.0 so nothing drops) with olmoe's rmsnorm and qk-norm, and
+a ``moe_shared`` variant with one shared expert.
 """
 
 import functools
@@ -27,9 +30,14 @@ BASE = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
 TOL = dict(atol=1e-4, rtol=1e-4)
 _SSM = dict(norm="rmsnorm", partial_rotary_factor=1.0, ssm_state=16,
             ssm_headdim=16, ssm_chunk=16)
+_MOE = dict(family="moe", norm="rmsnorm", partial_rotary_factor=1.0,
+            qk_norm=True, first_k_dense=1, n_experts=4, top_k=2,
+            capacity_factor=4.0)
 FAMILY = {
     "ssm": dict(_SSM, family="ssm"),
     "hybrid": dict(_SSM, family="hybrid", n_layers=3, shared_attn_period=2),
+    "moe": dict(_MOE),
+    "moe_shared": dict(_MOE, n_shared_experts=1),
 }
 
 
@@ -51,7 +59,7 @@ def models(seed=0, **over):
 
 
 def family_models(family, seed=0):
-    """``models`` for the ssm or hybrid twin."""
+    """``models`` for the twin of ``FAMILY[family]``."""
     return models(seed, **FAMILY[family])
 
 
