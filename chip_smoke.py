@@ -8,19 +8,24 @@
    attention in f32 at atol = rtol = 1e-5, over int8/fp8 pools at 1e-4 as
    the widened values differ from the plain path's by rounding; the SSD
    scan in f32 at 1e-4 as its exp and cumsum run in another order; bf16 at
-   2e-2, the output being rounded to bf16; the MoE dispatch ranks exactly),
-   and times each at the shapes the serving path gives it, beside its plain
-   version, its roofline bound and (dense attention only) one PyTorch
-   library call.
+   2e-2, the output being rounded to bf16; the MoE dispatch ranks, the
+   ordered ``fadda`` sums and scans and ``daxpy`` exactly, bit for bit),
+   checks the threefry bits on the card against the CPU's, and times each
+   kernel at the shapes its path gives it, beside its plain version, its
+   bound and, where one exists, one PyTorch library call.
 3. Serves 8 greedy requests through ``ServeEngine.generate`` at the full
    width of stablelm-3b (dense family), zamba2-1.2b (hybrid), mamba2-130m
    (ssm) and olmoe-1b-7b (moe), random weights from seed 0, with the dense
    and (where the family pages) the paged KV cache, full precision and
-   int8/fp8, counting kernel launches in each run, and checks the outputs:
-   finite logits, launch counts, first-step logits against the plain path,
-   across cache layouts, and of quantized native decode against the gather
-   oracle over the same pool bytes and against a truncating oracle.
-4. Prints the ``kernels`` JSON line, the card's name and power limit, and
+   int8/fp8, then one mixed batch (4 greedy, 4 stochastic lanes) on the
+   dense cache, counting kernel launches in each run, and checks the
+   outputs: finite logits, launch counts, first-step logits against the
+   plain path, across cache layouts, and of quantized native decode against
+   the gather oracle over the same pool bytes and against a truncating
+   oracle; the mixed batch's greedy lanes against the all-greedy run and its
+   stochastic lanes' first tokens against the keep set of the plain path.
+4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
+5. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without a result.
@@ -46,16 +51,29 @@ ROOT = Path(__file__).resolve().parent
 SRC_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SRC_SSD = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SRC_MOE = "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch.cu"
+SRC_FADDA = "src/repro_torch/kernels/fadda/csrc/fadda.cu"
+SRC_DAXPY = "src/repro_torch/kernels/daxpy/csrc/daxpy.cu"
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
+FADD_CYCLES = 4                 # latency of a dependent f32 add on Hopper
 N_REQ, MAX_NEW, PAGE_SIZE = 8, 64, 16
 
 
-def card() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def smi(query: str) -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+def card() -> str:
+    return smi("name,power.limit")
+
+
+def max_sm_clock_hz() -> float:
+    """The SM clock the chain bound of ``fadda`` is computed at."""
+    return float(smi("clocks.max.sm").split()[0]) * 1e6
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -101,6 +119,8 @@ def rel_err(got, want) -> float:
 
 def kernel_wrappers():
     """Each kernel's name -> its wrapper, which holds the launch count."""
+    from repro_torch.kernels.daxpy import kernel as DK
+    from repro_torch.kernels.fadda import kernel as FK
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -108,7 +128,9 @@ def kernel_wrappers():
             "flash_attention_paged": K.flash_paged_cuda,
             "flash_attention_paged_quant": K.flash_paged_quant_cuda,
             "ssd_scan": SK.ssd_scan_cuda,
-            "moe_positions": MK.moe_positions_cuda}
+            "moe_positions": MK.moe_positions_cuda,
+            "fadda": FK.fadda_rows_cuda,
+            "daxpy": DK.daxpy_cuda}
 
 
 def reset_counts() -> None:
@@ -125,12 +147,15 @@ def read_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 def build_all():
+    from repro_torch.kernels.daxpy import kernel as DK
+    from repro_torch.kernels.fadda import kernel as FK
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.kernels.ssd_scan import kernel as SK
 
     libs = {"flash_attention": K.LIBRARY, "ssd_scan": SK.LIBRARY,
-            "moe_dispatch": MK.LIBRARY}
+            "moe_dispatch": MK.LIBRARY, "fadda": FK.LIBRARY,
+            "daxpy": DK.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(lib.build) for name, lib in libs.items()}
@@ -313,6 +338,144 @@ def check_moe_positions():
           f"(exact): {len(cases)} cases, (T, K, E) in {cases}", flush=True)
 
 
+def _same_bits(got, want) -> bool:
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(got.contiguous().view(torch.int32),
+                            want.contiguous().view(torch.int32)))
+
+
+def sorted_probs(gen, rows, v):
+    """Rows of softmax probabilities sorted descending, as the top-p scan
+    sees them (logits with a spread like a language model's)."""
+    logits = torch.randn(rows, v, generator=gen, device="cuda") * 3.0
+    return torch.sort(torch.softmax(logits, dim=-1), dim=-1,
+                      descending=True).values.contiguous()
+
+
+def check_fadda():
+    """The ordered kernel against the plain loop (``fadda_scan_plain``) on
+    the card, bit for bit, and the op against the numpy scalar loop: n not a
+    multiple of the block, blocks 8 to 1024, rows that start off a 16-byte
+    boundary, block 128 and 512 giving the same bits, the adversarial
+    sequence of §2.4, init = -0.0 with n = 0 (masked lanes add +0.0) and an
+    empty row (init kept), and the row scan of (8, 50304) sorted softmax
+    probabilities, with every row's n and ragged n."""
+    from repro_torch.core.reductions import pairwise_sum
+    from repro_torch.kernels.fadda import fadda, fadda_rows
+    from repro_torch.kernels.fadda.ref import fadda_ref, fadda_scan_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n_cases = 0
+    for length, n, block in ((600, 600, 128), (600, 421, 128), (1024, 1024, 512),
+                             (3, 3, 512), (4096, 4095, 1024), (5000, 4097, 8)):
+        x = torch.randn(length + 1, generator=gen, device="cuda")
+        for xv in (x[:length], x[1:]):        # 16-byte aligned, and not
+            got = fadda(xv, n, block=block)
+            want = fadda_scan_plain(xv[None], n, 0.0)[0, -1]
+            ref = fadda_ref(xv.cpu().numpy(), n)
+            check(_same_bits(got, want) and
+                  np.float32(got.item()).tobytes() == ref.tobytes(),
+                  f"fadda ({length}, n={n}, block={block}) equal to the loop")
+            n_cases += 1
+    adv = torch.tensor([1e8, 1.0, -1e8, 1.0] * 64, device="cuda")
+    want = fadda_ref(adv.cpu().numpy())
+    for block in (128, 512):
+        got = np.float32(fadda(adv, block=block).item())
+        check(got.tobytes() == want.tobytes(), f"adversarial fadda at block {block}")
+    check(np.float32(pairwise_sum(adv).item()) != want,
+          "the adversarial sum differs from the tree sum")
+    x = torch.randn(2, 16, generator=gen, device="cuda")
+    out, part = fadda_rows(x, n=0, init=-0.0, partials=True)
+    want = fadda_scan_plain(x, 0, -0.0)
+    check(_same_bits(part, want) and _same_bits(out, want[:, -1])
+          and not torch.signbit(out).any(),
+          "init -0.0, n = 0: every masked lane adds +0.0")
+    out, _ = fadda_rows(torch.empty(1, 0, device="cuda"), n=0, init=-0.0,
+                        partials=True)
+    check(bool(torch.signbit(out).all()), "an empty row keeps init -0.0")
+    sp = sorted_probs(gen, 8, 50304)
+    want = fadda_scan_plain(sp, 50304, 0.0)
+    scans = {}
+    for block in (128, 512):
+        out, scans[block] = fadda_rows(sp, partials=True, block=block)
+        check(_same_bits(scans[block], want) and _same_bits(out, want[:, -1]),
+              f"(8, 50304) probability scan at block {block}")
+    ragged = torch.tensor([50304, 50303, 1, 0, 4096, 777, 50304, 30000],
+                          dtype=torch.int32, device="cuda")
+    init = torch.linspace(-1, 1, 8, device="cuda")
+    out, part = fadda_rows(sp, ragged, init, partials=True)
+    want = fadda_scan_plain(sp, ragged, init)
+    check(_same_bits(part, want) and _same_bits(out, want[:, -1]),
+          "(8, 50304) scan with ragged n and per-row init")
+    print(f"[kernels] fadda checked against the plain loop, bit for bit: "
+          f"{n_cases} op cases, the adversarial sequence, -0.0, the (8, 50304) "
+          f"probability scan at blocks 128 and 512, ragged n", flush=True)
+
+
+def check_daxpy():
+    """The daxpy kernel against ``daxpy_ref`` on the card, bit for bit, in
+    f32 and bf16: n inside the array (the merged tail equal to y), n = len,
+    n past len, lengths that are not a multiple of the 16-byte chunk, blocks
+    128 to 2048, and x, y one element off a 16-byte boundary."""
+    from repro_torch.kernels.daxpy import daxpy
+    from repro_torch.kernels.daxpy.ref import daxpy_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for length, n, block in ((1000, 777, 128), (1000, 1000, 256), (50, 10, 128),
+                                 (2 ** 20 + 3, 2 ** 20 - 5, 2048), (4099, 5000, 512)):
+            x = torch.randn(length + 1, generator=gen, device="cuda").to(dtype)
+            y = torch.randn(length + 1, generator=gen, device="cuda").to(dtype)
+            for xv, yv in ((x[:length], y[:length]), (x[1:], y[1:])):
+                got = daxpy(xv, yv, 1.7, n, block=block)
+                want = daxpy_ref(xv, yv, torch.tensor(1.7, dtype=dtype), n)
+                check(got.dtype == dtype and torch.equal(got, want)
+                      and torch.equal(got[n:], yv[n:]),
+                      f"daxpy {dtype} ({length}, n={n}, block={block}) equal "
+                      "to the plain version, tail unchanged")
+                n_cases += 1
+    print(f"[kernels] daxpy checked against daxpy_ref, bit for bit: {n_cases} "
+          "cases in f32 and bf16", flush=True)
+
+
+def mixed_specs():
+    """Lanes 0-3 greedy, lanes 4-7 stochastic with their own seeds."""
+    from repro_torch.sample import SamplingParams
+    return [None] * 4 + [
+        SamplingParams(temperature=0.8, top_k=50, top_p=0.9, min_p=0.05,
+                       repetition_penalty=1.1, seed=100 + i, greedy=False)
+        for i in range(4)]
+
+
+def check_prng(v: int = 50304):
+    """The threefry of ``sample.prng`` on the card against the same code on
+    the CPU for the mixed batch's keys: lane keys, three steps of the key
+    chain, the random bits and uniforms of a (8, V) draw, bit for bit; the
+    Gumbel noise (two ``log``s, whose last bit may differ between the two
+    devices) is reported."""
+    from repro_torch.sample import lane_state, prng, split_keys
+
+    st = {d: lane_state(mixed_specs(), N_REQ, device=d) for d in ("cuda", "cpu")}
+    check(torch.equal(st["cuda"]["key"].cpu(), st["cpu"]["key"]), "lane keys")
+    worst_g = 0.0
+    for _ in range(3):
+        (st["cuda"], sub_c), (st["cpu"], sub_h) = (split_keys(st["cuda"]),
+                                                  split_keys(st["cpu"]))
+        check(torch.equal(sub_c.cpu(), sub_h) and
+              torch.equal(st["cuda"]["key"].cpu(), st["cpu"]["key"]),
+              "split keys on the card equal the CPU's")
+        check(torch.equal(prng.random_bits(sub_c, (v,)).cpu(),
+                          prng.random_bits(sub_h, (v,))), "random bits")
+        check(_same_bits(prng.uniform(sub_c, (v,)).cpu(), prng.uniform(sub_h, (v,))),
+              "uniforms")
+        worst_g = max(worst_g, float((prng.gumbel(sub_c, (v,)).cpu()
+                                      - prng.gumbel(sub_h, (v,))).abs().max()))
+    print(f"[kernels] threefry on the card equals the CPU bit for bit (keys, 3 "
+          f"splits, bits and uniforms of ({N_REQ}, {v})); Gumbel noise max "
+          f"|card - CPU| {worst_g:.3g} (reported)", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 2b: time each kernel at the serving path's shapes
 # ---------------------------------------------------------------------------
@@ -481,6 +644,96 @@ def time_moe_positions(lens, gpu):
     return rows
 
 
+def time_fadda(v, gpu):
+    """The ordered kernel at its two calls: the top-p scan of (8, V) sorted
+    probabilities with every partial (once per stochastic sampling step),
+    and the ``fadda`` op at n = 4096.  Beside the plain loop and the bound:
+    the larger of the bytes at the memory rate and the dependency chain,
+    n dependent adds of FADD_CYCLES at the card's maximum SM clock.  No
+    PyTorch call promises this order, so the library column is null; the
+    time of ``torch.cumsum``, a different function, is printed for context."""
+    from repro_torch.kernels.fadda import kernel as FK
+    from repro_torch.kernels.fadda.ref import fadda_scan_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    clock = max_sm_clock_hz()
+    rows = {}
+    sp = sorted_probs(gen, N_REQ, v)
+    x = torch.randn(1, 4096, generator=gen, device="cuda")
+    for name, xs, partials in (("scan", sp, True), ("op", x, False)):
+        r, c = xs.shape
+        n_t = torch.full((r,), c, dtype=torch.int32, device="cuda")
+        init = torch.zeros(r, device="cuda")
+        kern = lambda: FK.fadda_rows_cuda(xs, n_t, init, partials=partials,
+                                          block=512)
+        out, part = kern()
+        # the plain loop is c host launches of (r,) adds: time the one call
+        # that the check needs (check_fadda ran the same loop before)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = fadda_scan_plain(xs, c, 0.0)
+        end.record()
+        torch.cuda.synchronize()
+        check(_same_bits(out, want[:, -1]) and
+              (part is None or _same_bits(part, want)),
+              f"fadda {name} at ({r}, {c}) equal to the plain loop")
+        chain_ms = c * FADD_CYCLES / clock * 1e3
+        nbytes = 4 * xs.numel() * (2 if partials else 1) + 4 * r * 3
+        rows[name] = dict(
+            shape=f"x ({r}, {c}) f32{', every partial' if partials else ''}",
+            ms=time_ms(kern, 50), plain_ms=start.elapsed_time(end),
+            library_ms=None, cumsum_ms=time_ms(lambda: torch.cumsum(xs, -1), 50),
+            bytes=nbytes, chain_ms=chain_ms, max_abs_err=0.0)
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        rows[name].update(bound_ms=max(chain_ms, bytes_ms),
+                          bound_by="operations" if chain_ms >= bytes_ms else "bytes")
+    for name, r in rows.items():
+        print(f"[time] fadda {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library null (no PyTorch call promises "
+              f"this order; torch.cumsum, a different function: "
+              f"{r['cumsum_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: chain of {FADD_CYCLES}-cycle adds at "
+              f"{clock / 1e9:.3f} GHz {r['chain_ms']:.4f} ms, bytes "
+              f"{r['bytes'] / PEAK_BYTES * 1e3:.4f} ms), exact  [{gpu}]", flush=True)
+    return rows
+
+
+def time_daxpy(gpu):
+    """The daxpy kernel at n = 2^26 - 3 in f32 (the whole array active, its
+    length not a multiple of the 16-byte chunk), beside the plain version,
+    the bound (12 bytes an element at the memory rate; 2 f32 operations an
+    element at the f32 peak) and one library call, ``add_(alpha=)`` in
+    place on a copy of y."""
+    from repro_torch.kernels.daxpy import kernel as DK
+    from repro_torch.kernels.daxpy.ref import daxpy_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n = 2 ** 26 - 3
+    x = torch.randn(n, generator=gen, device="cuda")
+    y = torch.randn(n, generator=gen, device="cuda")
+    y_lib = y.clone()
+    a = torch.tensor(2.5)
+    kern = lambda: DK.daxpy_cuda(x, y, 2.5, n, block=2048)
+    plain = lambda: daxpy_ref(x, y, a, n)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "daxpy at 2^26 - 3 equal to the plain version")
+    del got, want
+    r = dict(shape=f"x, y ({n},) f32", ms=time_ms(kern, 30),
+             plain_ms=time_ms(plain, 10),
+             library_ms=time_ms(lambda: y_lib.add_(x, alpha=2.5), 30),
+             bytes=12 * n, max_abs_err=0.0)
+    t_ops = 2 * n / PEAK_F32_FLOPS * 1e3
+    t_bytes = r["bytes"] / PEAK_BYTES * 1e3
+    r.update(bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"[time] daxpy: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+          f"(add_(alpha=)), bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+          f"{r['bytes'] / 1e6:.1f} MB), exact  [{gpu}]", flush=True)
+    return {"f32": r}
+
+
 def _ssd_inputs(gen, bz, s, h, p, n, dtype):
     """Random SSD inputs at the scales of the JAX package's tests."""
     r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
@@ -644,8 +897,29 @@ def truncating_kv_store(page_dtype):
         L.update_kv_cache = store
 
 
-def _want_launches(cfg, page_size, page_dtype, steps):
-    """Each kernel's launches in one ``generate`` of the smoke workload."""
+@contextlib.contextmanager
+def plain_fadda():
+    """Within the block, ``core.reductions`` runs its ordered sums by the
+    plain loop (``fadda_scan_plain``) on the card instead of the kernel: the
+    plain path of the sampler."""
+    from repro_torch.core import reductions as R
+    from repro_torch.kernels.fadda.ref import fadda_scan_plain
+
+    kernel = R.fadda_rows
+
+    def plain(rows, n=None, init=0.0, *, partials):
+        scan = fadda_scan_plain(rows, rows.shape[1] if n is None else n, init)
+        return scan[:, -1], (scan if partials else None)
+    R.fadda_rows = plain
+    try:
+        yield
+    finally:
+        R.fadda_rows = kernel
+
+
+def _want_launches(cfg, page_size, page_dtype, steps, stochastic=False):
+    """Each kernel's launches in one ``generate`` of the smoke workload (a
+    stochastic batch runs one ordered top-p scan per sampled token)."""
     attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
             "hybrid": cfg.n_layers // cfg.shared_attn_period}[cfg.family]
     want = dict.fromkeys(kernel_wrappers(), 0)
@@ -658,6 +932,8 @@ def _want_launches(cfg, page_size, page_dtype, steps):
         want["ssd_scan"] = cfg.n_layers                   # prefill
     if cfg.family == "moe":
         want["moe_positions"] = (cfg.n_layers - cfg.first_k_dense) * (1 + steps)
+    if stochastic:
+        want["fadda"] = 1 + steps
     return want
 
 
@@ -724,6 +1000,42 @@ def serve_model(arch, gpu):
               f"{ {k: v for k, v in counts.items() if v} } (as expected)",
               flush=True)
 
+    # one mixed batch on the dense cache: lanes 0-3 greedy, 4-7 stochastic
+    # (stablelm twice: a seeded batch must repeat its tokens)
+    specs = mixed_specs()
+    for name in ("mixed", "mixed again")[:2 if cfg.family == "dense" else 1]:
+        eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=-1)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate(batch, sampling=specs)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+        n_gen = res["n_generated"].cpu().numpy()
+        toks = res["tokens"].cpu().numpy()
+        check((n_gen == MAX_NEW).all(), f"n_generated {n_gen}")
+        check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token ids in the vocab")
+        want = _want_launches(cfg, None, None, steps, stochastic=True)
+        check(counts == want, f"{arch} {name} launches {counts}, expected {want}")
+        check((toks[:4] == runs["dense"]["tokens"][:4]).all(),
+              f"{cfg.name} {name}: greedy lanes equal the all-greedy run")
+        runs[name] = dict(tokens=toks, total_s=total, counts=counts)
+        if name == "mixed":
+            runs[name]["cache"] = res["cache"]
+        del res
+        print(f"[full] {cfg.name} generate {name} (lanes 0-3 greedy, 4-7 "
+              f"stochastic): launches { {k: v for k, v in counts.items() if v} } "
+              f"(as expected); greedy lanes equal the all-greedy run (held)",
+              flush=True)
+    if "mixed again" in runs:
+        check((runs["mixed"]["tokens"] == runs["mixed again"]["tokens"]).all(),
+              f"{cfg.name}: the seeded mixed batch repeats its tokens")
+        print(f"[full] {cfg.name} mixed batch run twice: identical tokens (held)",
+              flush=True)
+    first_token_keep_set(fam, model, cfg, batch, eng.make_cache(N_REQ, max_len),
+                         runs["mixed"]["tokens"][:, 0], gpu)
+
     # prefill alone, timed apart from the runs above (same inputs)
     def prefill():
         return fam.prefill(model, cfg, batch, eng.make_cache(N_REQ, max_len))
@@ -757,8 +1069,15 @@ def serve_model(arch, gpu):
         print(f"[full] {cfg.name} tokens of the {dt} pages equal to the "
               f"full-precision paged run: {same:.4f} (reported: quantization "
               "may change tokens)", flush=True)
+    mixed_ms, greedy_ms = runs["mixed"]["decode_ms_per_step"], runs["dense"]["decode_ms_per_step"]
+    print(f"[full] {cfg.name} decode step, dense cache: mixed batch {mixed_ms:.2f} ms, "
+          f"all greedy {greedy_ms:.2f} ms ({mixed_ms - greedy_ms:+.2f} ms for "
+          f"sampling)  [{gpu}]", flush=True)
     for name, r in runs.items():
-        profile_decode(model, cfg, name, r.pop("cache"), r["tokens"][:, -1], gpu)
+        if "cache" in r:
+            profile_decode(model, cfg, name, r.pop("cache"), r["tokens"][:, -1], gpu,
+                           sampling=specs if name == "mixed" else None)
+    profile_sampler(cfg, gpu)
 
     # first decode step: kernel path vs plain path, dense vs paged cache, and
     # quantized native decode vs the gather oracle over the same pool bytes
@@ -839,22 +1158,115 @@ def serve_model(arch, gpu):
     return cfg, lens, max_len, runs
 
 
-def profile_decode(model, cfg, name, cache, last_tok, gpu, steps: int = 4):
-    """Where a decode step's time goes: its wall time (host clock, no
-    profiler) against the device time of the kernels it launches
-    (torch.profiler), and the kernels that take most of that."""
+def first_token_keep_set(fam, model, cfg, batch, cache, first, gpu):
+    """The stochastic lanes' first tokens (sampled from the prefill logits
+    with the kernel) against the plain path on the same logits: each lies
+    in the keep set that the plain path computes (held), and equals the
+    plain path's own draw with the same keys (reported: the two scans are
+    bitwise equal, so only a different prefill could move it)."""
+    from repro_torch import sample as S
+
+    with torch.inference_mode():
+        logits, _ = fam.prefill(model, cfg, batch, cache)
+        state = S.lane_state(mixed_specs(), N_REQ, device="cuda")
+        split, sub = S.split_keys(state)
+        with plain_fadda():
+            masked = S.process_logits(logits, split)
+        keep = masked > float("-inf")
+        draw = S.gumbel_argmax(masked, sub)
+    rows = torch.arange(N_REQ, device="cuda")
+    first_t = torch.as_tensor(first, device="cuda").long()
+    in_keep = keep[rows, first_t].cpu().numpy()
+    check(in_keep[4:].all(), f"{cfg.name}: first tokens of the stochastic lanes "
+          f"in the plain path's keep set ({in_keep.tolist()})")
+    same = (draw.cpu().numpy() == np.asarray(first))[4:]
+    sizes = keep[4:].sum(dim=-1).tolist()
+    print(f"[full] {cfg.name} mixed batch: stochastic first tokens in the plain "
+          f"path's keep set (held; keep sets of {sizes} tokens), equal to the "
+          f"plain path's draw: {same.tolist()} (reported)", flush=True)
+
+
+def profile_sampler(cfg, gpu, steps: int = 4):
+    """One sampling step of the mixed batch at (8, padded_vocab) bf16 logits,
+    with penalties over 32 generated tokens, beside the greedy argmax and
+    split into its parts: device launches and time (torch.profiler), and
+    wall time on the host clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import sample as S
+    from repro_torch.sample import processors as PR
+    from repro_torch.sample import prng
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    v = cfg.padded_vocab
+    logits = (torch.randn(N_REQ, v, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    state = S.lane_state(mixed_specs(), N_REQ, device="cuda")
+    out_buf = torch.randint(0, cfg.vocab_size, (N_REQ, MAX_NEW), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    n_gen = torch.full((N_REQ,), MAX_NEW // 2, dtype=torch.int32, device="cuda")
+    scaled = PR.temperature_scale(logits, state["temperature"])
+    parts = {
+        "stochastic sample": lambda: S.sample(logits, state, out_buf, n_gen),
+        "greedy argmax": lambda: S.greedy_tokens(logits),
+        "  threefry: split + gumbel": lambda: prng.gumbel(
+            S.split_keys(state)[1], (v,)),
+        "  penalties": lambda: PR.apply_penalties(
+            logits, out_buf, n_gen, state["repetition_penalty"],
+            state["presence_penalty"]),
+        "  keep_pred (softmax, argsort, fadda scan)": lambda: PR.keep_pred(
+            scaled, state["top_k"], state["top_p"], state["min_p"]),
+    }
+    with torch.inference_mode():
+        for name, fn in parts.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    fn()
+                torch.cuda.synchronize()
+            dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps
+            what = (f"{len(dev) / steps:.0f} launches, device {dev_ms:.3f} ms" if dev
+                    else "device time not measured (the profiler saw no device "
+                         "events)")
+            print(f"[profile] {cfg.name} sampling step, {name}: {what}, wall "
+                  f"{wall_ms:.3f} ms  [{gpu}]", flush=True)
+
+
+def profile_decode(model, cfg, name, cache, last_tok, gpu, steps: int = 4,
+                   sampling=None):
+    """Where a decode step's time goes: its wall time (host clock, no
+    profiler) against the device time of the kernels it launches
+    (torch.profiler), and the kernels that take most of that.  With
+    ``sampling`` each step also samples its tokens with that lane state, as
+    a stochastic batch's decode loop does (penalties over 32 tokens)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import sample as S
     from repro_torch.models import get_model
 
     decode = get_model(cfg).decode
     step = {"token": torch.as_tensor(last_tok, device="cuda")[:, None]}
+    if sampling is not None:
+        state = S.lane_state(sampling, N_REQ, device="cuda")
+        out_buf = torch.as_tensor(np.asarray(last_tok), device="cuda").to(
+            torch.int32)[:, None].repeat(1, MAX_NEW)
+        n_gen = torch.full((N_REQ,), MAX_NEW // 2, dtype=torch.int32, device="cuda")
 
     def run():
         c = cache
         for _ in range(steps):
-            _, c = decode(model, cfg, step, c)
+            logits, c = decode(model, cfg, step, c)
+            if sampling is not None:
+                S.sample(logits, state, out_buf, n_gen)
         torch.cuda.synchronize()
 
     with torch.inference_mode():
@@ -890,6 +1302,24 @@ def profile_decode(model, cfg, name, cache, last_tok, gpu, steps: int = 4):
               f"{kname[:90]}", flush=True)
 
 
+def run_quickstart() -> dict:
+    """The port's quickstart (``repro_torch.launch.quickstart``) on the card:
+    Fig. 2's daxpy at three VLs and §2.4's fadda, each held against its
+    plain version inside; its kernel launches, counted from 0."""
+    from repro_torch.launch import quickstart
+
+    reset_counts()
+    quickstart.main([])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update(daxpy=len(quickstart.VLS), fadda=len(quickstart.VLS))
+    check(counts == want, f"quickstart launches {counts}, expected {want}")
+    print(f"[quickstart] launches { {k: v for k, v in counts.items() if v} } "
+          "(as expected)", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -918,16 +1348,24 @@ def main() -> int:
     phase("check flash quant", check_quant_kernel, flash_attention)
     phase("check ssd", check_ssd)
     phase("check moe_positions", check_moe_positions)
+    phase("check fadda", check_fadda)
+    phase("check daxpy", check_daxpy)
+    phase("check threefry", check_prng)
     served = {arch: phase(f"serve {arch}", serve_model, arch, gpu)
               for arch in WIDTHS}
     cfg, lens, max_len, _ = served["stablelm_3b"]
     rows = phase("time flash", time_kernels, cfg, lens, max_len, gpu)
     ssd_rows = phase("time ssd", time_ssd, lens, gpu)
     moe_rows = phase("time moe_positions", time_moe_positions, lens, gpu)
+    fadda_times = phase("time fadda", time_fadda, cfg.padded_vocab, gpu)
+    daxpy_rows = phase("time daxpy", time_daxpy, gpu)
+    quick = phase("quickstart", run_quickstart)
 
     launches = {k: sum(r["counts"][k] for *_, runs in served.values()
-                       for r in runs.values()) for k in kernel_wrappers()}
-    print(f"[full] launches over every generate above: {launches}", flush=True)
+                       for r in runs.values()) + quick[k]
+                for k in kernel_wrappers()}
+    print(f"[full] launches over every generate and the quickstart: {launches}",
+          flush=True)
     entries = []
     for name, row, source, replaces in (
             ("flash_attention_dense", rows["dense_prefill"], SRC_CU,
@@ -939,7 +1377,11 @@ def main() -> int:
             ("ssd_scan", ssd_rows["zamba2_1_2b"], SRC_SSD,
              "src/repro/kernels/ssd_scan/kernel.py:80"),
             ("moe_positions", moe_rows["prefill"], SRC_MOE,
-             "src/repro/kernels/moe_dispatch/kernel.py:55")):
+             "src/repro/kernels/moe_dispatch/kernel.py:55"),
+            ("fadda", fadda_times["scan"], SRC_FADDA,
+             "src/repro/kernels/fadda/kernel.py:47"),
+            ("daxpy", daxpy_rows["f32"], SRC_DAXPY,
+             "src/repro/kernels/daxpy/kernel.py:32")):
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

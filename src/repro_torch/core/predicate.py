@@ -10,6 +10,16 @@ from __future__ import annotations
 import torch
 
 
+def ptrue(vl: int, dtype=torch.bool, *, device=None) -> torch.Tensor:
+    """All-active predicate (SVE ``ptrue``)."""
+    return torch.ones((vl,), dtype=dtype, device=device)
+
+
+def pfalse(vl: int, dtype=torch.bool, *, device=None) -> torch.Tensor:
+    """All-inactive predicate (SVE ``pfalse``)."""
+    return torch.zeros((vl,), dtype=dtype, device=device)
+
+
 def whilelt(start, limit, vl: int, *, device=None) -> torch.Tensor:
     """p[i] = (start + i) < limit — SVE ``whilelt`` (signed compare).
 

@@ -1,15 +1,19 @@
 """Serving launcher of the port: bring up a ServeEngine for an arch and run
-one static batch through ``ServeEngine.generate`` (greedy).
+one static batch through ``ServeEngine.generate``.
 
     python -m repro_torch.launch.serve --arch stablelm_3b --static
     python -m repro_torch.launch.serve --arch stablelm_3b --static --no-reduce
     python -m repro_torch.launch.serve --arch zamba2_1_2b --static --page-size 16
     python -m repro_torch.launch.serve --arch olmoe_1b_7b --static \
         --page-size 16 --page-dtype int8
+    python -m repro_torch.launch.serve --arch stablelm_3b --static \
+        --temperature 0.8 --top-p 0.9 --device cpu
 
 Dims are reduced by default, as in ``repro.launch.serve``; ``--no-reduce``
 runs the published widths.  ``--page-dtype int8|fp8`` stores the paged
-cache's pools narrow and needs ``--page-size``.  The continuous-batching
+cache's pools narrow and needs ``--page-size``.  ``--temperature`` turns on
+stochastic sampling for every request (request i uses seed
+``--sample-seed`` + i); without it decoding is greedy.  The continuous-batching
 scheduler (the JAX launcher's default mode) and ``--mesh`` are not ported
 yet and exit naming the ROADMAP item that ports them.
 """
@@ -25,6 +29,7 @@ import torch
 from repro_torch.configs import all_arch_names, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models import get_model
+from repro_torch.sample import SamplingParams
 from repro_torch.serve import ServeEngine
 
 # the reduced dims of repro.launch.train (training is not ported)
@@ -70,7 +75,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--page-dtype", choices=["int8", "fp8"], default=None)
-    ap.add_argument("--temperature", type=float, default=None)
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="enable per-request stochastic sampling at this "
+                         "temperature (default: greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k vocab filtering (0 disables)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus filtering mass (1.0 disables)")
+    ap.add_argument("--min-p", type=float, default=0.0,
+                    help="min-p filtering (0 disables)")
+    ap.add_argument("--repetition-penalty", type=float, default=1.0)
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base sampling seed; request i uses seed+i, so "
+                         "every stream is reproducible per request")
     args = ap.parse_args(argv)
 
     if args.arch in PENDING_ARCHS:
@@ -86,8 +103,6 @@ def main(argv=None):
     if args.page_dtype is not None and args.page_size is None:
         ap.error("--page-dtype requires --page-size (quantization lives in "
                  "the page pools)")
-    if args.temperature is not None:
-        sys.exit("stochastic sampling is not ported yet (ROADMAP Queue 1 item 5)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -102,7 +117,15 @@ def main(argv=None):
     eng = ServeEngine(cfg, params, max_new_tokens=args.max_new, stop_token=7,
                       paged_attn=args.paged_attn, page_dtype=args.page_dtype,
                       device=device)
-    res = eng.generate(batch, page_size=args.page_size)
+    sampling = None
+    if args.temperature is not None:
+        sampling = [SamplingParams(temperature=args.temperature,
+                                   top_k=args.top_k, top_p=args.top_p,
+                                   min_p=args.min_p,
+                                   repetition_penalty=args.repetition_penalty,
+                                   seed=args.sample_seed + i, greedy=False)
+                    for i in range(args.batch)]
+    res = eng.generate(batch, sampling=sampling, page_size=args.page_size)
     for i in range(args.batch):
         n = int(res["n_generated"][i])
         print(f"req{i} len={int(batch['lens'][i]):2d} -> "

@@ -10,32 +10,27 @@ and their output slots write-masked, and their cache rows become
 garbage-beyond-pos.  The loop stops early once no lane is live, which costs
 one host sync per step.
 
-Greedy decoding only so far (ROADMAP Queue 1 item 5 adds stochastic
-sampling); the fused serve step, block movers, spill/resume, meshes and obs
-belong to the scheduler's slices.
+Sampling is per lane (``repro_torch.sample``): each lane carries its own
+SamplingParams row and threefry key, greedy and stochastic lanes decode in
+one batch, and an all-greedy batch takes the plain argmax path.  The fused
+serve step, block movers, spill/resume, meshes and obs belong to the
+scheduler's slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import sample as S
 from repro_torch.core import paging as PG
 from repro_torch.core import predicate as P
 from repro_torch.core.device import resolve_device
 from repro_torch.models import (get_model, is_paged, paged_decode_ok,
                                 paged_view, paged_writeback, to_paged)
-from repro_torch.sample import greedy_tokens
-
-
-def _is_greedy(sampling) -> bool:
-    if sampling is None:
-        return True
-    if isinstance(sampling, (list, tuple)):
-        return all(_is_greedy(s) for s in sampling)
-    return bool(getattr(sampling, "greedy", False))
+from repro_torch.sample.processors import ban_pred, mask_logits
 
 
 @dataclasses.dataclass
@@ -53,6 +48,12 @@ class ServeEngine:
     params: object
     max_new_tokens: int = 32
     stop_token: int = 0
+    # engine-wide default sampling spec for batches that carry none (None =
+    # greedy argmax)
+    default_sampling: Optional[S.SamplingParams] = None
+    # constrained decoding: token ids masked out of EVERY lane's vocab
+    # partition (greedy lanes included) before sampling
+    banned_tokens: Optional[Sequence[int]] = None
     # paged decode: "native" reads K/V through the page table inside flash
     # attention; "gather" is the reference oracle: materialize the dense
     # view, run the dense decode, scatter the one new token back
@@ -71,6 +72,11 @@ class ServeEngine:
                              f"got {self.paged_attn!r}")
         PG.resolve_page_dtype(self.page_dtype)       # validate eagerly
         self.model = get_model(self.cfg)
+        # logits run over the PADDED vocab (the model already predicates the
+        # pad lanes to -1e30, so leaving them "allowed" here is inert)
+        v = getattr(self.cfg, "padded_vocab", self.cfg.vocab_size)
+        self._ban = (ban_pred(v, tuple(self.banned_tokens), device=self.device)
+                     if self.banned_tokens else None)
         dev = self.params.device
         if dev.type != self.device.type or (
                 self.device.index is not None and dev.index != self.device.index):
@@ -99,19 +105,42 @@ class ServeEngine:
     # decode loop
     # ------------------------------------------------------------------
 
-    def _decode_loop(self, cache, out_buf, tok, p, n_gen, lane_budget, *,
-                     n_steps: int):
+    def _sample(self, logits, sstate=None, out_buf=None, n_gen=None):
+        """One token per lane through ``repro_torch.sample``.  With no
+        state: the greedy argmax (under the engine's bans)."""
+        if sstate is None:
+            return S.greedy_tokens(logits if self._ban is None else
+                                   mask_logits(logits, self._ban[None, :]))
+        return S.sample(logits, sstate, out_tokens=out_buf, n_out=n_gen,
+                        ban=self._ban)
+
+    def make_state(self, b: int, sampling=None) -> dict:
+        """Batched sampler lane state for ``b`` lanes on the engine's device
+        (falls back to the engine's ``default_sampling``, then to greedy)."""
+        if isinstance(sampling, dict):
+            return sampling
+        return S.lane_state(self.default_sampling if sampling is None
+                            else sampling, b, device=self.device)
+
+    def _decode_loop(self, cache, out_buf, tok, p, n_gen, lane_budget, sstate,
+                     *, n_steps: int, stochastic: bool):
         """At most ``n_steps`` decode steps over all lanes.  A lane leaves the
         active partition ``p`` when it emits the stop token or its budget
-        runs out.  ``out_buf`` is written in place.  Returns (cache,
-        out_buf, tok, p, n_gen, steps_run)."""
+        runs out.  ``out_buf`` is written in place.  With ``stochastic``
+        every step samples through the lane state (keys split once a step
+        for every lane; penalties read each lane's own ``out_buf``), else it
+        takes the argmax and leaves the state alone.  Returns (cache,
+        out_buf, tok, p, n_gen, sstate, steps_run)."""
         stop = self.stop_token
         b, max_out = out_buf.shape
         rows = torch.arange(b, device=out_buf.device)
         step = 0
         while step < n_steps and bool(p.any()):
             logits, cache = self._cached_decode({"token": tok[:, None]}, cache)
-            nxt = greedy_tokens(logits)
+            if stochastic:
+                nxt, sstate = self._sample(logits, sstate, out_buf, n_gen)
+            else:
+                nxt = self._sample(logits)
             nxt = P.merging(p, nxt, torch.full_like(nxt, stop))
             col = n_gen.clamp(0, max_out - 1).long()
             out_buf[rows, col] = torch.where(p, nxt, out_buf[rows, col])
@@ -119,7 +148,7 @@ class ServeEngine:
             p = p & (nxt != stop) & (n_gen < lane_budget)
             tok = nxt
             step += 1
-        return cache, out_buf, tok, p, n_gen, step
+        return cache, out_buf, tok, p, n_gen, sstate, step
 
     def _cached_decode(self, batch, cache):
         """One decode step against a dense OR paged cache (native paged, or
@@ -144,18 +173,16 @@ class ServeEngine:
                  sampling=None, page_size: Optional[int] = None,
                  pool_pages: Optional[int] = None):
         """batch: {"tokens": (B, S) prompts, "lens": (B,)} (tensors or
-        arrays).  Greedy only: ``sampling`` must be None, or greedy per lane.
+        arrays).
 
-        With ``page_size`` the prefilled cache is converted to the PAGED
-        layout (identity page tables; narrow pools with the engine's
-        ``page_dtype``) before the decode loop.  Returns dict
-        with tokens (B, max_new), n_generated (B,), the final active
+        ``sampling`` is None (the engine default, else greedy), one
+        ``SamplingParams`` broadcast over lanes, a per-lane sequence of
+        them, or a lane state dict.  With ``page_size`` the prefilled cache
+        is converted to the PAGED layout (identity page tables; narrow pools
+        with the engine's ``page_dtype``) before the decode loop.  Returns
+        dict with tokens (B, max_new), n_generated (B,), the final active
         partition, and the cache.
         """
-        if not _is_greedy(sampling):
-            raise NotImplementedError(
-                "stochastic sampling is not ported yet: it needs a threefry "
-                "that matches jax.random (ROADMAP Queue 1 item 5)")
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         b, s = tokens.shape
         lens = batch.get("lens")
@@ -164,21 +191,28 @@ class ServeEngine:
                 else torch.as_tensor(lens, device=self.device).to(torch.int32))
         max_len = max_len or (s + self.max_new_tokens)
         cache = self.make_cache(b, max_len)
+        sstate = self.make_state(b, sampling)
         logits, cache = self.model.prefill(
             self.params, self.cfg, {"tokens": tokens, "lens": lens}, cache)
         if page_size is not None:
             cache = to_paged(self.cfg, cache, page_size=page_size,
                              pool_pages=pool_pages, page_dtype=self.page_dtype)
-        first_tok = greedy_tokens(logits)
+        # all-greedy batches skip the stochastic pipeline (keys of greedy
+        # lanes are never read, so not splitting them is inert)
+        stochastic = not S.is_all_greedy(sstate)
+        if stochastic:
+            first_tok, sstate = self._sample(logits, sstate)
+        else:
+            first_tok = self._sample(logits)
 
         max_new = self.max_new_tokens
         out = torch.zeros((b, max_new), dtype=torch.int32, device=self.device)
         out[:, 0] = first_tok
         budget = torch.full((b,), max_new, dtype=torch.int32, device=self.device)
         p0 = (first_tok != self.stop_token) & (budget > 1)
-        cache, out, tok, _, n_gen, _ = self._decode_loop(
+        cache, out, tok, _, n_gen, _, _ = self._decode_loop(
             cache, out, first_tok, p0,
             torch.ones((b,), dtype=torch.int32, device=self.device), budget,
-            n_steps=max_new)
+            sstate, n_steps=max_new, stochastic=stochastic)
         return {"tokens": out, "n_generated": n_gen,
                 "active": tok != self.stop_token, "cache": cache}

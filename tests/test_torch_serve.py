@@ -1,6 +1,6 @@
-"""Port parity: ``repro_torch.serve.ServeEngine.generate`` (greedy, dense and
-paged KV) against the JAX engine with its Pallas kernels in interpret mode:
-identical tokens and ``n_generated``.  Inside the port, native paged decode
+"""Port parity: ``repro_torch.serve.ServeEngine.generate`` (greedy and
+stochastic, dense and paged KV) against the JAX engine with its Pallas
+kernels in interpret mode: identical tokens and ``n_generated``.  Inside the port, native paged decode
 equals the gather oracle and the dense cache.  Also the port's purity (no
 JAX, no ``repro``) and its device rule (the card unless asked otherwise)."""
 
@@ -18,7 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 from torch_parity import models, np_
 
+from repro import sample as SJ
 from repro.serve import ServeEngine as JaxEngine
+from repro_torch import sample as ST
 from repro_torch.models import dense as tdense
 from repro_torch.serve import ServeEngine
 
@@ -75,14 +77,18 @@ def test_native_paged_equals_gather_oracle_and_dense(setup):
         np.testing.assert_array_equal(got[1], dense[1])
 
 
-def test_stochastic_sampling_raises(setup):
-    _, _, cfg_t, model, batch, stop = setup
-    eng = ServeEngine(cfg_t, model, max_new_tokens=2, device="cpu")
-
-    class Stochastic:
-        greedy = False
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        eng.generate(batch, sampling=Stochastic())
+def test_stochastic_generate_matches_jax(setup):
+    """A broadcast stochastic spec (each lane folds in its index) with the
+    predicated stop: the same tokens and ``n_generated`` as the JAX engine."""
+    cfg_j, params, cfg_t, model, batch, stop = setup
+    spec = dict(temperature=0.9, top_k=20, top_p=0.9, min_p=0.02,
+                repetition_penalty=1.2, seed=3, greedy=False)
+    tok_j, n_j = _jax_generate(cfg_j, params, batch, stop,
+                               sampling=SJ.SamplingParams(**spec))
+    tok_t, n_t = _torch_generate(cfg_t, model, batch, stop,
+                                 sampling=ST.SamplingParams(**spec))
+    np.testing.assert_array_equal(tok_t, tok_j)
+    np.testing.assert_array_equal(n_t, n_j)
 
 
 def test_default_device_is_the_gpu(setup):
@@ -132,6 +138,21 @@ def test_launcher_static_on_the_cpu(capsys):
                     "--batch", "2", "--max-new", "3"] + extra)
         outs.append(capsys.readouterr().out)
     assert outs[0] == outs[1] and outs[0].count("req") == 2
+
+
+def test_launcher_samples_on_the_cpu(capsys):
+    """``launch.serve --temperature`` samples every request with its own
+    seed: reproducible, and not the greedy stream."""
+    from repro_torch.launch import serve
+    base = ["--arch", "stablelm_3b", "--static", "--device", "cpu",
+            "--batch", "2", "--max-new", "4"]
+    outs = []
+    for extra in (["--temperature", "0.8", "--top-p", "0.9"],
+                  ["--temperature", "0.8", "--top-p", "0.9"], []):
+        serve.main(base + extra)
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0].count("req") == 2
+    assert outs[0] != outs[2]
 
 
 def test_launcher_serves_mamba2_on_the_cpu(capsys):
