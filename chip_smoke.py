@@ -5,7 +5,9 @@
 1. Builds the hand-written CUDA kernels from the sources in the checkout:
    one ``nvcc`` per source, all started together.
 2. Holds each kernel against its plain PyTorch version on the card (flash
-   attention in f32 at atol = rtol = 1e-5, over int8/fp8 pools at 1e-4 as
+   attention in f32 at atol = rtol = 1e-5, each of the dense kernel's three
+   bodies on the cases its plan routes to it, the split-KV body in bf16 to
+   one bf16 rounding step (atol 1e-5, rtol 2^-7), over int8/fp8 pools at 1e-4 as
    the widened values differ from the plain path's by rounding; the SSD
    scan in f32 at 1e-4 as its exp and cumsum run in another order; bf16 at
    2e-2, the output being rounded to bf16; the MoE dispatch ranks, the
@@ -19,11 +21,15 @@
    and (where the family pages) the paged KV cache, full precision and
    int8/fp8, then one mixed batch (4 greedy, 4 stochastic lanes) on the
    dense cache, counting kernel launches in each run, and checks the
-   outputs: finite logits, launch counts, first-step logits against the
-   plain path, across cache layouts, and of quantized native decode against
-   the gather oracle over the same pool bytes and against a truncating
-   oracle; the mixed batch's greedy lanes against the all-greedy run and its
-   stochastic lanes' first tokens against the keep set of the plain path.
+   outputs: finite logits, launch counts (the dense kernel's per body),
+   first-step logits against the plain path, across cache layouts, and of
+   quantized native decode against the gather oracle over the same pool
+   bytes and against a truncating oracle; in a teacher-forced decode of the
+   dense run's tokens, every split-KV call against the plain attention on
+   its inputs (bf16 weights) and the paged cache's logits against the dense
+   cache's at every step (bf16 and f32 weights); the mixed batch's greedy
+   lanes against the all-greedy run and its stochastic lanes' first tokens
+   against the keep set of the plain path.
 4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
 5. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
@@ -41,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -134,8 +141,16 @@ def kernel_wrappers():
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as K
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    K.reset_dense_counts()
+
+
+def read_bodies() -> dict:
+    """The dense kernel's launches per body since the last reset."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    return dict(K.flash_dense_cuda.body_launches)
 
 
 def read_counts() -> dict:
@@ -174,50 +189,109 @@ def build_all():
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+# Dense cases (b, hkv, group, sq, skv, causal, window) and the body each
+# takes in bf16 (f32 always takes the CUDA-core body).  Split-KV decode with
+# 1, 2, 4, 8 and 12 rows per KV head (every row-count instance), over
+# caches that plan 1 split (Skv 77), 4 (Skv 600), 8 (Skv 1024) and 32 (Skv
+# 4097), causal with q_offset > 0 and a window; tensor-core prefill with
+# partial row blocks (37, 65, 963 rows), GQA, a window, non-causal rows and
+# rows past a lane's kv_len.  Lanes hold kv_lens (skv, skv // 2, 0, 5):
+# ragged, one empty lane, and one with fewer live keys than splits (some
+# splits empty).
+DENSE_CASES = (
+    ((3, 2, 1, 1, 77, False, None), "split_kv"),
+    ((3, 2, 2, 6, 77, True, None), "split_kv"),
+    ((1, 1, 1, 1, 1024, False, None), "split_kv"),
+    ((4, 1, 2, 1, 1024, True, 100), "split_kv"),
+    ((2, 1, 8, 1, 600, False, None), "split_kv"),
+    ((4, 1, 4, 2, 1024, True, None), "split_kv"),
+    ((3, 2, 1, 1, 4097, False, None), "split_kv"),
+    ((3, 2, 4, 1, 4097, True, 300), "split_kv"),
+    ((3, 2, 2, 37, 90, True, 9), "tensor_core"),
+    ((2, 1, 1, 40, 40, False, None), "tensor_core"),
+    ((3, 2, 1, 65, 200, True, None), "tensor_core"),
+    ((2, 1, 2, 963, 1027, True, None), "tensor_core"),
+)
+DENSE_HEAD_DIMS = (16, 32, 37, 64, 80, 96, 100, 128)   # every tensor-core instance
+# Limits against the plain version (atol, rtol).  The split-KV body and the
+# plain version both sum in f32 and round once to bf16, so they may differ
+# by one bf16 rounding step (at most 2^-7 of the value); the tensor-core body
+# rounds P to bf16 for its P.V product.
+TOL = {"f32": (1e-5, 1e-5), "tensor_core": (2e-2, 2e-2),
+       "split_kv": (1e-5, 2 ** -7)}
+
+
+def tol_ratio(got, want, atol, rtol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 where assert_close
+    with these limits holds."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def check_kernels(flash_attention):
-    """Dense at D = 16, 80, 128 and odd widths with causal, window, ragged,
-    empty-row and GQA cases; paged with a shuffled table and stale
-    out-of-strip entries.  Every block-shape branch of the kernels is hit:
-    1-4, 5-8 and >8 rows per block, one and several row chunks, and both
-    ways of staging K/V: 16-byte loads (D a multiple of 8 bf16 or 4 f32
-    elements, aligned rows) and element loads (D = 37, D = 100 in bf16, and
-    K/V that start off a 16-byte boundary)."""
+    """Dense at ``DENSE_HEAD_DIMS`` over ``DENSE_CASES``, each routed to the
+    body its plan names (held by the per-body launch counts); paged with a
+    shuffled table and stale out-of-strip entries.  Every block-shape
+    branch of the kernels is hit: the CUDA-core body's 1-4, 5-8 and >8 rows
+    per block and several row chunks, the tensor-core body's partial and
+    several row blocks and edge tiles (causal diagonal with q_offset > 0,
+    window, kv_len tail) at every padded head dim, the split-KV body at
+    every row-count instance with 1, 4, 8 and 32 splits; and both ways of
+    staging K/V: 16-byte copies (D a multiple of 8 bf16 or 4 f32 elements,
+    aligned rows) and element loads (D = 37, D = 100 in bf16, and K/V that
+    start off a 16-byte boundary)."""
+    from repro_torch.kernels.flash_attention import kernel as K
+
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = {"dense": 0.0, "paged": 0.0}
+    worst = {"f32": 0.0, "tensor_core": 0.0, "split_kv": 0.0, "paged": 0.0}
+    ratio = dict.fromkeys(TOL, 0.0)
+    splits = set()
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         # K/V one element past an aligned start: rows off 16-byte boundaries
-        q = torch.randn(2, 4, 5, 80, generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn(2 * 2 * 33 * 80 + 1, generator=gen, device="cuda")
-                .to(dtype)[1:].view(2, 2, 33, 80) for _ in range(2))
-        kw = dict(kv_lens=torch.tensor([33, 9], dtype=torch.int32, device="cuda"),
-                  causal=True)
-        got = flash_attention(q, k, v, impl="kernel", **kw)
-        want = flash_attention(q, k, v, impl="naive", **kw)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
-        for d in (16, 37, 80, 100, 128):
-            for (b, hkv, group, sq, skv, causal, window) in (
-                    (3, 2, 1, 1, 77, False, None),      # decode, 4 splits
-                    (3, 2, 2, 6, 77, True, None),       # 2 splits, GQA
-                    (3, 2, 2, 37, 90, True, 9),         # 3 row chunks, window
-                    (2, 1, 1, 40, 40, False, None)):    # non-causal prefill
+        for sq in (5, 40):
+            q = torch.randn(2, 4, sq, 80, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(2 * 2 * 33 * 80 + 1, generator=gen, device="cuda")
+                    .to(dtype)[1:].view(2, 2, 33, 80) for _ in range(2))
+            kw = dict(kv_lens=torch.tensor([33, 9], dtype=torch.int32,
+                                           device="cuda"), causal=True)
+            got = flash_attention(q, k, v, impl="kernel", **kw)
+            want = flash_attention(q, k, v, impl="naive", **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        for d in DENSE_HEAD_DIMS:
+            for (b, hkv, group, sq, skv, causal, window), body in DENSE_CASES:
                 q = torch.randn(b, hkv * group, sq, d, generator=gen,
                                 device="cuda").to(dtype)
                 k = torch.randn(b, hkv, skv, d, generator=gen,
                                 device="cuda").to(dtype)
                 v = torch.randn(b, hkv, skv, d, generator=gen,
                                 device="cuda").to(dtype)
-                kv_lens = torch.tensor([skv, skv // 2, 0][:b], dtype=torch.int32,
-                                       device="cuda")
+                kv_lens = torch.tensor([skv, skv // 2, 0, min(5, skv)][:b],
+                                       dtype=torch.int32, device="cuda")
                 q_off = (kv_lens - sq).clamp_min(0) if causal else kv_lens * 0
                 kw = dict(kv_lens=kv_lens, causal=causal, window=window,
                           q_offset=q_off)
+                K.reset_dense_counts()
                 got = flash_attention(q, k, v, impl="kernel", **kw)
                 want = flash_attention(q, k, v, impl="naive", **kw)
                 torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, atol=tol, rtol=tol)
-                worst["dense"] = max(worst["dense"],
-                                     float((got.float() - want.float()).abs().max()))
+                kind = body if dtype == torch.bfloat16 else "f32"
+                atol, rtol = TOL[kind]
+                where = f"dense {dtype} d={d} {(b, hkv, group, sq, skv)}"
+                torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                                           msg=lambda m: f"{where}: {m}")
+                if b >= 3:
+                    check(not got[2].any(), "an empty lane reads 0")
+                want_body = body if dtype == torch.bfloat16 else "cuda_core"
+                check(K.flash_dense_cuda.body_launches[want_body] == 1,
+                      f"{where} took the {want_body} body: "
+                      f"{K.flash_dense_cuda.body_launches}")
+                if want_body == "split_kv":
+                    splits.add(K.plan_dense(dtype, b, hkv * group, hkv, sq,
+                                            skv, d).splits)
+                worst[kind] = max(worst[kind],
+                                  float((got.float() - want.float()).abs().max()))
+                ratio[kind] = max(ratio[kind], tol_ratio(got, want, atol, rtol))
             for (b, hkv, group, sq, ps, n_pages) in (
                     (3, 2, 1, 1, 16, 5), (3, 2, 2, 3, 8, 9), (2, 2, 2, 12, 16, 4)):
                 n_pool = b * n_pages + 3
@@ -243,10 +317,18 @@ def check_kernels(flash_attention):
                     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
                     worst["paged"] = max(worst["paged"], float(
                         (got.float() - want.float()).abs().max()))
+    check(splits == {1, 4, 8, 32}, f"split-KV cases planned {sorted(splits)} "
+          "splits, expected 1, 4, 8 and 32")
     print(f"[kernels] checked against the plain versions "
-          f"(f32 atol=rtol=1e-5, bf16 2e-2): max |err| dense "
-          f"{worst['dense']:.3g}, paged {worst['paged']:.3g}", flush=True)
+          f"({len(DENSE_CASES)} dense cases x {len(DENSE_HEAD_DIMS)} head dims, "
+          f"each on its planned body; paged at f32 1e-5, bf16 2e-2): max |err| "
+          + ", ".join(f"{k} {worst[k]:.3g}" for k in worst)
+          + "; max |err| / (atol + rtol |ref|) "
+          + ", ".join(f"{k} {ratio[k]:.3g} (limits {TOL[k][0]:g}, {TOL[k][1]:g})"
+                      for k in ratio), flush=True)
     return worst
+
+
 
 
 def _quant_pools(gen, n_pool, hkv, ps, d, page_dtype):
@@ -480,26 +562,28 @@ def check_prng(v: int = 50304):
 # phase 2b: time each kernel at the serving path's shapes
 # ---------------------------------------------------------------------------
 
-def time_kernels(cfg, lens, max_len, gpu):
-    from repro_torch.core import paging as PG
+# The dense kernel's times at the stablelm-3b smoke shapes before its bf16
+# bodies (the CUDA-core design, f32 products, on NVIDIA H100 80GB HBM3 at
+# 700.00 W): prefill q (8,32,963,80), dense-cache decode q (8,32,1,80).
+PREVIOUS_DENSE_MS = {"dense_prefill": 5.3184, "dense_decode": 0.0703}
+
+
+def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
+    """The dense kernel's two calls on one model's attention shapes: the
+    prefill call (tensor-core body) and the dense-cache decode call
+    (split-KV body), each beside the plain version, its bound and SDPA."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
     from repro_torch.kernels.flash_attention.ops import NO_WINDOW
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    b, h, d = len(lens), cfg.n_heads, cfg.resolved_head_dim
-    hkv = cfg.n_kv_heads
-    s = int(max(lens))
-    bf = torch.bfloat16
-    item = 2
+    s = int(lens_t.max())
+    bf, item = torch.bfloat16, 2
     win = torch.tensor([NO_WINDOW], dtype=torch.int32, device="cuda")
     scale = d ** -0.5
-    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     rows = {}
-
-    # dense kernel, prefill call: q (B,Hq,S,D) over the (B,Hkv,max_len,D)
-    # cache, causal from position 0, ragged kv_lens = prompt lengths
+    # prefill: q (B,Hq,S,D) over the (B,Hkv,max_len,D) cache, causal from
+    # position 0, ragged kv_lens = prompt lengths
     q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(bf)
     k = torch.randn(b, hkv, max_len, d, generator=gen, device="cuda").to(bf)
     v = torch.randn(b, hkv, max_len, d, generator=gen, device="cuda").to(bf)
@@ -516,15 +600,16 @@ def time_kernels(cfg, lens, max_len, gpu):
     torch.cuda.synchronize()
     torch.testing.assert_close(out_k, out_p, atol=2e-2, rtol=2e-2)
     pairs = int(mask.sum())
-    flops = 4 * h * d * pairs
-    nbytes = item * (2 * q.numel() + 2 * hkv * d * int(lens_t.sum()))
-    rows["dense_prefill"] = dict(
+    rows[f"dense_prefill{name}"] = dict(
         shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+        body=K.plan_dense(bf, b, h, hkv, s, max_len, d).body,
         ms=time_ms(kern, 20), plain_ms=time_ms(plain, 5), library_ms=time_ms(lib, 20),
-        flops=flops, bytes=nbytes, max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
+        flops=4 * h * d * pairs,
+        bytes=item * (2 * q.numel() + 2 * hkv * d * int(lens_t.sum())),
+        max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
     del out_k, out_p, mask
 
-    # dense kernel, decode call against the dense cache: q (B,Hq,1,D)
+    # decode against the dense cache: q (B,Hq,1,D)
     kv1 = lens_t + 1
     q1 = q[:, :, :1].contiguous()
     kern = lambda: K.flash_dense_cuda(q1, k, v, kv1, lens_t, win, causal=False,
@@ -535,15 +620,46 @@ def time_kernels(cfg, lens, max_len, gpu):
                                                  scale=scale)
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
-    torch.testing.assert_close(out_k, out_p, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out_k, out_p, atol=TOL["split_kv"][0],
+                               rtol=TOL["split_kv"][1])
     live = int(kv1.sum())
-    rows["dense_decode"] = dict(
-        shape=f"q {tuple(q1.shape)} k/v {tuple(k.shape)} bf16",
-        ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20), library_ms=time_ms(lib, 50),
-        flops=4 * h * d * live,
+    plan = K.plan_dense(bf, b, h, hkv, 1, max_len, d)
+    rows[f"dense_decode{name}"] = dict(
+        shape=f"q {tuple(q1.shape)} k/v {tuple(k.shape)} bf16, {plan.splits} splits",
+        body=plan.body, ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20),
+        library_ms=time_ms(lib, 50), flops=4 * h * d * live,
         bytes=item * (2 * q1.numel() + 2 * hkv * d * live),
         max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
-    del q, out_k, out_p
+    return rows, (q1, k, v, kv1)
+
+
+def time_kernels(cfg, lens, max_len, gpu):
+    """Each flash kernel at the serving path's shapes: the dense kernel's
+    prefill and decode calls at stablelm-3b's heads (D 80, 32 heads; its row
+    in the ``kernels`` line), zamba2-1.2b's (D 64, 32 heads) and
+    olmoe-1b-7b's (D 128, 16 heads); the paged kernels' decode calls at
+    stablelm-3b's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import paging as PG
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    from repro_torch.kernels.flash_attention.ops import NO_WINDOW
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, d = len(lens), cfg.n_heads, cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads
+    bf = torch.bfloat16
+    item = 2
+    win = torch.tensor([NO_WINDOW], dtype=torch.int32, device="cuda")
+    scale = d ** -0.5
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rows, (q1, k, v, kv1) = time_dense("", b, h, hkv, d, lens_t, max_len, gen)
+    live = int(kv1.sum())
+    for arch in ("zamba2_1_2b", "olmoe_1b_7b"):
+        c = get_config(arch)
+        rows.update(time_dense(f"_{arch}", b, c.n_heads, c.n_kv_heads,
+                               c.resolved_head_dim, lens_t, max_len, gen)[0])
 
     # paged kernel, decode call: identity tables over (B*n_pages,Hkv,ps,D)
     n_pages = PG.pages_needed(max_len, PAGE_SIZE)
@@ -601,7 +717,12 @@ def time_kernels(cfg, lens, max_len, gpu):
     for name, r in rows.items():
         _bound(r)
         lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"[time] {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        extra = f" ({r['body']} body)" if "body" in r else ""
+        if name in PREVIOUS_DENSE_MS:
+            extra += (f", previous design {PREVIOUS_DENSE_MS[name]:.4f} ms, "
+                      f"{'no slower' if r['ms'] <= r['library_ms'] else 'SLOWER'}"
+                      f" than the library call")
+        print(f"[time] {name}: {r['shape']}: kernel {r['ms']:.4f} ms{extra}, plain "
               f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|err| "
               f"{r['max_abs_err']:.3g}  [{gpu}]", flush=True)
@@ -875,6 +996,13 @@ RUNS = {
 # The MoE plain path ranks with the kernel too (its ranks are integers, held
 # exactly equal above)
 LIMIT_BF16, LIMIT_F32 = 2e-2, 1e-3
+# Teacher-forced decode of the dense run's tokens, with the served bf16
+# weights: the paged cache's logits against the dense cache's at every step
+# (the dense cache decodes on the split-KV body, the paged one on the paged
+# kernel; bf16 rounding of each step's K/V carries into later steps, and
+# olmoe's routing amplifies it).  Measured on an H100 at this workload:
+# stablelm-3b 0.022, zamba2-1.2b 0.034, olmoe-1b-7b 0.071.
+LIMIT_FORCED_BF16 = 0.1
 PLAIN = dict(attn_impl="naive", ssd_impl="naive")
 
 
@@ -917,11 +1045,15 @@ def plain_fadda():
         R.fadda_rows = kernel
 
 
+def _attn_layers(cfg) -> int:
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // cfg.shared_attn_period}[cfg.family]
+
+
 def _want_launches(cfg, page_size, page_dtype, steps, stochastic=False):
     """Each kernel's launches in one ``generate`` of the smoke workload (a
     stochastic batch runs one ordered top-p scan per sampled token)."""
-    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
-            "hybrid": cfg.n_layers // cfg.shared_attn_period}[cfg.family]
+    attn = _attn_layers(cfg)
     want = dict.fromkeys(kernel_wrappers(), 0)
     want["flash_attention_dense"] = attn                 # prefill
     decode = ("flash_attention_dense" if page_size is None else
@@ -935,6 +1067,15 @@ def _want_launches(cfg, page_size, page_dtype, steps, stochastic=False):
     if stochastic:
         want["fadda"] = 1 + steps
     return want
+
+
+def _want_bodies(cfg, page_size, steps):
+    """The dense kernel's launches per body in one bf16 ``generate``: every
+    prefill call on the tensor-core body, every dense-cache decode call on
+    the split-KV body, none on the CUDA-core body."""
+    attn = _attn_layers(cfg)
+    return {"tensor_core": attn,
+            "split_kv": attn * steps if page_size is None else 0, "cuda_core": 0}
 
 
 def serve_model(arch, gpu):
@@ -994,10 +1135,15 @@ def serve_model(arch, gpu):
         check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token ids in the vocab")
         want = _want_launches(cfg, page_size, page_dtype, steps)
         check(counts == want, f"{arch} {name} launches {counts}, expected {want}")
+        bodies = read_bodies()
+        check(bodies == _want_bodies(cfg, page_size, steps),
+              f"{arch} {name} dense bodies {bodies}, expected "
+              f"{_want_bodies(cfg, page_size, steps)}")
         runs[name] = dict(tokens=toks, total_s=total, counts=counts,
-                          cache=res["cache"])
+                          bodies=bodies, cache=res["cache"])
         print(f"[full] {cfg.name} generate {name}: launches "
-              f"{ {k: v for k, v in counts.items() if v} } (as expected)",
+              f"{ {k: v for k, v in counts.items() if v} }, dense bodies "
+              f"{ {k: v for k, v in bodies.items() if v} } (as expected)",
               flush=True)
 
     # one mixed batch on the dense cache: lanes 0-3 greedy, 4-7 stochastic
@@ -1018,15 +1164,20 @@ def serve_model(arch, gpu):
         check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token ids in the vocab")
         want = _want_launches(cfg, None, None, steps, stochastic=True)
         check(counts == want, f"{arch} {name} launches {counts}, expected {want}")
+        bodies = read_bodies()
+        check(bodies == _want_bodies(cfg, None, steps),
+              f"{arch} {name} dense bodies {bodies}")
         check((toks[:4] == runs["dense"]["tokens"][:4]).all(),
               f"{cfg.name} {name}: greedy lanes equal the all-greedy run")
-        runs[name] = dict(tokens=toks, total_s=total, counts=counts)
+        runs[name] = dict(tokens=toks, total_s=total, counts=counts,
+                          bodies=bodies)
         if name == "mixed":
             runs[name]["cache"] = res["cache"]
         del res
         print(f"[full] {cfg.name} generate {name} (lanes 0-3 greedy, 4-7 "
               f"stochastic): launches { {k: v for k, v in counts.items() if v} } "
-              f"(as expected); greedy lanes equal the all-greedy run (held)",
+              f"on the tensor-core and split-KV bodies (as expected); greedy "
+              f"lanes equal the all-greedy run (held)",
               flush=True)
     if "mixed again" in runs:
         check((runs["mixed"]["tokens"] == runs["mixed again"]["tokens"]).all(),
@@ -1056,14 +1207,12 @@ def serve_model(arch, gpu):
               f"{decode_ms:.2f} ms/step, {r['tokens_per_s']:.1f} tokens/s  "
               f"[{gpu}]", flush=True)
     if pages:
+        # bf16 dense-cache decode runs the split-KV body, paged decode the
+        # paged kernel: sums in another order, so near-ties may flip and the
+        # streams part; the caches are held step by step below, teacher-forced
         same = float((runs["dense"]["tokens"] == runs["paged"]["tokens"]).mean())
-        if cfg.family == "moe":
-            check(same == 1.0, f"{cfg.name} dense and paged tokens identical")
-            print(f"[full] {cfg.name} identical tokens dense vs paged: {same:.4f} "
-                  "(held)", flush=True)
-        else:
-            print(f"[full] {cfg.name} identical tokens dense vs paged: {same:.4f} "
-                  "(reported, not asserted: bf16 near-ties may flip)", flush=True)
+        print(f"[full] {cfg.name} identical tokens dense vs paged: {same:.4f} "
+              "(reported, not asserted: bf16 near-ties may flip)", flush=True)
     for dt in quant:
         same = float((runs[dt]["tokens"] == runs["paged"]["tokens"]).mean())
         print(f"[full] {cfg.name} tokens of the {dt} pages equal to the "
@@ -1125,15 +1274,23 @@ def serve_model(arch, gpu):
                 fast[f"{dt} native"], fast[f"{dt} truncating"])
         return e
 
+    forced = {}       # teacher-forced decode: (split-KV record, paged vs dense)
     with torch.inference_mode():
         fast = first_step(model, cfg)
         bf16 = errs(fast, first_step(model, cfg.replace(**PLAIN), fast["tok"]))
-        del fast, model, eng, eng_warm
+        del fast
+        if _attn_layers(cfg):
+            forced["bf16 weights"] = teacher_forced(
+                fam, model, cfg, batch, max_len, runs["dense"]["tokens"], pages)
+        del model, eng, eng_warm
         torch.cuda.empty_cache()
         cfg32 = cfg.replace(compute_dtype="float32")
         model32 = fam.init(cfg32, seed0(), "cuda")
         fast = first_step(model32, cfg32)
         f32 = errs(fast, first_step(model32, cfg32.replace(**PLAIN), fast["tok"]))
+        if pages:
+            forced["f32 weights"] = teacher_forced(
+                fam, model32, cfg32, batch, max_len, runs["dense"]["tokens"], pages)
         del model32, fast
         torch.cuda.empty_cache()
     checks = [({k: v for k, v in f32.items() if "fp8 native vs gather" not in k},
@@ -1155,7 +1312,87 @@ def serve_model(arch, gpu):
             if not any(what in h for h in held):
                 print(f"[full] {cfg.name} first-step logits {what}: max|d|/max|ref| "
                       f"= {e:.3g} ({kind}, reported, not checked)", flush=True)
+    limits = {"bf16 weights": LIMIT_FORCED_BF16, "f32 weights": LIMIT_F32}
+    for kind, (held, worst) in forced.items():
+        what = f"{cfg.name} teacher-forced decode of {steps} steps, {kind}"
+        if kind == "bf16 weights":
+            want = _attn_layers(cfg) * steps
+            check(held["calls"] == want, f"{what}: {held['calls']} split-KV "
+                  f"calls held, expected {want}")
+            print(f"[full] {what}: each of the {held['calls']} split-KV calls "
+                  f"against the plain attention on its inputs: max |d| / (atol "
+                  f"+ rtol |ref|) = {held['ratio']:.3g} (limit 1 at atol "
+                  f"{TOL['split_kv'][0]:g}, rtol 2^-7), max |d| "
+                  f"{held['abs']:.3g}", flush=True)
+            check(held["ratio"] <= 1, f"{what}: a split-KV call is "
+                  f"{held['ratio']} times its limit from the plain attention")
+        if pages:
+            print(f"[full] {what}: logits of the paged cache against the dense "
+                  f"cache at every step: max|d|/max|ref| = {worst:.3g} (limit "
+                  f"{limits[kind]:g})", flush=True)
+            check(worst <= limits[kind], f"{what}: paged vs dense logits "
+                  f"{worst} > {limits[kind]}")
     return cfg, lens, max_len, runs
+
+
+@contextlib.contextmanager
+def split_kv_held(record):
+    """Inside the block every split-KV call of the dense kernel is also
+    computed by the plain attention on the same inputs: ``record`` counts the
+    calls and keeps the largest max |d| and ``tol_ratio`` at
+    ``TOL["split_kv"]``.  The attention op reaches the kernels through its
+    ``_kernel`` module; the block gives it a copy whose dense wrapper is
+    the one below."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops as O
+    from repro_torch.kernels.flash_attention import ref as R
+
+    def held(q, k, v, kv_lens, q_offset, window, *, causal, scale):
+        out = K.flash_dense_cuda(q, k, v, kv_lens, q_offset, window,
+                                 causal=causal, scale=scale)
+        b, hq, sq, d = q.shape
+        if K.plan_dense(q.dtype, b, hq, k.shape[1], sq, k.shape[2],
+                        d).body == K.SPLIT_KV:
+            want = R.mha_ref(q, k, v, kv_lens=kv_lens, causal=causal,
+                             window=window, q_offset=q_offset, scale=scale)
+            record["calls"] += 1
+            record["abs"] = max(record["abs"],
+                                float((out.float() - want.float()).abs().max()))
+            record["ratio"] = max(record["ratio"],
+                                  tol_ratio(out, want, *TOL["split_kv"]))
+        return out
+
+    O._kernel = types.SimpleNamespace(**{**vars(K), "flash_dense_cuda": held})
+    try:
+        yield record
+    finally:
+        O._kernel = K
+
+
+def teacher_forced(fam, model, cfg, batch, max_len, tokens, pages):
+    """Teacher-forced decode of ``tokens`` (B, T) through the dense cache,
+    each of its split-KV calls held against the plain attention on its
+    inputs (``split_kv_held``), and, where the family pages, through a paged
+    copy of the same prefill: (the split-KV record, the largest
+    max|d|/max|ref| of the paged cache's logits against the dense cache's
+    over the T - 1 steps)."""
+    from repro_torch.models import to_paged
+
+    v = cfg.vocab_size
+    worst = 0.0
+    record = {"calls": 0, "abs": 0.0, "ratio": 0.0}
+    cache = fam.make_cache(cfg, N_REQ, max_len, device="cuda")
+    _, cache = fam.prefill(model, cfg, batch, cache)
+    paged = (to_paged(cfg, {k: t.clone() for k, t in cache.items()},
+                      page_size=PAGE_SIZE) if pages else None)
+    for t in range(tokens.shape[1] - 1):
+        step = {"token": torch.as_tensor(tokens[:, t], device="cuda")[:, None]}
+        with split_kv_held(record):
+            dense_lg, cache = fam.decode(model, cfg, step, cache)
+        if pages:
+            paged_lg, paged = fam.decode(model, cfg, step, paged)
+            worst = max(worst, rel_err(paged_lg[:, :v], dense_lg[:, :v]))
+    return record, worst
 
 
 def first_token_keep_set(fam, model, cfg, batch, cache, first, gpu):
@@ -1364,8 +1601,10 @@ def main() -> int:
     launches = {k: sum(r["counts"][k] for *_, runs in served.values()
                        for r in runs.values()) + quick[k]
                 for k in kernel_wrappers()}
-    print(f"[full] launches over every generate and the quickstart: {launches}",
-          flush=True)
+    bodies = {k: sum(r["bodies"][k] for *_, runs in served.values()
+                     for r in runs.values()) for k in read_bodies()}
+    print(f"[full] launches over every generate and the quickstart: {launches}; "
+          f"flash_attention_dense by body: {bodies}", flush=True)
     entries = []
     for name, row, source, replaces in (
             ("flash_attention_dense", rows["dense_prefill"], SRC_CU,
@@ -1388,7 +1627,8 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "shape": row["shape"],
+            **({"bodies": bodies} if name == "flash_attention_dense" else {})})
     dd = rows["dense_decode"]
     print(f"[time] flash_attention_dense also runs every dense-cache decode "
           f"step: {dd['ms']:.4f} ms (bound {dd['bound_ms']:.4f} ms, "

@@ -25,25 +25,67 @@
 // tokens on it is bound by operations (989 TFLOP/s on the bf16 tensor
 // cores); below that, the bytes of q, K/V and the output bound it.
 //
-// What this first design does about it.  It is the simple, right version:
-// the products run on the CUDA cores in f32 (one key per lane for Q.K^T, the
-// head dims across lanes for P.V), not on wgmma, so prefill stays far below
-// the tensor-core bound; that is the next kernel PR's work.  For the memory
-// bound it (1) skips every K/V tile that is masked for all rows of a block
-// by computing the key range [k_begin, k_end) from kv_len, the causal edge
-// and the window, so decode reads only the live prefix of the cache; (2) in
-// the paged kernel serves all Hq/Hkv query heads and all Sq rows of a KV head
-// from one block, so each page is read once; (3) when a block has few rows
-// (decode), splits the keys across its warps and merges their softmax states
-// at the end, so all warps stream K/V instead of one; (4) stages each K/V
-// tile with 16-byte loads where the head dim and the pointers allow it, kBatch
-// of them in flight per thread before their shared-memory stores, so a tile
-// costs about one memory latency and not one per element.  The quantized
-// kernel is the same template with a narrow storage type: one 16-byte load
-// brings 16 elements instead of 8, so decode reads about half the bytes of
-// the bf16 pools; the f32 scale of each key row is read beside its chunk
-// (the ps scales of a page are one 64-byte row at ps 16, shared through L1)
-// and the product is taken as the element is widened into shared memory.
+// The dense kernel has three bodies; the Python wrapper picks one
+// (kernel.plan_dense) and calls its entry point.
+//
+// flash_attention_dense_tc: bf16 with more than 16 rows per KV head
+// (prefill).  Bound by operations on the tensor cores at long prompts.  One
+// CTA serves 64 query rows of one head, 16 per warp, so each K/V tile is
+// read once per 64 rows (not per 16).  Q is loaded once (ldmatrix) into
+// mma A fragments that stay in registers; K/V tiles of 64 keys stay bf16 in
+// shared memory (rows padded by 16 bytes, so ldmatrix is free of bank
+// conflicts) and arrive through a 2-stage cp.async ring: the copy of tile
+// t + 1 runs while tile t is computed.  S = Q.K^T and O += P.V are
+// mma.sync m16n8k16 bf16 -> f32; the S accumulators are the A fragments of
+// P, split into a hi and a lo bf16 half with one mma each, so P keeps ~16
+// bits, near the TPU body's f32 P (one bf16 P took 9% less time at
+// stablelm-3b's prefill shape on an H100, but moved the smoke run's bf16
+// prefill logits, kernel against plain, from 0.0188 to 0.0202, over their
+// 2e-2 check); V fragments come by ldmatrix.trans.  The online softmax runs
+// on the fragments (quad shuffles).  Wholly masked
+// tiles are never loaded (the key range from kv_len, the causal edge and
+// the window); the element predicate runs only on edge tiles.  Row blocks
+// run last-first so under causal the longest start first.  The head dim is
+// zero-padded to a multiple of 16 in shared memory: every D <= 128 runs.
+// The softmax is the plain version's exp(s * scale - m) by the accurate
+// expf in both bf16 bodies.  exp2f with the scale folded in took 12% less
+// time at stablelm-3b's prefill shapes on an H100, but it moved the smoke
+// run's bf16 decode logits (kernel against plain) from 0.0175 to 0.0188 of
+// their 2e-2 check, and to 0.021 with the split-KV body on exp2f too.
+// Next step: wgmma and TMA with a producer warp (ROADMAP Queue 2b).
+//
+// flash_attention_dense_split: bf16 with at most 16 rows per KV head
+// (decode).  Bound by bytes: one row does ~1 FLOP per K/V byte, so the math
+// stays f32 on the CUDA cores.  One CTA per (head, lane) would be 256 CTAs
+// on 132 SMs at the smoke shapes, each walking ~720 keys serially; instead
+// the live keys of each (KV head, lane) split into equal contiguous ranges,
+// one CTA each (kernel.plan_dense picks the count: ~1024 CTAs, >=
+// 128 cache keys per split), every CTA serving all group * Sq rows of its KV
+// head so each K/V byte is read once, through the same cp.async ring.  The
+// CTA templated on its row count keeps only those rows' state in registers.
+// Each split writes (m, l, acc) to f32 scratch that the wrapper allocates;
+// a second launch merges the splits in split order (no atomics: the same
+// bits every run).
+//
+// flash_attention_dense (the first design, kept for f32: the tensor cores
+// would round f32 to TF32) and the paged kernels: the products run on the
+// CUDA cores in f32 (one key per lane for Q.K^T, the head dims across lanes
+// for P.V).  For the memory bound it (1) skips every K/V tile that is
+// masked for all rows of a block by computing the key range [k_begin,
+// k_end) from kv_len, the causal edge and the window, so decode reads only
+// the live prefix of the cache; (2) in the paged kernel serves all Hq/Hkv
+// query heads and all Sq rows of a KV head from one block, so each page is
+// read once; (3) when a block has few rows (decode), splits the keys across
+// its warps and merges their softmax states at the end, so all warps stream
+// K/V instead of one; (4) stages each K/V tile with 16-byte loads where the
+// head dim and the pointers allow it, kBatch of them in flight per thread
+// before their shared-memory stores, so a tile costs about one memory
+// latency and not one per element.  The quantized kernel is the same
+// template with a narrow storage type: one 16-byte load brings 16 elements
+// instead of 8, so decode reads about half the bytes of the bf16 pools; the
+// f32 scale of each key row is read beside its chunk (the ps scales of a
+// page are one 64-byte row at ps 16, shared through L1) and the product is
+// taken as the element is widened into shared memory.
 //
 // C interface for ctypes: pointers and the stream are void*, every entry
 // point returns cudaGetLastError() as an int (0 = launched).
@@ -53,6 +95,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -494,22 +537,607 @@ bool bad_shape(int b, int hq, int hkv, int sq, int d) {
   return b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 0 || d < 1 || d > kMaxD;
 }
 
+// ---------------------------------------------------------------------------
+// The two bf16 dense bodies: tensor-core prefill and split-KV decode.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kTile = 64;          // keys per staged K/V tile (both bodies)
+constexpr int kTcRows = 64;        // query rows per tensor-core CTA: 16 per warp
+constexpr int kTcThreads = kTcRows / 16 * kWarp;
+constexpr int kStages = 2;         // K/V ring depth
+constexpr int kSplitRows = 16;     // most rows (group * Sq) of one split-KV CTA
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy into shared memory; src_bytes 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as a bf16 pair hi plus the bf16 pair lo of what hi rounded off:
+// hi + lo keeps ~16 significant bits of each, close to the TPU body's f32 P.
+__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi, unsigned& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<unsigned*>(&h);
+  lo = *reinterpret_cast<unsigned*>(&l);
+}
+
+// Stage rows [first, first + n) of a row-major (rows, d) bf16 array into
+// dst (stride ld, dp >= d columns, dp a multiple of 16).  Rows at or past
+// `end` and columns d..dp read as 0.  With vec (d a multiple of 8, the array
+// on a 16-byte boundary) by cp.async 16-byte copies, left in flight for the
+// caller to wait on; else by element loads and stores.
+__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src, int first,
+                                           int end, int d, int dp, bool vec, int n = kTile) {
+  if (vec) {
+    const int per_row = dp / 8;
+    for (int c = threadIdx.x; c < n * per_row; c += blockDim.x) {
+      const int r = c / per_row, col = (c - r * per_row) * 8;
+      const bool ok = first + r < end && col < d;
+      cp_async16(dst + r * ld + col, ok ? src + (size_t)(first + r) * d + col : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * dp; e += blockDim.x) {
+      const int r = e / dp, col = e - r * dp;
+      const bool ok = first + r < end && col < d;
+      dst[r * ld + col] = ok ? src[(size_t)(first + r) * d + col] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Tensor-core body.  One CTA: 64 query rows of one query head of one lane,
+// 16 rows per warp.  Q stays in registers (A fragments) for the whole key
+// walk; K/V tiles of 64 keys come as bf16 through a ring of kStages by
+// cp.async; S = Q.K^T and O += P.V run on mma.sync m16n8k16 with f32
+// accumulators; the online softmax lives in the accumulator fragments.  DP
+// is the head dim rounded up to 16 (the mma k-step); columns d..DP are zero.
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads) flash_dense_tc(const Args a, int vec) {
+  constexpr int LD = DP + 8;       // row stride: ldmatrix rows hit distinct banks
+  constexpr int KS = DP / 16;      // mma k-steps over the head dim
+  constexpr int NO = DP / 8;       // n-tiles of 8 head dims in O
+  constexpr int NS = kTile / 8;    // n-tiles of 8 keys in S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // (kTcRows, LD)
+  bf16* ks = qs + kTcRows * LD;                     // (kStages, 64, LD)
+  bf16* vs = ks + kStages * kTile * LD;             // (kStages, 64, LD)
+
+  // Row blocks are the slowest grid index and run last-first: under causal
+  // the blocks with the most keys start first, so the grid's tail is short.
+  const int nblk = gridDim.x;
+  const int per_blk = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + nblk * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int rb = nblk - 1 - lin / per_blk;
+  const int h = (lin % per_blk) % a.hq;
+  const int b = (lin % per_blk) / a.hq;
+  const int hk = h / (a.hq / a.hkv);
+  const int d = a.d;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane / 4, t = lane % 4;
+
+  const int kv_len = min(a.kv_lens[b], a.skv);
+  const int qoff = a.q_offset[b];
+  const int win = a.window[0];
+  const int row_lo = rb * kTcRows;
+  const int row_hi = min(a.sq, row_lo + kTcRows) - 1;
+  int k_begin = qoff + row_lo - win + 1;
+  if (k_begin < 0) k_begin = 0;
+  int k_end = kv_len;
+  if (a.causal) k_end = min(k_end, qoff + row_hi + 1);
+  const int t_start = (k_begin / kTile) * kTile;
+  const int n_tiles = k_end > k_begin ? (k_end - t_start + kTile - 1) / kTile : 0;
+
+  const bf16* qg = static_cast<const bf16*>(a.q) + ((size_t)b * a.hq + h) * a.sq * d;
+  const bf16* kg = static_cast<const bf16*>(a.k) + ((size_t)b * a.hkv + hk) * a.skv * d;
+  const bf16* vg = static_cast<const bf16*>(a.v) + ((size_t)b * a.hkv + hk) * a.skv * d;
+  bf16* og = static_cast<bf16*>(a.o) + ((size_t)b * a.hq + h) * a.sq * d;
+
+  // one cp.async group for Q, then one per tile: tiles 0 .. kStages - 2
+  // are in flight before the walk, tile it + kStages - 1 during step it
+  stage_rows(qs, LD, qg, row_lo, a.sq, d, DP, vec, kTcRows);
+  cp_async_commit();
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < n_tiles) {
+      stage_rows(ks + p * kTile * LD, LD, kg, t_start + p * kTile, k_end, d, DP, vec);
+      stage_rows(vs + p * kTile * LD, LD, vg, t_start + p * kTile, k_end, d, DP, vec);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();    // Q has landed
+  __syncthreads();
+
+  const int w_lo = row_lo + warp * 16;               // this warp's first row
+  const bool w_live = w_lo < a.sq;                   // warp-uniform
+  const int w_hi = min(w_lo + 15, a.sq - 1);
+  unsigned qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4(qf[kk], qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;    // rows g and g + 8
+  const int qp0 = qoff + w_lo + g, qp1 = qp0 + 8;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int nx = it + kStages - 1;
+    if (nx < n_tiles) {
+      const int st = nx % kStages;
+      stage_rows(ks + st * kTile * LD, LD, kg, t_start + nx * kTile, k_end, d, DP, vec);
+      stage_rows(vs + st * kTile * LD, LD, vg, t_start + nx * kTile, k_end, d, DP, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // tile it has landed
+    __syncthreads();
+    const int t0 = t_start + it * kTile;
+    const bf16* kt = ks + (it % kStages) * kTile * LD;
+    const bf16* vt = vs + (it % kStages) * kTile * LD;
+    if (w_live) {
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          unsigned kb[4];
+          ldsm_x4(kb, kt + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
+                          ((lane / 8) % 2) * 8);
+          mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+      // the element predicate only on edge tiles: the kv_len tail, the
+      // causal diagonal, the window edge
+      const bool full = t0 + kTile <= k_end && (!a.causal || t0 + kTile - 1 <= qoff + w_lo) &&
+                        t0 > qoff + w_hi - win;
+      float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = s[n][e] * a.scale;
+          if (!full) {
+            const int kp = t0 + n * 8 + 2 * t + (e & 1);
+            const int qp = e < 2 ? qp0 : qp1;
+            bool pred = kp < k_end && kp > qp - win;
+            if (a.causal) pred = pred && qp >= kp;
+            v = pred ? v : -INFINITY;
+          }
+          s[n][e] = v;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // a masked key is -inf: expf gives 0, also when the row is all masked
+      // (mn stays kNeg, finite)
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][0] = expf(s[n][0] - mn0);
+        s[n][1] = expf(s[n][1] - mn0);
+        s[n][2] = expf(s[n][2] - mn1);
+        s[n][3] = expf(s[n][3] - mn1);
+        rs0 += s[n][0] + s[n][1];
+        rs1 += s[n][2] + s[n][3];
+      }
+      l0 = l0 * al0 + rs0;         // per-thread partial sums, reduced at the end
+      l1 = l1 * al1 + rs1;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= al0;
+        o[n][1] *= al0;
+        o[n][2] *= al1;
+        o[n][3] *= al1;
+      }
+      // P (the S accumulators) is the A fragment of the P.V product, as a
+      // hi and a lo bf16 half: two mmas per V fragment
+#pragma unroll
+      for (int kb = 0; kb < kTile / 16; ++kb) {
+        unsigned ph[4], pl[4];
+        split_bf16(s[2 * kb][0], s[2 * kb][1], ph[0], pl[0]);
+        split_bf16(s[2 * kb][2], s[2 * kb][3], ph[1], pl[1]);
+        split_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          unsigned vb[4];
+          ldsm_x4_trans(vb, vt + (kb * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 +
+                                (lane / 16) * 8);
+          mma_bf16(o[2 * dp], ph, vb[0], vb[1]);
+          mma_bf16(o[2 * dp + 1], ph, vb[2], vb[3]);
+          mma_bf16(o[2 * dp], pl, vb[0], vb[1]);
+          mma_bf16(o[2 * dp + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();               // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+  if (!w_live) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(kFull, l0, off);
+    l1 += __shfl_xor_sync(kFull, l1, off);
+  }
+  // an empty predicate row (l == 0) writes 0
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int r0 = w_lo + g, r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (c + e >= d) continue;
+      if (r0 < a.sq) og[(size_t)r0 * d + c + e] = __float2bfloat16(o[n][e] * inv0);
+      if (r1 < a.sq) og[(size_t)r1 * d + c + e] = __float2bfloat16(o[n][2 + e] * inv1);
+    }
+  }
+}
+
+// Key range [lo, hi) of split `split` of `splits` over [k_begin, k_end): equal
+// contiguous shares of the live keys.
+__device__ __forceinline__ void split_range(int k_begin, int k_end, int splits, int split,
+                                            int& lo, int& hi) {
+  const int n = max(k_end - k_begin, 0);
+  const int per = (n + splits - 1) / splits;
+  lo = min(k_begin + split * per, k_begin + n);
+  hi = min(lo + per, k_begin + n);
+}
+
+// Split-KV body (decode: group * Sq <= 16 rows).  One CTA: all rows of one KV
+// head of one lane over one contiguous share of the live keys.  bf16 K/V
+// tiles of 64 keys through a cp.async ring; f32 math on the CUDA cores (one
+// row does ~1 FLOP per K/V byte: the bytes bound it, not the operations).
+// Each warp takes 16 keys of every tile (Q.K^T: a key per half-warp lane,
+// half of the head dims per half-warp; P.V: 2 head dims per lane and 64 per
+// pass); the 4 warps' softmax states merge in warp order, and the CTA writes
+// its (m, l, acc) rows to part (B, Hkv, splits, rows, d + 2) f32.
+template <int R>
+__global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, float* part,
+                                                                int dp, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = dp + 8;
+  const int d = a.d;
+  const int group = a.hq / a.hkv;
+  const int rows = group * a.sq;
+  float* qs = reinterpret_cast<float*>(smem_raw);               // (rows, dp) f32
+  bf16* ks = reinterpret_cast<bf16*>(qs + R * dp);     // (kStages, 64, ld)
+  bf16* vs = ks + kStages * kTile * ld;
+  float* mrg = reinterpret_cast<float*>(ks);    // after the walk: (4, rows, dp + 2)
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int j = lane % 16, half = lane / 16;
+
+  const int kv_len = min(a.kv_lens[b], a.skv);
+  const int qoff = a.q_offset[b];
+  const int win = a.window[0];
+  int k_begin = qoff - win + 1;
+  if (k_begin < 0) k_begin = 0;
+  int k_end = kv_len;
+  if (a.causal) k_end = min(k_end, qoff + a.sq);
+  int lo, hi;
+  split_range(k_begin, k_end, splits, split, lo, hi);
+  const int n_tiles = (hi - lo + kTile - 1) / kTile;
+
+  const bf16* qg = static_cast<const bf16*>(a.q);
+  const bf16* kg = static_cast<const bf16*>(a.k) + ((size_t)b * a.hkv + hk) * a.skv * d;
+  const bf16* vg = static_cast<const bf16*>(a.v) + ((size_t)b * a.hkv + hk) * a.skv * d;
+
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < n_tiles) {
+      stage_rows(ks + p * kTile * ld, ld, kg, lo + p * kTile, hi, d, dp, vec);
+      stage_rows(vs + p * kTile * ld, ld, vg, lo + p * kTile, hi, d, dp, vec);
+    }
+    cp_async_commit();
+  }
+  // while the first tiles are in flight: row rr of the CTA is query head
+  // hk * group + rr / Sq, query row rr % Sq
+  for (int e = threadIdx.x; e < rows * dp; e += blockDim.x) {
+    const int rr = e / dp, c = e - rr * dp;
+    const int h = hk * group + rr / a.sq, qi = rr % a.sq;
+    qs[e] = c < d ? __bfloat162float(qg[(((size_t)b * a.hq + h) * a.sq + qi) * d + c]) : 0.f;
+  }
+
+  // the plain version's formula, exp(s * scale - m): decode is bound by
+  // bytes, so the accurate expf costs nothing here
+  float m[R], l[R], acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNeg;
+    l[r] = 0.f;
+    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+  }
+  const int hd = dp / 2;           // head dims per half-warp in Q.K^T
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int nx = it + kStages - 1;
+    if (nx < n_tiles) {
+      const int st = nx % kStages;
+      stage_rows(ks + st * kTile * ld, ld, kg, lo + nx * kTile, hi, d, dp, vec);
+      stage_rows(vs + st * kTile * ld, ld, vg, lo + nx * kTile, hi, d, dp, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const bf16* kt = ks + (it % kStages) * kTile * ld;
+    const bf16* vt = vs + (it % kStages) * kTile * ld;
+    const int key = warp * 16 + j;                   // this lane's key in the tile
+    const int kp = lo + it * kTile + key;
+
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.f;
+    for (int c = 0; c < hd; c += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(kt + key * ld + half * hd + c);
+      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float kf[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(k2[i]);
+        kf[2 * i] = f.x;
+        kf[2 * i + 1] = f.y;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < rows) {
+          const float* qr = qs + r * dp + half * hd + c;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s[r] = fmaf(qr[i], kf[i], s[r]);
+        }
+      }
+    }
+    float p[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      p[r] = 0.f;
+      if (r >= rows) continue;     // uniform across the CTA
+      s[r] += __shfl_xor_sync(kFull, s[r], 16);
+      const int qp = qoff + r % a.sq;
+      bool pred = kp < hi && kp > qp - win;
+      if (a.causal) pred = pred && qp >= kp;
+      const float sv = pred ? s[r] * a.scale : -INFINITY;
+      float mx = sv;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      const float mn = fmaxf(m[r], mx);
+      const float al = expf(m[r] - mn);
+      p[r] = expf(sv - mn);
+      float ps = p[r];
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(kFull, ps, off);
+      l[r] = l[r] * al + ps;
+      m[r] = mn;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[r][i] *= al;
+    }
+    // P.V: lane owns head dims 2 * lane + {0, 1} + 64 * i
+    for (int jj = 0; jj < 16; ++jj) {
+      const bf16* vrow = vt + (warp * 16 + jj) * ld;
+      float2 vv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = 2 * lane + 64 * i;
+        vv[i] = c < dp ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vrow + c))
+                       : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= rows) continue;
+        const float pj = __shfl_sync(kFull, p[r], jj);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[r][2 * i] = fmaf(pj, vv[i].x, acc[r][2 * i]);
+          acc[r][2 * i + 1] = fmaf(pj, vv[i].y, acc[r][2 * i + 1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();                 // the ring is free: reuse it for the merge
+
+  const int st = dp + 2;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= rows) continue;
+    float* slot = mrg + (warp * rows + r) * st;
+    if (lane == 0) {
+      slot[0] = m[r];
+      slot[1] = l[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = 2 * lane + 64 * i;
+      if (c < dp) {
+        slot[2 + c] = acc[r][2 * i];
+        slot[3 + c] = acc[r][2 * i + 1];
+      }
+    }
+  }
+  __syncthreads();
+  // the 4 warps' states in warp order -> this split's row of part
+  float* out = part + (((size_t)b * a.hkv + hk) * splits + split) * rows * (d + 2);
+  for (int e = threadIdx.x; e < rows * (d + 2); e += blockDim.x) {
+    const int r = e / (d + 2), c = e - r * (d + 2);
+    float mx = kNeg;
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, mrg[(w * rows + r) * st]);
+    float val = c == 0 ? mx : 0.f;
+    if (c > 0) {
+      for (int w = 0; w < 4; ++w) {
+        const float* slot = mrg + (w * rows + r) * st;
+        val += expf(slot[0] - mx) * slot[c];
+      }
+    }
+    out[e] = val;
+  }
+}
+
+// Merge the splits of each row in split order (no atomics: the same bits
+// every run) and write the normalized row in bf16.  One CTA per (KV head,
+// lane).
+__global__ void __launch_bounds__(4 * kWarp) flash_split_merge(const Args a, const float* part,
+                                                                int splits) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int d = a.d, group = a.hq / a.hkv, rows = group * a.sq;
+  const float* pb = part + ((size_t)b * a.hkv + hk) * splits * rows * (d + 2);
+  bf16* og = static_cast<bf16*>(a.o);
+  for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
+    const int r = e / d, c = e - r * d;
+    float mx = kNeg;
+    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, pb[((size_t)sp * rows + r) * (d + 2)]);
+    float lt = 0.f, at = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* row = pb + ((size_t)sp * rows + r) * (d + 2);
+      const float w = expf(row[0] - mx);
+      lt += w * row[1];
+      at += w * row[2 + c];
+    }
+    const int h = hk * group + r / a.sq, qi = r % a.sq;
+    og[(((size_t)b * a.hq + h) * a.sq + qi) * d + c] = __float2bfloat16(lt > 0.f ? at / lt : 0.f);
+  }
+}
+
+template <int DP>
+int launch_tc(const Args& a, int b, int vec, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (size_t)(DP + 8) * (kTcRows + 2 * kStages * kTile);
+  cudaError_t err = cudaFuncSetAttribute(flash_dense_tc<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.sq + kTcRows - 1) / kTcRows, a.hq, b);
+  flash_dense_tc<DP><<<grid, kTcThreads, smem, stream>>>(a, vec);
+  return (int)cudaGetLastError();
+}
+
+// R: the most rows the instance serves (registers per row: acc, m, l, s, p).
+template <int R>
+int launch_split(const Args& a, float* part, int dp, int vec, dim3 grid, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * R * dp + sizeof(bf16) * 2 * kStages * kTile * (size_t)(dp + 8);
+  cudaError_t err = cudaFuncSetAttribute(flash_dense_split<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_dense_split<R><<<grid, 4 * kWarp, smem, stream>>>(a, part, dp, vec);
+  return (int)cudaGetLastError();
+}
+
+bool dense_vec(const void* q, const void* k, const void* v, int d) {
+  return d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+}
+
 }  // namespace
 
+// The CUDA-core body, f32 only (bf16 takes the two bodies below).
 extern "C" int flash_attention_dense(const void* q, const void* k, const void* v, void* o,
                                      const int* kv_lens, const int* q_offset,
                                      const int* window, int b, int hq, int hkv, int sq,
-                                     int skv, int d, int causal, float scale, int is_bf16,
-                                     void* stream) {
+                                     int skv, int d, int causal, float scale, void* stream) {
   if (bad_shape(b, hq, hkv, sq, d) || skv < 0) return (int)cudaErrorInvalidValue;
   if (sq == 0) return (int)cudaGetLastError();
   Args a{q, k, v, o, kv_lens, q_offset, window, nullptr,
          hq, hkv, sq, skv, d, 0, 0, 0, causal, splits_for(sq < 16 ? sq : 16), scale};
   const int bq = (kWarps / a.splits) * kRows;
   const int grid_x = (sq + bq - 1) / bq;
+  return launch<float, float, false>(a, grid_x, hq, b, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core body: bf16 q, k, v, o; any d <= 128.
+extern "C" int flash_attention_dense_tc(const void* q, const void* k, const void* v, void* o,
+                                        const int* kv_lens, const int* q_offset,
+                                        const int* window, int b, int hq, int hkv, int sq,
+                                        int skv, int d, int causal, float scale, void* stream) {
+  if (bad_shape(b, hq, hkv, sq, d) || skv < 0) return (int)cudaErrorInvalidValue;
+  if (sq == 0) return (int)cudaGetLastError();
+  Args a{q, k, v, o, kv_lens, q_offset, window, nullptr,
+         hq, hkv, sq, skv, d, 0, 0, 0, causal, 1, scale};
+  const int vec = dense_vec(q, k, v, d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, false>(a, grid_x, hq, b, st)
-                 : launch<float, float, false>(a, grid_x, hq, b, st);
+  switch ((d + 15) / 16) {
+    case 1: return launch_tc<16>(a, b, vec, st);
+    case 2: return launch_tc<32>(a, b, vec, st);
+    case 3: return launch_tc<48>(a, b, vec, st);
+    case 4: return launch_tc<64>(a, b, vec, st);
+    case 5: return launch_tc<80>(a, b, vec, st);
+    case 6: return launch_tc<96>(a, b, vec, st);
+    case 7: return launch_tc<112>(a, b, vec, st);
+    default: return launch_tc<128>(a, b, vec, st);
+  }
+}
+
+// The split-KV body: bf16 q, k, v, o; (Hq / Hkv) * sq <= 16 rows; `splits`
+// CTAs per (KV head, lane) write (m, l, acc) rows to part, (b, hkv, splits,
+// rows, d + 2) f32, and a second launch merges them in split order.
+extern "C" int flash_attention_dense_split(const void* q, const void* k, const void* v,
+                                           void* o, void* part, const int* kv_lens,
+                                           const int* q_offset, const int* window, int b,
+                                           int hq, int hkv, int sq, int skv, int d,
+                                           int causal, float scale, int splits,
+                                           void* stream) {
+  if (bad_shape(b, hq, hkv, sq, d) || skv < 0 || splits < 1 || (hq / hkv) * sq > kSplitRows)
+    return (int)cudaErrorInvalidValue;
+  if (sq == 0) return (int)cudaGetLastError();
+  Args a{q, k, v, o, kv_lens, q_offset, window, nullptr,
+         hq, hkv, sq, skv, d, 0, 0, 0, causal, 1, scale};
+  const int dp = (d + 15) / 16 * 16;
+  const int rows = (hq / hkv) * sq;
+  const dim3 grid(splits, hkv, b);
+  const int vec = dense_vec(q, k, v, d);
+  float* pf = static_cast<float*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = rows <= 1   ? launch_split<1>(a, pf, dp, vec, grid, st)
+                  : rows <= 2 ? launch_split<2>(a, pf, dp, vec, grid, st)
+                  : rows <= 4 ? launch_split<4>(a, pf, dp, vec, grid, st)
+                  : rows <= 8 ? launch_split<8>(a, pf, dp, vec, grid, st)
+                              : launch_split<16>(a, pf, dp, vec, grid, st);
+  if (err != 0) return err;
+  flash_split_merge<<<dim3(hkv, b), 4 * kWarp, 0, st>>>(a, static_cast<const float*>(part),
+                                                        splits);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int flash_attention_paged(const void* q, const void* k_pool, const void* v_pool,

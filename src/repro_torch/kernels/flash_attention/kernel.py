@@ -1,24 +1,41 @@
 """The hand-written Hopper flash-attention kernels and their ctypes wrappers.
 
-``csrc/flash_attention.cu`` holds the kernels (dense, paged, and paged over
-int8/fp8 pools) (its header says which TPU
-kernel each replaces and what bounds it).  ``kernels._build`` compiles it at
-first use with ``nvcc`` for ``sm_90a`` into ``build/`` at the repo root,
-named by the hash of the source so an edited source rebuilds, and loads it
-with ``ctypes``.
+``csrc/flash_attention.cu`` holds the kernels (its header says which TPU
+kernel each replaces, what bounds it and what the design does about it).
+``kernels._build`` compiles it at first use with ``nvcc`` for ``sm_90a``
+into ``build/`` at the repo root, named by the hash of the source so an
+edited source rebuilds, and loads it with ``ctypes``.
+
+The dense kernel has three bodies, chosen per call by ``plan_dense`` (plain
+Python, so the CPU tests see the route):
+
+- ``tensor_core``, bf16 prefill (more than 16 rows per KV head): 64 query
+  rows per CTA, Q in registers, bf16 K/V tiles through a cp.async ring,
+  ``mma.sync`` products with f32 accumulators.  Bound by operations.
+- ``split_kv``, bf16 decode (at most 16 rows per KV head): the live keys of
+  each (KV head, lane) split over several CTAs so the card is full, f32
+  partials in scratch that this wrapper allocates, merged in split order by
+  a second launch.  Bound by bytes.
+- ``cuda_core``, f32: the first design, f32 products on the CUDA cores
+  (tensor cores would round f32 to TF32).
+
+The paged kernels (full-precision and int8/fp8 pools) keep the CUDA-core
+design.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, raise on anything the kernel does not take, allocate the output
 with ``torch.empty`` and launch on the current stream.  Each keeps a plain
 integer launch count (``flash_dense_cuda.launches``,
 ``flash_paged_cuda.launches``, ``flash_paged_quant_cuda.launches``) that
-grows by one per launch.
+grows by one per call; ``flash_dense_cuda.body_launches`` counts the dense
+calls per body.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -33,8 +50,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 LIBRARY = Library(SOURCE, {
     # q, k, v, o, kv_lens, q_offset, window, b, hq, hkv, sq, skv, d, causal,
-    # scale, is_bf16, stream
-    "flash_attention_dense": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    # scale, stream: the CUDA-core body (f32) and the tensor-core body (bf16)
+    "flash_attention_dense": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
+    "flash_attention_dense_tc": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
+    # q, k, v, o, part, kv_lens, q_offset, window, b, hq, hkv, sq, skv, d,
+    # causal, scale, splits, stream: the split-KV body (bf16)
+    "flash_attention_dense_split": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P],
     # q, k_pool, v_pool, o, table, kv_lens, q_offset, window, b, hq, hkv, sq,
     # d, page_size, n_pages, n_pool, causal, scale, is_bf16, stream
     "flash_attention_paged": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _P],
@@ -69,10 +90,56 @@ def _check_common(q, tensors: dict, ints: dict, b: int):
     _check(tuple(ints["window"].shape) == (1,), "window must be (1,)")
 
 
+# The dense kernel's three bodies; the wrapper picks one by ``plan_dense``.
+TENSOR_CORE, SPLIT_KV, CUDA_CORE = "tensor_core", "split_kv", "cuda_core"
+BODIES = (TENSOR_CORE, SPLIT_KV, CUDA_CORE)
+SPLIT_ROWS = 16        # most rows (group * Sq) the split-KV body serves
+MIN_SPLIT_KEYS = 128   # fewest cache keys per split
+TARGET_CTAS = 1024     # split-KV CTAs to aim for: ~8 per SM of an H100
+MAX_SPLITS = 64
+
+
+class DensePlan(NamedTuple):
+    """How the dense kernel runs one call.  ``body``: one of ``BODIES``;
+    ``splits``: CTAs per (KV head, lane) of the split-KV body, each over an
+    equal contiguous share of the lane's live keys, which the kernel computes
+    on the card from kv_lens, q_offset and the window; ``scratch``: the
+    shape of the f32 (m, l, acc) partials the split-KV body writes (None for
+    the others)."""
+    body: str
+    splits: int
+    scratch: tuple | None
+
+
+def plan_dense(dtype, b: int, hq: int, hkv: int, sq: int, skv: int,
+               d: int) -> DensePlan:
+    """The dense kernel's plan for q (b, hq, sq, d) over k/v (b, hkv, skv, d).
+
+    f32 takes the CUDA-core body (the tensor cores would run it as TF32).
+    bf16 with at most ``SPLIT_ROWS`` rows per KV head (group * Sq: decode)
+    takes the split-KV body with enough splits to fill the card, at least
+    ``MIN_SPLIT_KEYS`` cache keys each; other bf16 calls (prefill) the
+    tensor-core body, 64 query rows of one head per CTA."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype {dtype} not in {_DTYPES}")
+    if d > MAX_HEAD_DIM or hq % hkv:
+        raise ValueError(f"unsupported shape: Hq={hq}, Hkv={hkv}, D={d}")
+    if dtype == torch.float32:
+        return DensePlan(CUDA_CORE, 1, None)
+    rows = (hq // hkv) * sq
+    if rows <= SPLIT_ROWS:
+        want = -(-TARGET_CTAS // (b * hkv))
+        splits = max(1, min(want, skv // MIN_SPLIT_KEYS, MAX_SPLITS))
+        return DensePlan(SPLIT_KV, splits, (b, hkv, splits, rows, d + 2))
+    return DensePlan(TENSOR_CORE, 1, None)
+
+
 def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
                      scale: float):
     """Dense kernel: q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) -> (B,Hq,Sq,D) in q's
-    dtype.  ``kv_lens``/``q_offset`` (B,) and ``window`` (1,) int32."""
+    dtype.  ``kv_lens``/``q_offset`` (B,) and ``window`` (1,) int32.  The
+    body is ``plan_dense``'s; each call adds one to ``launches`` and to its
+    body's count in ``body_launches``."""
     b, hq, sq, d = q.shape
     _check_common(q, {"k": k, "v": v},
                   {"kv_lens": kv_lens, "q_offset": q_offset, "window": window}, b)
@@ -80,17 +147,34 @@ def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
     _check(k.shape[0] == b and k.shape[3] == d, "k/v batch or head dim != q's")
     hkv, skv = k.shape[1], k.shape[2]
     _check(hq % hkv == 0, f"Hq={hq} is not a multiple of Hkv={hkv}")
+    plan = plan_dense(q.dtype, b, hq, hkv, sq, skv, d)
     out = torch.empty_like(q)
     lib = LIBRARY.get()
-    err = lib.flash_attention_dense(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kv_lens.data_ptr(), q_offset.data_ptr(), window.data_ptr(),
-        b, hq, hkv, sq, skv, d, int(causal), float(scale),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on(err, "flash_attention_dense")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ints = (kv_lens.data_ptr(), q_offset.data_ptr(), window.data_ptr(),
+            b, hq, hkv, sq, skv, d, int(causal), float(scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if plan.body == SPLIT_KV:
+        part = torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
+        err = lib.flash_attention_dense_split(*ptrs, part.data_ptr(), *ints,
+                                              plan.splits, stream)
+        name = "flash_attention_dense_split"
+    elif plan.body == TENSOR_CORE:
+        err = lib.flash_attention_dense_tc(*ptrs, *ints, stream)
+        name = "flash_attention_dense_tc"
+    else:
+        err = lib.flash_attention_dense(*ptrs, *ints, stream)
+        name = "flash_attention_dense"
+    raise_on(err, name)
     flash_dense_cuda.launches += 1
+    flash_dense_cuda.body_launches[plan.body] += 1
     return out
+
+
+def reset_dense_counts():
+    """Set the dense kernel's launch counts, total and per body, to 0."""
+    flash_dense_cuda.launches = 0
+    flash_dense_cuda.body_launches = dict.fromkeys(BODIES, 0)
 
 
 def _check_pools(q, k_pool, v_pool, page_table):
@@ -172,6 +256,6 @@ def flash_paged_quant_cuda(q, k_pool, v_pool, k_scale, v_scale, page_table,
     return out
 
 
-flash_dense_cuda.launches = 0
+reset_dense_counts()
 flash_paged_cuda.launches = 0
 flash_paged_quant_cuda.launches = 0

@@ -115,3 +115,64 @@ def test_unknown_impl_raises():
     q = torch.zeros(1, 1, 1, 8)
     with pytest.raises(ValueError, match="impl"):
         flash_attention(q, q, q, impl="pallas")
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,body", [
+    (8, 32, 32, 963, 1027, K.TENSOR_CORE),    # prefill at the smoke shapes
+    (3, 4, 2, 9, 90, K.TENSOR_CORE),          # 18 rows per KV head
+    (8, 32, 32, 1, 1027, K.SPLIT_KV),         # decode
+    (3, 8, 2, 4, 77, K.SPLIT_KV),             # GQA group 4, 16 rows
+    (2, 2, 1, 1, 40, K.SPLIT_KV),             # Skv below one tile
+])
+def test_plan_routes_bf16_by_rows(b, hq, hkv, sq, skv, body, d):
+    """bf16 with more than 16 rows per KV head (group * Sq) takes the
+    tensor-core body on 64-row CTAs; with at most 16 the split-KV body,
+    with (B, Hkv, splits, rows, D + 2) f32 scratch and at least 128 cache
+    keys per split."""
+    plan = K.plan_dense(torch.bfloat16, b, hq, hkv, sq, skv, d)
+    assert plan.body == body
+    if body == K.TENSOR_CORE:
+        assert plan.splits == 1 and plan.scratch is None
+    else:
+        rows = (hq // hkv) * sq
+        assert plan.scratch == (b, hkv, plan.splits, rows, d + 2)
+        assert 1 <= plan.splits <= max(1, skv // K.MIN_SPLIT_KEYS)
+
+
+@pytest.mark.parametrize("sq,skv", [(1, 1027), (963, 1027), (3, 10)])
+def test_plan_f32_takes_cuda_core_body(sq, skv):
+    """f32 stays on the CUDA-core body: the tensor cores would round it to
+    TF32."""
+    plan = K.plan_dense(torch.float32, 2, 4, 2, sq, skv, 80)
+    assert plan.body == K.CUDA_CORE and plan.scratch is None
+
+
+def test_plan_fills_the_card_at_decode():
+    """stablelm-3b decode (8 lanes x 32 KV heads over 1027 keys) runs 4
+    splits: 1024 CTAs; olmoe-1b-7b's 16 KV heads 8."""
+    assert K.plan_dense(torch.bfloat16, 8, 32, 32, 1, 1027, 80).splits == 4
+    assert K.plan_dense(torch.bfloat16, 8, 16, 16, 1, 1027, 128).splits == 8
+
+
+@pytest.mark.parametrize("skv", [1, 40, 127, 128, 1027, 4097, 10 ** 5])
+@pytest.mark.parametrize("b,hkv", [(1, 1), (8, 1), (8, 32)])
+def test_plan_splits_fill_the_card_with_long_enough_shares(b, hkv, skv):
+    """The split-KV plan takes as many splits as reach ``TARGET_CTAS`` CTAs,
+    unless the cache holds fewer than ``MIN_SPLIT_KEYS`` keys per split or
+    ``MAX_SPLITS`` caps it; never fewer than one."""
+    splits = K.plan_dense(torch.bfloat16, b, hkv, hkv, 1, skv, 64).splits
+    assert 1 <= splits <= K.MAX_SPLITS
+    assert splits == 1 or splits * K.MIN_SPLIT_KEYS <= skv
+    full = b * hkv * splits >= K.TARGET_CTAS
+    assert (full or splits == K.MAX_SPLITS
+            or (splits + 1) * K.MIN_SPLIT_KEYS > skv)
+
+
+def test_plan_refuses_what_no_body_takes():
+    with pytest.raises(ValueError):
+        K.plan_dense(torch.bfloat16, 1, 2, 2, 1, 8, 160)
+    with pytest.raises(ValueError):
+        K.plan_dense(torch.bfloat16, 1, 3, 2, 1, 8, 64)
+    with pytest.raises(ValueError):
+        K.plan_dense(torch.float16, 1, 2, 2, 1, 8, 64)
