@@ -5,31 +5,36 @@
 1. Builds the hand-written CUDA kernels from the sources in the checkout:
    one ``nvcc`` per source, all started together.
 2. Holds each kernel against its plain PyTorch version on the card (flash
-   attention in f32 at atol = rtol = 1e-5, each of the dense kernel's three
-   bodies on the cases its plan routes to it, the split-KV body in bf16 to
-   one bf16 rounding step (atol 1e-5, rtol 2^-7), over int8/fp8 pools at 1e-4 as
-   the widened values differ from the plain path's by rounding; the SSD
-   scan in f32 at 1e-4 as its exp and cumsum run in another order; bf16 at
-   2e-2, the output being rounded to bf16; the MoE dispatch ranks, the
-   ordered ``fadda`` sums and scans and ``daxpy`` exactly, bit for bit),
-   checks the threefry bits on the card against the CPU's, and times each
-   kernel at the shapes its path gives it, beside its plain version, its
-   bound and, where one exists, one PyTorch library call.
+   attention in f32 at atol = rtol = 1e-5; in bf16 each body on the cases
+   its plan routes to it: the split-KV body, dense and paged over bf16,
+   int8 and fp8 pools, to one bf16 rounding step (atol 1e-5, rtol 2^-7),
+   the tensor-core body at ``TOL["tensor_core"]`` with its ratio to that
+   limit printed per case; f32 over int8/fp8 pools at 1e-4 as the widened
+   values differ from the plain path's by rounding; the SSD scan in f32 at
+   1e-4 as its exp and cumsum run in another order, bf16 at 2e-2, the
+   output being rounded to bf16; the MoE dispatch ranks, the ordered
+   ``fadda`` sums and scans and ``daxpy`` exactly, bit for bit), holds bf16
+   paged decode equal to dense decode bit for bit and each lane's bf16
+   decode equal alone and in the batch, checks the threefry bits on the
+   card against the CPU's, and times each kernel at the shapes its path
+   gives it, beside its plain version, its bound and, where one exists,
+   one PyTorch library call.
 3. Serves 8 greedy requests through ``ServeEngine.generate`` at the full
    width of stablelm-3b (dense family), zamba2-1.2b (hybrid), mamba2-130m
    (ssm) and olmoe-1b-7b (moe), random weights from seed 0, with the dense
    and (where the family pages) the paged KV cache, full precision and
    int8/fp8, then one mixed batch (4 greedy, 4 stochastic lanes) on the
    dense cache, counting kernel launches in each run, and checks the
-   outputs: finite logits, launch counts (the dense kernel's per body),
-   first-step logits against the plain path, across cache layouts, and of
-   quantized native decode against the gather oracle over the same pool
-   bytes and against a truncating oracle; in a teacher-forced decode of the
-   dense run's tokens, every split-KV call against the plain attention on
-   its inputs (bf16 weights) and the paged cache's logits against the dense
-   cache's at every step (bf16 and f32 weights); the mixed batch's greedy
-   lanes against the all-greedy run and its stochastic lanes' first tokens
-   against the keep set of the plain path.
+   outputs: finite logits, launch counts (each flash kernel's per body),
+   the paged runs' tokens equal to the dense run's, first-step logits
+   against the plain path, across cache layouts, and of quantized native
+   decode against the gather oracle over the same pool bytes and against a
+   truncating oracle; in a teacher-forced decode of the dense run's
+   tokens, every split-KV call (dense, paged, int8/fp8 pages) against the
+   plain attention on its inputs (bf16 weights) and the paged cache's
+   logits equal to the dense cache's at every step (bf16 and f32 weights);
+   the mixed batch's greedy lanes against the all-greedy run and its
+   stochastic lanes' first tokens against the keep set of the plain path.
 4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
 5. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
@@ -144,13 +149,22 @@ def reset_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as K
     for fn in kernel_wrappers().values():
         fn.launches = 0
-    K.reset_dense_counts()
+    K.reset_flash_counts()
+
+
+FLASH = ("flash_attention_dense", "flash_attention_paged",
+         "flash_attention_paged_quant")
 
 
 def read_bodies() -> dict:
-    """The dense kernel's launches per body since the last reset."""
-    from repro_torch.kernels.flash_attention import kernel as K
-    return dict(K.flash_dense_cuda.body_launches)
+    """Each flash wrapper's launches per body since the last reset."""
+    w = kernel_wrappers()
+    return {name: dict(w[name].body_launches) for name in FLASH}
+
+
+def _nonzero(bodies) -> dict:
+    return {k: {b: n for b, n in v.items() if n} for k, v in bodies.items()
+            if any(v.values())}
 
 
 def read_counts() -> dict:
@@ -192,12 +206,12 @@ def build_all():
 # Dense cases (b, hkv, group, sq, skv, causal, window) and the body each
 # takes in bf16 (f32 always takes the CUDA-core body).  Split-KV decode with
 # 1, 2, 4, 8 and 12 rows per KV head (every row-count instance), over
-# caches that plan 1 split (Skv 77), 4 (Skv 600), 8 (Skv 1024) and 32 (Skv
-# 4097), causal with q_offset > 0 and a window; tensor-core prefill with
-# partial row blocks (37, 65, 963 rows), GQA, a window, non-causal rows and
-# rows past a lane's kv_len.  Lanes hold kv_lens (skv, skv // 2, 0, 5):
-# ragged, one empty lane, and one with fewer live keys than splits (some
-# splits empty).
+# caches of 77 keys (one split of the fixed 128-key grid), 600 (5), 1024
+# (8) and 4097 (33), causal with q_offset > 0 and a window; tensor-core
+# prefill with partial row blocks (37, 65, 963 rows), GQA, a window,
+# non-causal rows and rows past a lane's kv_len.  Lanes hold kv_lens (skv,
+# skv // 2, 0, 5): ragged, one empty lane, and one with fewer live keys
+# than one tile (the grid's other splits empty).
 DENSE_CASES = (
     ((3, 2, 1, 1, 77, False, None), "split_kv"),
     ((3, 2, 2, 6, 77, True, None), "split_kv"),
@@ -213,12 +227,33 @@ DENSE_CASES = (
     ((2, 1, 2, 963, 1027, True, None), "tensor_core"),
 )
 DENSE_HEAD_DIMS = (16, 32, 37, 64, 80, 96, 100, 128)   # every tensor-core instance
+# Paged cases (b, hkv, group, sq, ps, n_pages) and the body each takes in
+# bf16 (f32 always takes the CUDA-core body): the split-KV body at every
+# row-count instance (1, 2, 4, 6 and 16 rows per KV head), page sizes 8 and
+# 16, one and several splits (1120 keys: 5); a chunk of 24 rows on the
+# CUDA-core body.  Lanes hold kv_lens (skv, skv // 2 + 1, 0, 5) with stale
+# ids past the second lane's strip; each case runs non-causal, causal, and
+# causal with a window.
+PAGED_CASES = (
+    ((4, 2, 1, 1, 16, 70), "split_kv"),
+    ((4, 2, 2, 1, 8, 9), "split_kv"),
+    ((4, 1, 4, 1, 16, 5), "split_kv"),
+    ((4, 2, 2, 3, 8, 9), "split_kv"),
+    ((4, 1, 4, 4, 16, 20), "split_kv"),
+    ((4, 1, 8, 2, 8, 40), "split_kv"),
+    ((2, 2, 2, 12, 16, 4), "cuda_core"),
+)
+PAGED_MASKS = ((False, None), (True, None), (True, 37))
 # Limits against the plain version (atol, rtol).  The split-KV body and the
 # plain version both sum in f32 and round once to bf16, so they may differ
-# by one bf16 rounding step (at most 2^-7 of the value); the tensor-core body
-# rounds P to bf16 for its P.V product.
-TOL = {"f32": (1e-5, 1e-5), "tensor_core": (2e-2, 2e-2),
-       "split_kv": (1e-5, 2 ** -7)}
+# by one bf16 rounding step (at most 2^-7 of the value).  The tensor-core
+# body keeps P to ~16 bits (hi + lo bf16 halves) and is held to the same
+# step: on an H100 its cases read at most 0.9974 of it (the ratios are
+# printed per case), and a kernel that drops one 64-key tile fails it.  The
+# paged CUDA-core body in bf16 (chunks of more than 16 rows) is held as
+# since it was written.
+TOL = {"f32": (1e-5, 1e-5), "tensor_core": (1e-5, 2 ** -7),
+       "split_kv": (1e-5, 2 ** -7), "paged_cuda_core": (2e-2, 2e-2)}
 
 
 def tol_ratio(got, want, atol, rtol) -> float:
@@ -228,23 +263,41 @@ def tol_ratio(got, want, atol, rtol) -> float:
     return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
+def _paged_inputs(gen, b, hkv, group, sq, ps, n_pages, d, dtype):
+    """q, bf16/f32 pools and a shuffled table with stale ids past the
+    second lane's strip; kv_lens (skv, skv // 2 + 1, 0, 5)."""
+    n_pool = b * n_pages + 3
+    q = torch.randn(b, hkv * group, sq, d, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(n_pool, hkv, ps, d, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(n_pool, hkv, ps, d, generator=gen, device="cuda").to(dtype)
+    table = torch.randperm(n_pool, generator=gen, device="cuda")[
+        :b * n_pages].reshape(b, n_pages).to(torch.int32)
+    skv = n_pages * ps
+    kv_lens = torch.tensor([skv, skv // 2 + 1, 0, 5][:b], dtype=torch.int32,
+                           device="cuda")
+    table[1, (skv // 2 + 1 + ps - 1) // ps:] = 10 ** 6   # stale ids
+    return q, kp, vp, table, kv_lens
+
+
 def check_kernels(flash_attention):
-    """Dense at ``DENSE_HEAD_DIMS`` over ``DENSE_CASES``, each routed to the
-    body its plan names (held by the per-body launch counts); paged with a
-    shuffled table and stale out-of-strip entries.  Every block-shape
+    """Dense at ``DENSE_HEAD_DIMS`` over ``DENSE_CASES`` and paged over
+    ``PAGED_CASES`` (every mask of ``PAGED_MASKS``), each routed to the body
+    its plan names (held by the per-body launch counts).  Every block-shape
     branch of the kernels is hit: the CUDA-core body's 1-4, 5-8 and >8 rows
     per block and several row chunks, the tensor-core body's partial and
     several row blocks and edge tiles (causal diagonal with q_offset > 0,
     window, kv_len tail) at every padded head dim, the split-KV body at
-    every row-count instance with 1, 4, 8 and 32 splits; and both ways of
-    staging K/V: 16-byte copies (D a multiple of 8 bf16 or 4 f32 elements,
-    aligned rows) and element loads (D = 37, D = 100 in bf16, and K/V that
-    start off a 16-byte boundary)."""
+    every row-count instance, dense and paged, with one split and many,
+    empty splits and lanes; and both ways of staging K/V: 16-byte copies
+    (D a multiple of 8 bf16 or 4 f32 elements, aligned rows) and element
+    loads (D = 37, D = 100 in bf16, and K/V that start off a 16-byte
+    boundary).  Prints the tensor-core body's ``tol_ratio`` per case."""
     from repro_torch.kernels.flash_attention import kernel as K
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {"f32": 0.0, "tensor_core": 0.0, "split_kv": 0.0, "paged": 0.0}
     ratio = dict.fromkeys(TOL, 0.0)
+    tc_ratio = {}
     splits = set()
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         # K/V one element past an aligned start: rows off 16-byte boundaries
@@ -271,7 +324,7 @@ def check_kernels(flash_attention):
                 q_off = (kv_lens - sq).clamp_min(0) if causal else kv_lens * 0
                 kw = dict(kv_lens=kv_lens, causal=causal, window=window,
                           q_offset=q_off)
-                K.reset_dense_counts()
+                K.reset_flash_counts()
                 got = flash_attention(q, k, v, impl="kernel", **kw)
                 want = flash_attention(q, k, v, impl="naive", **kw)
                 torch.cuda.synchronize()
@@ -289,46 +342,55 @@ def check_kernels(flash_attention):
                 if want_body == "split_kv":
                     splits.add(K.plan_dense(dtype, b, hkv * group, hkv, sq,
                                             skv, d).splits)
+                r = tol_ratio(got, want, atol, rtol)
+                if kind == "tensor_core":
+                    tc_ratio[(b, hkv, group, sq, skv, d)] = r
                 worst[kind] = max(worst[kind],
                                   float((got.float() - want.float()).abs().max()))
-                ratio[kind] = max(ratio[kind], tol_ratio(got, want, atol, rtol))
-            for (b, hkv, group, sq, ps, n_pages) in (
-                    (3, 2, 1, 1, 16, 5), (3, 2, 2, 3, 8, 9), (2, 2, 2, 12, 16, 4)):
-                n_pool = b * n_pages + 3
-                q = torch.randn(b, hkv * group, sq, d, generator=gen,
-                                device="cuda").to(dtype)
-                kp = torch.randn(n_pool, hkv, ps, d, generator=gen,
-                                 device="cuda").to(dtype)
-                vp = torch.randn(n_pool, hkv, ps, d, generator=gen,
-                                 device="cuda").to(dtype)
-                table = torch.randperm(n_pool, generator=gen, device="cuda")[
-                    :b * n_pages].reshape(b, n_pages).to(torch.int32)
-                skv = n_pages * ps
-                kv_lens = torch.tensor([skv, skv // 2 + 1, 0][:b],
-                                       dtype=torch.int32, device="cuda")
-                table[1, (skv // 2 + 1 + ps - 1) // ps:] = 10 ** 6   # stale ids
+                ratio[kind] = max(ratio[kind], r)
+            for (b, hkv, group, sq, ps, n_pages), body in PAGED_CASES:
+                q, kp, vp, table, kv_lens = _paged_inputs(
+                    gen, b, hkv, group, sq, ps, n_pages, d, dtype)
                 q_off = (kv_lens - sq).clamp_min(0)
-                for causal in (False, True):
-                    kw = dict(kv_lens=kv_lens, causal=causal, q_offset=q_off,
-                              page_table=table)
+                kind = ("f32" if dtype == torch.float32 else
+                        "split_kv" if body == "split_kv" else "paged_cuda_core")
+                want_body = "cuda_core" if dtype == torch.float32 else body
+                atol, rtol = TOL[kind]
+                for causal, window in PAGED_MASKS:
+                    kw = dict(kv_lens=kv_lens, causal=causal, window=window,
+                              q_offset=q_off, page_table=table)
+                    K.reset_flash_counts()
                     got = flash_attention(q, kp, vp, impl="kernel", **kw)
                     want = flash_attention(q, kp, vp, impl="naive", **kw)
                     torch.cuda.synchronize()
-                    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+                    where = (f"paged {dtype} d={d} {(b, hkv, group, sq, ps, n_pages)} "
+                             f"causal={causal} window={window}")
+                    torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                                               msg=lambda m: f"{where}: {m}")
+                    if b >= 3:
+                        check(not got[2].any(), f"{where}: an empty lane reads 0")
+                    check(K.flash_paged_cuda.body_launches[want_body] == 1,
+                          f"{where} took the {want_body} body: "
+                          f"{K.flash_paged_cuda.body_launches}")
                     worst["paged"] = max(worst["paged"], float(
                         (got.float() - want.float()).abs().max()))
-    check(splits == {1, 4, 8, 32}, f"split-KV cases planned {sorted(splits)} "
-          "splits, expected 1, 4, 8 and 32")
+                    ratio[kind] = max(ratio[kind], tol_ratio(got, want, atol, rtol))
+    for case in sorted({c[:5] for c in tc_ratio}):
+        print(f"[kernels] tensor_core (b, hkv, group, sq, skv) {case}: "
+              "tol_ratio at ({:g}, {:g}) by head dim ".format(*TOL["tensor_core"])
+              + ", ".join(f"{c[5]}: {r:.4f}" for c, r in tc_ratio.items()
+                          if c[:5] == case), flush=True)
     print(f"[kernels] checked against the plain versions "
-          f"({len(DENSE_CASES)} dense cases x {len(DENSE_HEAD_DIMS)} head dims, "
-          f"each on its planned body; paged at f32 1e-5, bf16 2e-2): max |err| "
+          f"({len(DENSE_CASES)} dense cases x {len(DENSE_HEAD_DIMS)} head dims "
+          f"and {len(PAGED_CASES)} paged cases x {len(PAGED_MASKS)} masks, each "
+          f"on its planned body): max |err| "
           + ", ".join(f"{k} {worst[k]:.3g}" for k in worst)
           + "; max |err| / (atol + rtol |ref|) "
           + ", ".join(f"{k} {ratio[k]:.3g} (limits {TOL[k][0]:g}, {TOL[k][1]:g})"
                       for k in ratio), flush=True)
+    check(splits == {1, 5, 8, 33}, f"split-KV cases planned grids of "
+          f"{sorted(splits)} splits, expected 1, 5, 8 and 33")
     return worst
-
-
 
 
 def _quant_pools(gen, n_pool, hkv, ps, d, page_dtype):
@@ -340,23 +402,42 @@ def _quant_pools(gen, n_pool, hkv, ps, d, page_dtype):
         PG.resolve_page_dtype(page_dtype))
 
 
+# Quantized paged cases (d, ps, group, sq, window) and the body each takes
+# with bf16 q (f32 q always takes the CUDA-core body): the split-KV body at
+# every row-count instance (1, 2, 4, 6 and 16 rows per KV head), page sizes
+# 8 and 16, head dims 48, 64, 80 and 128, with and without a window; a
+# chunk of 20 rows on the CUDA-core body.
+QUANT_CASES = (
+    ((64, 16, 1, 1, None), "split_kv"),
+    ((80, 16, 2, 1, None), "split_kv"),
+    ((80, 8, 4, 1, 29), "split_kv"),
+    ((128, 8, 2, 3, 11), "split_kv"),
+    ((48, 8, 4, 4, None), "split_kv"),
+    ((64, 16, 8, 2, 50), "split_kv"),
+    ((80, 16, 4, 5, None), "cuda_core"),
+)
+
+
 def check_quant_kernel(flash_attention):
     """The paged kernel over int8 and fp8 pools against the plain path
-    (extending gather, then the reference), q in f32 and bf16: head dims 48,
-    64, 80 and 128 (16-byte loads of 16 narrow elements), page sizes 8 and
-    16, GQA group 1 and 4, one and three query rows, ragged kv_lens with
-    stale out-of-strip table entries, a sliding window, and an empty lane.
-    A head dim that is not a multiple of 16 is refused."""
+    (extending gather, then the reference) over ``QUANT_CASES``: bf16 q on
+    the split-KV body to one bf16 rounding step (``TOL["split_kv"]``), f32
+    q on the CUDA-core body at 1e-4 (the widened values differ from the
+    plain path's by rounding), bf16 chunks of more than 16 rows at 2e-2;
+    ragged kv_lens (full, half, 0 and 5 keys) with stale out-of-strip table
+    entries, causal, and the body held by the launch counts.  A head dim
+    that is not a multiple of 16 is refused."""
     from repro_torch.kernels.flash_attention import kernel as K
     gen = torch.Generator(device="cuda").manual_seed(5)
-    worst = 0.0
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    worst = {"f32": 0.0, "split_kv": 0.0, "paged_cuda_core": 0.0}
+    ratio = dict(worst)
+    n_cases = 0
+    tols = {"f32": (1e-4, 1e-4), "split_kv": TOL["split_kv"],
+            "paged_cuda_core": TOL["paged_cuda_core"]}
+    for dtype in (torch.float32, torch.bfloat16):
         for page_dtype in ("int8", "fp8"):
-            for d, ps, group, window, sq in ((64, 16, 1, None, 1),
-                                             (80, 16, 4, None, 1),
-                                             (128, 8, 2, 11, 1),
-                                             (48, 8, 1, None, 3)):
-                b, hkv, n_pages = 3, 2, 6
+            for (d, ps, group, sq, window), body in QUANT_CASES:
+                b, hkv, n_pages = 4, 2, 6 if ps == 16 else 12
                 n_pool = b * n_pages + 5
                 skv = n_pages * ps
                 kp, ks = _quant_pools(gen, n_pool, hkv, ps, d, page_dtype)
@@ -365,32 +446,147 @@ def check_quant_kernel(flash_attention):
                                 device="cuda").to(dtype)
                 table = torch.randperm(n_pool, generator=gen, device="cuda")[
                     :b * n_pages].reshape(b, n_pages).to(torch.int32)
-                kv_lens = torch.tensor([skv, skv // 2 + 1, 0], dtype=torch.int32,
+                kv_lens = torch.tensor([skv, skv // 2 + 1, 0, 5], dtype=torch.int32,
                                        device="cuda")
                 table[1, (skv // 2 + 1 + ps - 1) // ps:] = 10 ** 6   # stale ids
                 kw = dict(kv_lens=kv_lens, causal=True, window=window,
                           q_offset=(kv_lens - sq).clamp_min(0), page_table=table,
                           k_scale=ks, v_scale=vs)
+                K.reset_flash_counts()
                 got = flash_attention(q, kp, vp, impl="kernel", **kw)
                 want = flash_attention(q, kp, vp, impl="naive", **kw)
                 torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, atol=tol, rtol=tol)
-                check(not got[2].any(), "an empty lane reads 0")
-                worst = max(worst, float((got.float() - want.float()).abs().max()))
+                kind = ("f32" if dtype == torch.float32 else
+                        "split_kv" if body == "split_kv" else "paged_cuda_core")
+                want_body = "cuda_core" if dtype == torch.float32 else body
+                where = (f"paged {page_dtype} q {dtype} (d, ps, group, sq, window) "
+                         f"{(d, ps, group, sq, window)}")
+                atol, rtol = tols[kind]
+                torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                                           msg=lambda m: f"{where}: {m}")
+                check(not got[2].any(), f"{where}: an empty lane reads 0")
+                check(K.flash_paged_quant_cuda.body_launches[want_body] == 1,
+                      f"{where} took the {want_body} body: "
+                      f"{K.flash_paged_quant_cuda.body_launches}")
+                worst[kind] = max(worst[kind],
+                                  float((got.float() - want.float()).abs().max()))
+                ratio[kind] = max(ratio[kind], tol_ratio(got, want, atol, rtol))
+                n_cases += 1
     kp, ks = _quant_pools(gen, 4, 1, 8, 40, "int8")
     q = torch.zeros(1, 1, 1, 40, device="cuda")
     ints = [torch.zeros(n, dtype=torch.int32, device="cuda") for n in (1, 1, 1)]
-    try:
-        K.flash_paged_quant_cuda(q, kp, kp, ks, ks, torch.zeros(
-            1, 1, dtype=torch.int32, device="cuda"), *ints, causal=False, scale=1.0)
-    except ValueError as e:
-        check("multiple of 16" in str(e), f"head dim 40 refused: {e}")
-    else:
-        check(False, "a quantized pool of head dim 40 must be refused")
+    for qd in (torch.float32, torch.bfloat16):
+        try:
+            K.flash_paged_quant_cuda(q.to(qd), kp, kp, ks, ks, torch.zeros(
+                1, 1, dtype=torch.int32, device="cuda"), *ints, causal=False,
+                scale=1.0)
+        except ValueError as e:
+            check("multiple of 16" in str(e), f"head dim 40 refused: {e}")
+        else:
+            check(False, "a quantized pool of head dim 40 must be refused")
     print(f"[kernels] flash_attention_paged_quant checked against the plain "
-          f"path (f32 atol=rtol=1e-4, bf16 2e-2; int8 and fp8 pools): max "
-          f"|err| {worst:.3g}", flush=True)
+          f"path ({n_cases} cases, int8 and fp8 pools, each on its planned "
+          f"body): max |err| " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + "; max |err| / (atol + rtol |ref|) "
+          + ", ".join(f"{k} {ratio[k]:.3g} (limits {tols[k][0]:g}, {tols[k][1]:g})"
+                      for k in ratio), flush=True)
     return worst
+
+
+def _pages_of(k, v, ps, gen):
+    """The dense (B, Hkv, Skv, D) K/V laid out as pools (P, Hkv, ps, D)
+    through a shuffled table (3 pages of the pool unused)."""
+    import torch.nn.functional as F
+    b, hkv, skv, d = k.shape
+    n_pages = -(-skv // ps)
+    pad = n_pages * ps - skv
+    n_pool = b * n_pages + 3
+    table = torch.randperm(n_pool, generator=gen, device="cuda")[
+        :b * n_pages].reshape(b, n_pages).to(torch.int32)
+    pools = []
+    for t in (k, v):
+        pool = torch.zeros(n_pool, hkv, ps, d, dtype=t.dtype, device="cuda")
+        pool[table.flatten().long()] = (F.pad(t, (0, 0, 0, pad))
+                                        .view(b, hkv, n_pages, ps, d)
+                                        .transpose(1, 2).reshape(-1, hkv, ps, d))
+        pools.append(pool)
+    return pools[0], pools[1], table
+
+
+def check_paged_equals_dense(flash_attention):
+    """bf16 decode through a paged cache equals decode through the dense
+    cache over the same keys bit for bit (``torch.equal``): the split-KV
+    body is one template for both.  The smoke run's ragged lanes (kv_len
+    320 to 1027) and an empty lane, page sizes 8 and 16, one row and 16 rows
+    per KV head, causal, with and without a window, head dims 64, 80 and
+    128."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    lens = torch.tensor([812, 687, 757, 320, 963, 891, 835, 0], dtype=torch.int32,
+                        device="cuda") + 1
+    n_cases = 0
+    for d, hkv, group, sq in ((80, 32, 1, 1), (64, 4, 4, 4), (128, 16, 1, 1)):
+        q = torch.randn(8, hkv * group, sq, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn(8, hkv, 1027, d, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        for ps in (8, 16):
+            kp, vp, table = _pages_of(k, v, ps, gen)
+            for window in (None, 200):
+                kw = dict(kv_lens=lens, causal=True, window=window,
+                          q_offset=(lens - sq).clamp_min(0))
+                K.reset_flash_counts()
+                dense = flash_attention(q, k, v, impl="kernel", **kw)
+                paged = flash_attention(q, kp, vp, impl="kernel", page_table=table,
+                                        **kw)
+                torch.cuda.synchronize()
+                check(K.flash_dense_cuda.body_launches["split_kv"] == 1
+                      and K.flash_paged_cuda.body_launches["split_kv"] == 1,
+                      "dense and paged calls on the split-KV body")
+                check(torch.equal(dense, paged),
+                      f"bf16 paged == dense bit for bit at d={d}, hkv={hkv}, "
+                      f"rows {group * sq}, ps={ps}, window={window}: max |d| "
+                      f"{float((dense.float() - paged.float()).abs().max()):.3g}")
+                n_cases += 1
+    print(f"[kernels] bf16 paged decode equals dense decode bit for bit "
+          f"(torch.equal): {n_cases} cases (d 64, 80, 128; ps 8, 16; 1 and 16 "
+          f"rows per KV head; window none and 200)", flush=True)
+
+
+def check_batch_independence(flash_attention):
+    """Each lane's bf16 decode output, dense and paged, is bit for bit the
+    same alone in a short cache (its own keys, rounded up to a page) as
+    among the 8 lanes of the smoke batch in the 1027-key cache: the split
+    grid follows from the lane's own keys only."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    lens = torch.tensor([812, 687, 757, 320, 963, 891, 835, 487], dtype=torch.int32,
+                        device="cuda") + 1
+    d, hkv, ps = 80, 32, PAGE_SIZE
+    q = torch.randn(8, hkv, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(8, hkv, 1027, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    kp, vp, table = _pages_of(k, v, ps, gen)
+    kw = lambda ln: dict(kv_lens=ln, causal=True, q_offset=ln - 1)
+    batch = {"dense": flash_attention(q, k, v, impl="kernel", **kw(lens)),
+             "paged": flash_attention(q, kp, vp, impl="kernel", page_table=table,
+                                      **kw(lens))}
+    for i, n in enumerate(lens.tolist()):
+        short = -(-n // ps) * ps
+        ki, vi = k[i:i + 1, :, :short].contiguous(), v[i:i + 1, :, :short].contiguous()
+        kpi, vpi, ti = _pages_of(ki, vi, ps, gen)
+        li = lens[i:i + 1]
+        alone = {"dense": flash_attention(q[i:i + 1], ki, vi, impl="kernel", **kw(li)),
+                 "paged": flash_attention(q[i:i + 1], kpi, vpi, impl="kernel",
+                                          page_table=ti, **kw(li))}
+        torch.cuda.synchronize()
+        for cache in alone:
+            check(torch.equal(alone[cache][0], batch[cache][i]),
+                  f"lane {i} ({n} keys) {cache}: alone in a {short}-key cache "
+                  "equals its row in the batch of 8 at 1027 keys, bit for bit")
+    print(f"[kernels] bf16 decode is batch-composition independent: each of the "
+          f"8 lanes (kv_len {lens.min().item()}-{lens.max().item()}) alone in a "
+          f"short cache equals its row in the batch of 8 over 1027 keys, dense "
+          f"and paged, bit for bit", flush=True)
 
 
 def check_moe_positions():
@@ -498,15 +694,27 @@ def check_daxpy():
     """The daxpy kernel against ``daxpy_ref`` on the card, bit for bit, in
     f32 and bf16: n inside the array (the merged tail equal to y), n = len,
     n past len, lengths that are not a multiple of the 16-byte chunk, blocks
-    128 to 2048, and x, y one element off a 16-byte boundary."""
+    128 to 16384, and x, y one element off a 16-byte boundary; and the edges
+    of the span a CTA takes (``kernel.cta_span``): n on a span boundary and
+    one element either side of it, n = 0, an array shorter than one span,
+    and n past the length."""
     from repro_torch.kernels.daxpy import daxpy
+    from repro_torch.kernels.daxpy import kernel as DK
     from repro_torch.kernels.daxpy.ref import daxpy_ref
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for length, n, block in ((1000, 777, 128), (1000, 1000, 256), (50, 10, 128),
-                                 (2 ** 20 + 3, 2 ** 20 - 5, 2048), (4099, 5000, 512)):
+        cases = [(1000, 777, 128), (1000, 1000, 256), (50, 10, 128),
+                 (2 ** 20 + 3, 2 ** 20 - 5, 2048), (4099, 5000, 512)]
+        for block in (128, 2048, 16384):
+            span = DK.cta_span(block, dtype)
+            cases += [(3 * span + 5, n, block)
+                      for n in (span, span - 1, span + 1, 2 * span, 0,
+                                3 * span + 100)]
+            cases += [(span // 2 + 3, span // 4 + 1, block),
+                      (span // 2 + 3, span, block)]
+        for length, n, block in cases:
             x = torch.randn(length + 1, generator=gen, device="cuda").to(dtype)
             y = torch.randn(length + 1, generator=gen, device="cuda").to(dtype)
             for xv, yv in ((x[:length], y[:length]), (x[1:], y[1:])):
@@ -518,7 +726,7 @@ def check_daxpy():
                       "to the plain version, tail unchanged")
                 n_cases += 1
     print(f"[kernels] daxpy checked against daxpy_ref, bit for bit: {n_cases} "
-          "cases in f32 and bf16", flush=True)
+          "cases in f32 and bf16 (CTA-span edges included)", flush=True)
 
 
 def mixed_specs():
@@ -566,6 +774,13 @@ def check_prng(v: int = 50304):
 # bodies (the CUDA-core design, f32 products, on NVIDIA H100 80GB HBM3 at
 # 700.00 W): prefill q (8,32,963,80), dense-cache decode q (8,32,1,80).
 PREVIOUS_DENSE_MS = {"dense_prefill": 5.3184, "dense_decode": 0.0703}
+# The paged kernel's decode-call times at stablelm-3b's shape on its
+# CUDA-core design (flash_fwd, before the split-KV body took bf16 q; on
+# NVIDIA H100 80GB HBM3 at 700.00 W): bf16, int8 and fp8 pools.
+PREVIOUS_PAGED_MS = {"paged_decode": 0.0835, "paged_decode_int8": 0.0907,
+                     "paged_decode_fp8": 0.0911}
+# Split spans timed beside the shipped SPLIT_KEYS (split_span_sweep).
+SWEEP_SPLIT_KEYS = (128, 256, 512)
 
 
 def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
@@ -598,7 +813,11 @@ def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
                                                  scale=scale)
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
-    torch.testing.assert_close(out_k, out_p, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out_k, out_p, atol=TOL["tensor_core"][0],
+                               rtol=TOL["tensor_core"][1])
+    print(f"[time] dense_prefill{name}: tol_ratio at ({TOL['tensor_core'][0]:g}, "
+          f"{TOL['tensor_core'][1]:g}) "
+          f"{tol_ratio(out_k, out_p, *TOL['tensor_core']):.4f}", flush=True)
     pairs = int(mask.sum())
     rows[f"dense_prefill{name}"] = dict(
         shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
@@ -631,6 +850,29 @@ def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
         bytes=item * (2 * q1.numel() + 2 * hkv * d * live),
         max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
     return rows, (q1, k, v, kv1)
+
+
+def split_span_sweep(calls, gpu):
+    """The decode calls of ``calls`` (name -> a call of a wrapper) timed at
+    each split span of ``SWEEP_SPLIT_KEYS``: the wrappers read
+    ``kernel.SPLIT_KEYS`` at call time, so each span plans its own grid and
+    scratch.  The shipped span is restored after."""
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    shipped = K.SPLIT_KEYS
+    times = {}
+    try:
+        for span in SWEEP_SPLIT_KEYS:
+            K.SPLIT_KEYS = span
+            for name, fn in calls.items():
+                times[(name, span)] = time_ms(fn, 50)
+    finally:
+        K.SPLIT_KEYS = shipped
+    for name in calls:
+        print(f"[time] split span sweep, {name} decode call at stablelm-3b's "
+              f"shape: " + ", ".join(f"{span} keys {times[(name, span)]:.4f} ms"
+                                     for span in SWEEP_SPLIT_KEYS)
+              + f" (shipped: {shipped})  [{gpu}]", flush=True)
 
 
 def time_kernels(cfg, lens, max_len, gpu):
@@ -682,7 +924,16 @@ def time_kernels(cfg, lens, max_len, gpu):
                               q_offset=lens_t)
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
-    torch.testing.assert_close(out_k, out_p, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out_k, out_p, atol=TOL["split_kv"][0],
+                               rtol=TOL["split_kv"][1])
+    dense_out = K.flash_dense_cuda(q1, k, v, kv1, lens_t, win, causal=False,
+                                   scale=scale)
+    torch.cuda.synchronize()
+    check(torch.equal(out_k, dense_out), "paged decode at stablelm's shape "
+          "equals the dense call bit for bit")
+    sweep = {"dense": lambda: K.flash_dense_cuda(q1, k, v, kv1, lens_t, win,
+                                                 causal=False, scale=scale),
+             "paged bf16": kern}
     rows["paged_decode"] = dict(
         shape=f"q {tuple(q1.shape)} pools {tuple(kp.shape)} ps {PAGE_SIZE} bf16",
         ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20), library_ms=None,
@@ -696,15 +947,17 @@ def time_kernels(cfg, lens, max_len, gpu):
     for page_dtype in ("int8", "fp8"):
         qdt = PG.resolve_page_dtype(page_dtype)
         (kq, ksc), (vq, vsc) = PG.quantize_block(kp, qdt), PG.quantize_block(vp, qdt)
-        kern = lambda: K.flash_paged_quant_cuda(q1, kq, vq, ksc, vsc, tab_c, kv1,
-                                                lens_t, win, causal=False,
-                                                scale=scale)
+        kern = lambda kq=kq, vq=vq, ksc=ksc, vsc=vsc: K.flash_paged_quant_cuda(
+            q1, kq, vq, ksc, vsc, tab_c, kv1, lens_t, win, causal=False,
+            scale=scale)
         plain = lambda: R.mha_ref(q1, PG.gather_pages(kq, tab_c, scale=ksc),
                                   PG.gather_pages(vq, tab_c, scale=vsc),
                                   kv_lens=kv1, q_offset=lens_t)
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
-        torch.testing.assert_close(out_k, out_p, atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(out_k, out_p, atol=TOL["split_kv"][0],
+                                   rtol=TOL["split_kv"][1])
+        sweep[f"paged {page_dtype}"] = kern
         rows[f"paged_decode_{page_dtype}"] = dict(
             shape=f"q {tuple(q1.shape)} pools {tuple(kq.shape)} {page_dtype} "
                   f"+ scales {tuple(ksc.shape)} f32, ps {PAGE_SIZE}, q bf16",
@@ -713,7 +966,8 @@ def time_kernels(cfg, lens, max_len, gpu):
             bytes=(item * 2 * q1.numel() + 2 * hkv * d * live
                    + 4 * 2 * hkv * live + 4 * tab_c.numel()),
             max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
-        del kq, vq, ksc, vsc
+    split_span_sweep(sweep, gpu)
+    del sweep
     for name, r in rows.items():
         _bound(r)
         lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -722,6 +976,9 @@ def time_kernels(cfg, lens, max_len, gpu):
             extra += (f", previous design {PREVIOUS_DENSE_MS[name]:.4f} ms, "
                       f"{'no slower' if r['ms'] <= r['library_ms'] else 'SLOWER'}"
                       f" than the library call")
+        if name in PREVIOUS_PAGED_MS:
+            extra += (f" (split_kv body), previous design (CUDA-core, "
+                      f"flash_fwd) {PREVIOUS_PAGED_MS[name]:.4f} ms")
         print(f"[time] {name}: {r['shape']}: kernel {r['ms']:.4f} ms{extra}, plain "
               f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|err| "
@@ -819,13 +1076,23 @@ def time_fadda(v, gpu):
     return rows
 
 
+# daxpy at n = 2^26 - 3 in f32 on its grid-stride design, before the span
+# design (NVIDIA H100 80GB HBM3, 700.00 W).
+PREVIOUS_DAXPY_MS = 0.2812
+SWEEP_DAXPY_BLOCKS = (2048, 4096, 8192, 16384)
+
+
 def time_daxpy(gpu):
     """The daxpy kernel at n = 2^26 - 3 in f32 (the whole array active, its
-    length not a multiple of the 16-byte chunk), beside the plain version,
-    the bound (12 bytes an element at the memory rate; 2 f32 operations an
-    element at the f32 peak) and one library call, ``add_(alpha=)`` in
-    place on a copy of y."""
+    length not a multiple of the 16-byte chunk) at the op's default block,
+    beside the plain version, the bound (12 bytes an element at the memory
+    rate; 2 f32 operations an element at the f32 peak) and one library
+    call, ``add_(alpha=)`` in place on a copy of y, timed in turns with the
+    kernel (library, kernel, kernel, library; the mean of each pair); and
+    the kernel at each block of ``SWEEP_DAXPY_BLOCKS`` (the chunks a thread
+    has in flight follow from the block)."""
     from repro_torch.kernels.daxpy import kernel as DK
+    from repro_torch.kernels.daxpy.ops import DEFAULT_BLOCK
     from repro_torch.kernels.daxpy.ref import daxpy_ref
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -834,24 +1101,33 @@ def time_daxpy(gpu):
     y = torch.randn(n, generator=gen, device="cuda")
     y_lib = y.clone()
     a = torch.tensor(2.5)
-    kern = lambda: DK.daxpy_cuda(x, y, 2.5, n, block=2048)
+    kern = lambda: DK.daxpy_cuda(x, y, 2.5, n, block=DEFAULT_BLOCK)
     plain = lambda: daxpy_ref(x, y, a, n)
+    lib = lambda: y_lib.add_(x, alpha=2.5)
     got, want = kern(), plain()
     torch.cuda.synchronize()
     check(torch.equal(got, want), "daxpy at 2^26 - 3 equal to the plain version")
     del got, want
-    r = dict(shape=f"x, y ({n},) f32", ms=time_ms(kern, 30),
-             plain_ms=time_ms(plain, 10),
-             library_ms=time_ms(lambda: y_lib.add_(x, alpha=2.5), 30),
+    lib_ms, k_ms, k2_ms, lib2_ms = (time_ms(f, 30) for f in (lib, kern, kern, lib))
+    sweep = {blk: time_ms(lambda: DK.daxpy_cuda(x, y, 2.5, n, block=blk), 30)
+             for blk in SWEEP_DAXPY_BLOCKS}
+    r = dict(shape=f"x, y ({n},) f32, block {DEFAULT_BLOCK}", ms=(k_ms + k2_ms) / 2,
+             plain_ms=time_ms(plain, 10), library_ms=(lib_ms + lib2_ms) / 2,
              bytes=12 * n, max_abs_err=0.0)
     t_ops = 2 * n / PEAK_F32_FLOPS * 1e3
     t_bytes = r["bytes"] / PEAK_BYTES * 1e3
     r.update(bound_ms=max(t_ops, t_bytes),
              bound_by="operations" if t_ops >= t_bytes else "bytes")
-    print(f"[time] daxpy: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+    print(f"[time] daxpy: {r['shape']}: kernel {r['ms']:.4f} ms ({k_ms:.4f}, "
+          f"{k2_ms:.4f}; previous design {PREVIOUS_DAXPY_MS:.4f} ms), plain "
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-          f"(add_(alpha=)), bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-          f"{r['bytes'] / 1e6:.1f} MB), exact  [{gpu}]", flush=True)
+          f"(add_(alpha=); {lib_ms:.4f}, {lib2_ms:.4f}; the kernel is "
+          f"{'no slower' if r['ms'] <= r['library_ms'] else 'SLOWER'}), bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['bytes'] / 1e6:.1f} MB), "
+          f"exact  [{gpu}]", flush=True)
+    print(f"[time] daxpy by block (chunks in flight a thread): "
+          + ", ".join(f"{blk} ({-(-blk // 4 // DK.CTA_THREADS)}) {ms:.4f} ms"
+                      for blk, ms in sweep.items()) + f"  [{gpu}]", flush=True)
     return {"f32": r}
 
 
@@ -996,13 +1272,10 @@ RUNS = {
 # The MoE plain path ranks with the kernel too (its ranks are integers, held
 # exactly equal above)
 LIMIT_BF16, LIMIT_F32 = 2e-2, 1e-3
-# Teacher-forced decode of the dense run's tokens, with the served bf16
-# weights: the paged cache's logits against the dense cache's at every step
-# (the dense cache decodes on the split-KV body, the paged one on the paged
-# kernel; bf16 rounding of each step's K/V carries into later steps, and
-# olmoe's routing amplifies it).  Measured on an H100 at this workload:
-# stablelm-3b 0.022, zamba2-1.2b 0.034, olmoe-1b-7b 0.071.
-LIMIT_FORCED_BF16 = 0.1
+# Teacher-forced decode of the dense run's tokens: the paged cache's logits
+# equal the dense cache's bit for bit at every step, with the served bf16
+# weights (both caches decode on the split-KV body) and with f32 weights
+# (both on the CUDA-core body).
 PLAIN = dict(attn_impl="naive", ssd_impl="naive")
 
 
@@ -1069,13 +1342,21 @@ def _want_launches(cfg, page_size, page_dtype, steps, stochastic=False):
     return want
 
 
-def _want_bodies(cfg, page_size, steps):
-    """The dense kernel's launches per body in one bf16 ``generate``: every
-    prefill call on the tensor-core body, every dense-cache decode call on
-    the split-KV body, none on the CUDA-core body."""
+def _want_bodies(cfg, page_size, page_dtype, steps):
+    """Each flash wrapper's launches per body in one bf16 ``generate``:
+    every prefill call on the dense kernel's tensor-core body, every decode
+    call on the split-KV body of the dense or the paged kernel, none on a
+    CUDA-core body."""
     attn = _attn_layers(cfg)
-    return {"tensor_core": attn,
-            "split_kv": attn * steps if page_size is None else 0, "cuda_core": 0}
+    want = {"flash_attention_dense": {"tensor_core": attn, "split_kv": 0,
+                                      "cuda_core": 0},
+            "flash_attention_paged": {"split_kv": 0, "cuda_core": 0},
+            "flash_attention_paged_quant": {"split_kv": 0, "cuda_core": 0}}
+    decode = ("flash_attention_dense" if page_size is None else
+              "flash_attention_paged_quant" if page_dtype else
+              "flash_attention_paged")
+    want[decode]["split_kv"] += attn * steps
+    return want
 
 
 def serve_model(arch, gpu):
@@ -1136,15 +1417,13 @@ def serve_model(arch, gpu):
         want = _want_launches(cfg, page_size, page_dtype, steps)
         check(counts == want, f"{arch} {name} launches {counts}, expected {want}")
         bodies = read_bodies()
-        check(bodies == _want_bodies(cfg, page_size, steps),
-              f"{arch} {name} dense bodies {bodies}, expected "
-              f"{_want_bodies(cfg, page_size, steps)}")
+        want = _want_bodies(cfg, page_size, page_dtype, steps)
+        check(bodies == want, f"{arch} {name} bodies {bodies}, expected {want}")
         runs[name] = dict(tokens=toks, total_s=total, counts=counts,
                           bodies=bodies, cache=res["cache"])
         print(f"[full] {cfg.name} generate {name}: launches "
-              f"{ {k: v for k, v in counts.items() if v} }, dense bodies "
-              f"{ {k: v for k, v in bodies.items() if v} } (as expected)",
-              flush=True)
+              f"{ {k: v for k, v in counts.items() if v} }, bodies "
+              f"{ _nonzero(bodies) } (as expected)", flush=True)
 
     # one mixed batch on the dense cache: lanes 0-3 greedy, 4-7 stochastic
     # (stablelm twice: a seeded batch must repeat its tokens)
@@ -1165,8 +1444,8 @@ def serve_model(arch, gpu):
         want = _want_launches(cfg, None, None, steps, stochastic=True)
         check(counts == want, f"{arch} {name} launches {counts}, expected {want}")
         bodies = read_bodies()
-        check(bodies == _want_bodies(cfg, None, steps),
-              f"{arch} {name} dense bodies {bodies}")
+        check(bodies == _want_bodies(cfg, None, None, steps),
+              f"{arch} {name} bodies {bodies}")
         check((toks[:4] == runs["dense"]["tokens"][:4]).all(),
               f"{cfg.name} {name}: greedy lanes equal the all-greedy run")
         runs[name] = dict(tokens=toks, total_s=total, counts=counts,
@@ -1207,12 +1486,12 @@ def serve_model(arch, gpu):
               f"{decode_ms:.2f} ms/step, {r['tokens_per_s']:.1f} tokens/s  "
               f"[{gpu}]", flush=True)
     if pages:
-        # bf16 dense-cache decode runs the split-KV body, paged decode the
-        # paged kernel: sums in another order, so near-ties may flip and the
-        # streams part; the caches are held step by step below, teacher-forced
+        # dense and paged decode run one split-KV body over the same keys:
+        # the same logits bit for bit, so the same greedy tokens
         same = float((runs["dense"]["tokens"] == runs["paged"]["tokens"]).mean())
         print(f"[full] {cfg.name} identical tokens dense vs paged: {same:.4f} "
-              "(reported, not asserted: bf16 near-ties may flip)", flush=True)
+              "(held at 1)", flush=True)
+        check(same == 1.0, f"{cfg.name}: paged tokens equal the dense run's")
     for dt in quant:
         same = float((runs[dt]["tokens"] == runs["paged"]["tokens"]).mean())
         print(f"[full] {cfg.name} tokens of the {dt} pages equal to the "
@@ -1274,14 +1553,15 @@ def serve_model(arch, gpu):
                 fast[f"{dt} native"], fast[f"{dt} truncating"])
         return e
 
-    forced = {}       # teacher-forced decode: (split-KV record, paged vs dense)
+    forced = {}       # teacher-forced decode: (split-KV record, paged == dense)
     with torch.inference_mode():
         fast = first_step(model, cfg)
         bf16 = errs(fast, first_step(model, cfg.replace(**PLAIN), fast["tok"]))
         del fast
         if _attn_layers(cfg):
             forced["bf16 weights"] = teacher_forced(
-                fam, model, cfg, batch, max_len, runs["dense"]["tokens"], pages)
+                fam, model, cfg, batch, max_len, runs["dense"]["tokens"], pages,
+                quant)
         del model, eng, eng_warm
         torch.cuda.empty_cache()
         cfg32 = cfg.replace(compute_dtype="float32")
@@ -1290,7 +1570,8 @@ def serve_model(arch, gpu):
         f32 = errs(fast, first_step(model32, cfg32.replace(**PLAIN), fast["tok"]))
         if pages:
             forced["f32 weights"] = teacher_forced(
-                fam, model32, cfg32, batch, max_len, runs["dense"]["tokens"], pages)
+                fam, model32, cfg32, batch, max_len, runs["dense"]["tokens"], pages,
+                ())
         del model32, fast
         torch.cuda.empty_cache()
     checks = [({k: v for k, v in f32.items() if "fp8 native vs gather" not in k},
@@ -1312,87 +1593,115 @@ def serve_model(arch, gpu):
             if not any(what in h for h in held):
                 print(f"[full] {cfg.name} first-step logits {what}: max|d|/max|ref| "
                       f"= {e:.3g} ({kind}, reported, not checked)", flush=True)
-    limits = {"bf16 weights": LIMIT_FORCED_BF16, "f32 weights": LIMIT_F32}
-    for kind, (held, worst) in forced.items():
+    for kind, (held, same) in forced.items():
         what = f"{cfg.name} teacher-forced decode of {steps} steps, {kind}"
         if kind == "bf16 weights":
-            want = _attn_layers(cfg) * steps
-            check(held["calls"] == want, f"{what}: {held['calls']} split-KV "
-                  f"calls held, expected {want}")
-            print(f"[full] {what}: each of the {held['calls']} split-KV calls "
-                  f"against the plain attention on its inputs: max |d| / (atol "
-                  f"+ rtol |ref|) = {held['ratio']:.3g} (limit 1 at atol "
+            calls = _attn_layers(cfg) * steps
+            want = {"flash_attention_dense": calls,
+                    **({"flash_attention_paged": calls} if pages else {}),
+                    **({"flash_attention_paged_quant": calls * len(quant)}
+                       if quant else {})}
+            check(held["calls"] == want, f"{what}: split-KV calls held "
+                  f"{held['calls']}, expected {want}")
+            print(f"[full] {what}: each split-KV call against the plain "
+                  f"attention on its inputs ({held['calls']}): max |d| / (atol "
+                  f"+ rtol |ref|) = {held['ratio']} (limit 1 at atol "
                   f"{TOL['split_kv'][0]:g}, rtol 2^-7), max |d| "
-                  f"{held['abs']:.3g}", flush=True)
-            check(held["ratio"] <= 1, f"{what}: a split-KV call is "
-                  f"{held['ratio']} times its limit from the plain attention")
+                  f"{held['abs']}", flush=True)
+            check(max(held["ratio"].values()) <= 1, f"{what}: a split-KV call "
+                  f"is {held['ratio']} times its limit from the plain attention")
         if pages:
-            print(f"[full] {what}: logits of the paged cache against the dense "
-                  f"cache at every step: max|d|/max|ref| = {worst:.3g} (limit "
-                  f"{limits[kind]:g})", flush=True)
-            check(worst <= limits[kind], f"{what}: paged vs dense logits "
-                  f"{worst} > {limits[kind]}")
+            print(f"[full] {what}: logits of the paged cache equal the dense "
+                  f"cache's bit for bit at every step: {same} (held)", flush=True)
+            check(same, f"{what}: paged logits differ from the dense cache's")
     return cfg, lens, max_len, runs
 
 
 @contextlib.contextmanager
 def split_kv_held(record):
-    """Inside the block every split-KV call of the dense kernel is also
-    computed by the plain attention on the same inputs: ``record`` counts the
-    calls and keeps the largest max |d| and ``tol_ratio`` at
+    """Inside the block every split-KV call of the dense and the paged
+    kernels is also computed by the plain attention on the same inputs (the
+    paged ones after the extending gather): ``record`` counts the calls per
+    wrapper and keeps the largest max |d| and ``tol_ratio`` at
     ``TOL["split_kv"]``.  The attention op reaches the kernels through its
-    ``_kernel`` module; the block gives it a copy whose dense wrapper is
-    the one below."""
+    ``_kernel`` module; the block gives it a copy whose wrappers are the
+    ones below."""
+    from repro_torch.core import paging as PG
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops as O
     from repro_torch.kernels.flash_attention import ref as R
 
-    def held(q, k, v, kv_lens, q_offset, window, *, causal, scale):
+    def hold(name, out, q, k, v, kv_lens, q_offset, window, causal, scale):
+        want = R.mha_ref(q, k, v, kv_lens=kv_lens, causal=causal,
+                         window=window, q_offset=q_offset, scale=scale)
+        record["calls"][name] = record["calls"].get(name, 0) + 1
+        record["abs"][name] = max(record["abs"].get(name, 0.0),
+                                  float((out.float() - want.float()).abs().max()))
+        record["ratio"][name] = max(record["ratio"].get(name, 0.0),
+                                    tol_ratio(out, want, *TOL["split_kv"]))
+
+    def dense(q, k, v, kv_lens, q_offset, window, *, causal, scale):
         out = K.flash_dense_cuda(q, k, v, kv_lens, q_offset, window,
                                  causal=causal, scale=scale)
         b, hq, sq, d = q.shape
         if K.plan_dense(q.dtype, b, hq, k.shape[1], sq, k.shape[2],
                         d).body == K.SPLIT_KV:
-            want = R.mha_ref(q, k, v, kv_lens=kv_lens, causal=causal,
-                             window=window, q_offset=q_offset, scale=scale)
-            record["calls"] += 1
-            record["abs"] = max(record["abs"],
-                                float((out.float() - want.float()).abs().max()))
-            record["ratio"] = max(record["ratio"],
-                                  tol_ratio(out, want, *TOL["split_kv"]))
+            hold("flash_attention_dense", out, q, k, v, kv_lens, q_offset,
+                 window, causal, scale)
         return out
 
-    O._kernel = types.SimpleNamespace(**{**vars(K), "flash_dense_cuda": held})
+    def paged(q, kp, vp, *rest, causal, scale):
+        quant = len(rest) == 6
+        ks, vs = rest[:2] if quant else (None, None)
+        table, kv_lens, q_offset, window = rest[-4:]
+        fn = K.flash_paged_quant_cuda if quant else K.flash_paged_cuda
+        out = fn(q, kp, vp, *rest, causal=causal, scale=scale)
+        b, hq, sq, d = q.shape
+        if K.plan_paged(q.dtype, kp.dtype, b, hq, kp.shape[1], sq,
+                        table.shape[1], kp.shape[2], d).body == K.SPLIT_KV:
+            hold("flash_attention_paged_quant" if quant else
+                 "flash_attention_paged", out, q, PG.gather_pages(kp, table, scale=ks),
+                 PG.gather_pages(vp, table, scale=vs), kv_lens, q_offset,
+                 window, causal, scale)
+        return out
+
+    O._kernel = types.SimpleNamespace(**{
+        **vars(K), "flash_dense_cuda": dense, "flash_paged_cuda": paged,
+        "flash_paged_quant_cuda": paged})
     try:
         yield record
     finally:
         O._kernel = K
 
 
-def teacher_forced(fam, model, cfg, batch, max_len, tokens, pages):
+def teacher_forced(fam, model, cfg, batch, max_len, tokens, pages, quant):
     """Teacher-forced decode of ``tokens`` (B, T) through the dense cache,
-    each of its split-KV calls held against the plain attention on its
-    inputs (``split_kv_held``), and, where the family pages, through a paged
-    copy of the same prefill: (the split-KV record, the largest
-    max|d|/max|ref| of the paged cache's logits against the dense cache's
-    over the T - 1 steps)."""
+    where the family pages through a paged copy of the same prefill, and
+    through a paged copy in each page dtype of ``quant``; every split-KV
+    call held against the plain attention on its inputs
+    (``split_kv_held``).  Returns (the split-KV record, whether the paged
+    cache's logits equal the dense cache's bit for bit at every one of the
+    T - 1 steps)."""
     from repro_torch.models import to_paged
 
-    v = cfg.vocab_size
-    worst = 0.0
-    record = {"calls": 0, "abs": 0.0, "ratio": 0.0}
+    same = True
+    record = {"calls": {}, "abs": {}, "ratio": {}}
     cache = fam.make_cache(cfg, N_REQ, max_len, device="cuda")
     _, cache = fam.prefill(model, cfg, batch, cache)
-    paged = (to_paged(cfg, {k: t.clone() for k, t in cache.items()},
-                      page_size=PAGE_SIZE) if pages else None)
+    copy = lambda dt: to_paged(cfg, {k: t.clone() for k, t in cache.items()},
+                               page_size=PAGE_SIZE, page_dtype=dt)
+    paged = copy(None) if pages else None
+    narrow = {dt: copy(dt) for dt in quant}
     for t in range(tokens.shape[1] - 1):
         step = {"token": torch.as_tensor(tokens[:, t], device="cuda")[:, None]}
         with split_kv_held(record):
             dense_lg, cache = fam.decode(model, cfg, step, cache)
-        if pages:
-            paged_lg, paged = fam.decode(model, cfg, step, paged)
-            worst = max(worst, rel_err(paged_lg[:, :v], dense_lg[:, :v]))
-    return record, worst
+            if pages:
+                paged_lg, paged = fam.decode(model, cfg, step, paged)
+                same = same and torch.equal(paged_lg, dense_lg)
+            for dt in quant:
+                _, narrow[dt] = fam.decode(model, cfg, step, narrow[dt])
+    return record, same
 
 
 def first_token_keep_set(fam, model, cfg, batch, cache, first, gpu):
@@ -1583,6 +1892,8 @@ def main() -> int:
     phase("build", build_all)
     phase("check flash", check_kernels, flash_attention)
     phase("check flash quant", check_quant_kernel, flash_attention)
+    phase("check paged == dense", check_paged_equals_dense, flash_attention)
+    phase("check batch independence", check_batch_independence, flash_attention)
     phase("check ssd", check_ssd)
     phase("check moe_positions", check_moe_positions)
     phase("check fadda", check_fadda)
@@ -1601,10 +1912,11 @@ def main() -> int:
     launches = {k: sum(r["counts"][k] for *_, runs in served.values()
                        for r in runs.values()) + quick[k]
                 for k in kernel_wrappers()}
-    bodies = {k: sum(r["bodies"][k] for *_, runs in served.values()
-                     for r in runs.values()) for k in read_bodies()}
+    bodies = {k: {body: sum(r["bodies"][k][body] for *_, runs in served.values()
+                            for r in runs.values()) for body in v}
+              for k, v in read_bodies().items()}
     print(f"[full] launches over every generate and the quickstart: {launches}; "
-          f"flash_attention_dense by body: {bodies}", flush=True)
+          f"the flash kernels by body: {bodies}", flush=True)
     entries = []
     for name, row, source, replaces in (
             ("flash_attention_dense", rows["dense_prefill"], SRC_CU,
@@ -1628,7 +1940,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"],
-            **({"bodies": bodies} if name == "flash_attention_dense" else {})})
+            **({"bodies": bodies[name]} if name in bodies else {})})
     dd = rows["dense_decode"]
     print(f"[time] flash_attention_dense also runs every dense-cache decode "
           f"step: {dd['ms']:.4f} ms (bound {dd['bound_ms']:.4f} ms, "

@@ -6,7 +6,8 @@ replaces, what bounds it and how it rounds as the plain version does).
 ``build/`` and loads it with ``ctypes``.
 
 ``daxpy_cuda`` takes CUDA tensors only, checks them, allocates the output
-with ``torch.empty`` and launches on the current stream.
+with ``torch.empty`` and launches on the current stream: one CTA per span
+of whole ``block`` strips (``cta_span``).
 ``daxpy_cuda.launches`` counts its launches.
 """
 
@@ -38,6 +39,18 @@ def _check(cond: bool, msg: str):
 def check_block(block: int):
     _check(block >= 8 and block % 8 == 0,
            f"block {block} must be a positive multiple of 8")
+
+
+CTA_THREADS = 1024
+
+
+def cta_span(block: int, dtype) -> int:
+    """Elements one CTA of the kernel takes: a whole number of ``block``
+    strips, one strip of at least one 16-byte chunk per thread or as many
+    shorter strips as fill that (the kernel computes the same)."""
+    chunk = 16 // torch.empty(0, dtype=dtype).element_size()
+    floor = CTA_THREADS * chunk
+    return block if block >= floor else block * (floor // block)
 
 
 def daxpy_cuda(x: torch.Tensor, y: torch.Tensor, a: float, n: int, *,

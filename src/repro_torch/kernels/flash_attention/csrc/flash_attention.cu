@@ -2,9 +2,12 @@
 // the paged one over full-precision or quantized (int8 / fp8 e4m3) pools.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention/kernel.py:
-//   flash_attention_dense       <- flash_attention_pallas (_flash_kernel -> _flash_tile)
-//   flash_attention_paged       <- flash_attention_pallas_paged (_flash_kernel_paged)
-//   flash_attention_paged_quant <- flash_attention_pallas_paged over int8/fp8
+//   flash_attention_dense, _dense_tc, _dense_split
+//                               <- flash_attention_pallas (_flash_kernel -> _flash_tile)
+//   flash_attention_paged, flash_attention_paged_split over bf16 pools
+//                               <- flash_attention_pallas_paged (_flash_kernel_paged)
+//   flash_attention_paged_quant, flash_attention_paged_split over int8/fp8
+//                               <- flash_attention_pallas_paged over narrow
 //                                  pools (_flash_kernel_paged_quant)
 //
 // Both compute the same function: online-softmax attention where key kpos is
@@ -25,10 +28,10 @@
 // tokens on it is bound by operations (989 TFLOP/s on the bf16 tensor
 // cores); below that, the bytes of q, K/V and the output bound it.
 //
-// The dense kernel has three bodies; the Python wrapper picks one
-// (kernel.plan_dense) and calls its entry point.
+// The bodies; the Python wrappers pick one per call (kernel.plan_dense,
+// kernel.plan_paged) and call its entry point.
 //
-// flash_attention_dense_tc: bf16 with more than 16 rows per KV head
+// flash_attention_dense_tc: dense bf16 with more than 16 rows per KV head
 // (prefill).  Bound by operations on the tensor cores at long prompts.  One
 // CTA serves 64 query rows of one head, 16 per warp, so each K/V tile is
 // read once per 64 rows (not per 16).  Q is loaded once (ldmatrix) into
@@ -54,38 +57,59 @@
 // their 2e-2 check, and to 0.021 with the split-KV body on exp2f too.
 // Next step: wgmma and TMA with a producer warp (ROADMAP Queue 2b).
 //
-// flash_attention_dense_split: bf16 with at most 16 rows per KV head
-// (decode).  Bound by bytes: one row does ~1 FLOP per K/V byte, so the math
-// stays f32 on the CUDA cores.  One CTA per (head, lane) would be 256 CTAs
-// on 132 SMs at the smoke shapes, each walking ~720 keys serially; instead
-// the live keys of each (KV head, lane) split into equal contiguous ranges,
-// one CTA each (kernel.plan_dense picks the count: ~1024 CTAs, >=
-// 128 cache keys per split), every CTA serving all group * Sq rows of its KV
-// head so each K/V byte is read once, through the same cp.async ring.  The
-// CTA templated on its row count keeps only those rows' state in registers.
-// Each split writes (m, l, acc) to f32 scratch that the wrapper allocates;
-// a second launch merges the splits in split order (no atomics: the same
-// bits every run).
+// flash_attention_dense_split and flash_attention_paged_split: one body,
+// flash_split<R, KV, kPaged>, for bf16 q with at most 16 rows per KV head
+// (decode, short chunks), over dense bf16 K/V or over bf16, int8 or fp8
+// pools read through the page table.  Bound by bytes: one row does ~1 FLOP
+// per K/V byte, so the math stays f32 on the CUDA cores.  One CTA per
+// (head, lane) would be 256 CTAs on 132 SMs at the smoke shapes, each
+// walking ~720 keys serially; instead the keys of each (KV head, lane)
+// split into ranges of split_keys keys at fixed absolute positions (the
+// span doubles past 64 splits of a lane), one CTA each, every CTA serving
+// all group * Sq rows of its KV head so each K/V byte is read once, through
+// a 2-stage cp.async ring of 64-key tiles at 64-aligned positions.  Only
+// the lane's own kv_len, q_offset and window place the splits, so a lane's
+// bits do not depend on the batch, the KV heads or the cache's allocated
+// length; and since what a key contributes depends only on its value and
+// absolute position, a paged call and a dense call over the same bf16 keys
+// give the same bits.  The CTA templated on its row count keeps only those
+// rows' state in registers.  Each split writes (m, l, acc) to f32 scratch
+// that the wrapper allocates; a second launch merges the lane's live splits
+// in split order (no atomics: the same bits every run).
+//
+// Over pools the body finds a key's row through the page table.  Reading
+// the table and dividing by the page size for every 16-byte chunk, and
+// widening K/V to f32 in shared memory, would cost more than the bytes
+// (the CUDA-core body below does both).  So it reads each page id once per
+// page and tile (a warp's lanes load the tile's page ids, each key takes
+// its page's by a shuffle, page_rows) into a ring of pool-row offsets that
+// is filled a tile ahead, and copies K/V as stored: 16-byte chunks of 8
+// bf16 or 16 int8/fp8 elements, so a narrow pool moves half the bytes,
+// with the tile's f32 scales beside them.  A narrow element widens to
+// float(x) * scale in registers inside the Q.K^T and P.V loops, rounded
+// there as the plain path's gather rounds (fp8 two at a time, by one
+// cvt.rn.f16x2.e4m3x2, exact in half and in f32).  At stablelm-3b's decode
+// shape on an H100 128-key splits were the fastest of 128, 256 and 512
+// (chip_smoke.py prints the sweep).
 //
 // flash_attention_dense (the first design, kept for f32: the tensor cores
-// would round f32 to TF32) and the paged kernels: the products run on the
-// CUDA cores in f32 (one key per lane for Q.K^T, the head dims across lanes
-// for P.V).  For the memory bound it (1) skips every K/V tile that is
-// masked for all rows of a block by computing the key range [k_begin,
-// k_end) from kv_len, the causal edge and the window, so decode reads only
-// the live prefix of the cache; (2) in the paged kernel serves all Hq/Hkv
-// query heads and all Sq rows of a KV head from one block, so each page is
-// read once; (3) when a block has few rows (decode), splits the keys across
-// its warps and merges their softmax states at the end, so all warps stream
-// K/V instead of one; (4) stages each K/V tile with 16-byte loads where the
-// head dim and the pointers allow it, kBatch of them in flight per thread
-// before their shared-memory stores, so a tile costs about one memory
-// latency and not one per element.  The quantized kernel is the same
-// template with a narrow storage type: one 16-byte load brings 16 elements
-// instead of 8, so decode reads about half the bytes of the bf16 pools; the
-// f32 scale of each key row is read beside its chunk (the ps scales of a
-// page are one 64-byte row at ps 16, shared through L1) and the product is
-// taken as the element is widened into shared memory.
+// would round f32 to TF32) and flash_attention_paged / _paged_quant for f32
+// q and for bf16 chunks of more than 16 rows per KV head (flash_fwd): the
+// products run on the CUDA cores in f32 (one key per lane for Q.K^T, the
+// head dims across lanes for P.V).  For the memory bound it (1) skips every
+// K/V tile that is masked for all rows of a block by computing the key
+// range [k_begin, k_end) from kv_len, the causal edge and the window, so
+// decode reads only the live prefix of the cache; (2) in the paged kernel
+// serves all Hq/Hkv query heads and all Sq rows of a KV head from one
+// block, so each page is read once; (3) when a block has few rows
+// (decode), splits the keys across its warps and merges their softmax
+// states at the end, so all warps stream K/V instead of one; (4) stages
+// each K/V tile with 16-byte loads where the head dim and the pointers
+// allow it, kBatch of them in flight per thread before their shared-memory
+// stores.  Over a narrow pool the f32 scale of each key row is read beside
+// its chunk and the product is taken as the element is widened into shared
+// memory.  f32 paged decode stays on this template with f32 dense decode,
+// so the two agree bit for bit.
 //
 // C interface for ctypes: pointers and the stream are void*, every entry
 // point returns cudaGetLastError() as an int (0 = launched).
@@ -160,6 +184,8 @@ struct Args {
   float scale;
   const float* k_scale;  // quantized pools only: (P, Hkv, ps)
   const float* v_scale;
+  int split_keys;        // split-KV body: keys per split, before doubling
+  int max_splits;        // split-KV body: most splits of one lane
 };
 
 // How a tile of K/V reaches shared memory: one element of type T per load,
@@ -818,35 +844,171 @@ __global__ void __launch_bounds__(kTcThreads) flash_dense_tc(const Args a, int v
   }
 }
 
-// Key range [lo, hi) of split `split` of `splits` over [k_begin, k_end): equal
-// contiguous shares of the live keys.
-__device__ __forceinline__ void split_range(int k_begin, int k_end, int splits, int split,
-                                            int& lo, int& hi) {
-  const int n = max(k_end - k_begin, 0);
-  const int per = (n + splits - 1) / splits;
-  lo = min(k_begin + split * per, k_begin + n);
-  hi = min(lo + per, k_begin + n);
+// The split grid of one lane: split s covers the absolute keys [s * span,
+// (s + 1) * span), cut to [k_begin, k_end), the keys some row of the lane
+// may attend (kv_len, the causal edge, the window).  span is split_keys
+// (a multiple of the 64-key tile), doubled until at most max_splits splits
+// cover kv_len.  Only the lane's own kv_len, q_offset and window decide
+// it: never the batch, the KV heads or the cache's allocated length.  The
+// same as kernel.lane_splits.
+struct LaneSplits {
+  int k_begin, k_end, span;
+  __device__ int first() const { return k_begin / span; }
+  __device__ int last() const {    // one past the last live split
+    return k_end > k_begin ? (k_end + span - 1) / span : first();
+  }
+};
+
+__device__ __forceinline__ LaneSplits lane_splits(const Args& a, int b) {
+  const int kv_len = min(a.kv_lens[b], a.skv);
+  const int qoff = a.q_offset[b];
+  LaneSplits ls;
+  ls.k_begin = max(qoff - a.window[0] + 1, 0);
+  ls.k_end = a.causal ? min(kv_len, qoff + a.sq) : kv_len;
+  ls.span = a.split_keys;
+  while ((kv_len + ls.span - 1) / ls.span > a.max_splits) ls.span *= 2;
+  return ls;
 }
 
-// Split-KV body (decode: group * Sq <= 16 rows).  One CTA: all rows of one KV
-// head of one lane over one contiguous share of the live keys.  bf16 K/V
-// tiles of 64 keys through a cp.async ring; f32 math on the CUDA cores (one
-// row does ~1 FLOP per K/V byte: the bytes bound it, not the operations).
-// Each warp takes 16 keys of every tile (Q.K^T: a key per half-warp lane,
-// half of the head dims per half-warp; P.V: 2 head dims per lane and 64 per
-// pass); the 4 warps' softmax states merge in warp order, and the CTA writes
-// its (m, l, acc) rows to part (B, Hkv, splits, rows, d + 2) f32.
-template <int R>
-__global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, float* part,
-                                                                int dp, int vec) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// Eight staged K elements from shared memory (16-byte aligned for bf16,
+// 8-byte for a narrow type) as f32; a narrow element widens to
+// float(x) * sc, rounded once as the plain path's gather does.
+__device__ __forceinline__ void widen8(const bf16* p, float, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void widen8(const int8_t* p, float sc, float* f) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = __fmul_rn(static_cast<float>(e[i]), sc);
+}
+// fp8 e4m3: two elements per conversion (cvt.rn.f16x2.e4m3x2; exact in
+// half, then in f32).
+__device__ __forceinline__ float2 fp8x2_at(unsigned short pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3);
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+__device__ __forceinline__ void widen8(const __nv_fp8_e4m3* p, float sc, float* f) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const unsigned short* pairs = reinterpret_cast<const unsigned short*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = fp8x2_at(pairs[i]);
+    f[2 * i] = __fmul_rn(v.x, sc);
+    f[2 * i + 1] = __fmul_rn(v.y, sc);
+  }
+}
+
+// Two staged V elements (head dims c, c + 1) as f32.
+__device__ __forceinline__ float2 widen2(const bf16* p, float) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 widen2(const int8_t* p, float sc) {
+  const char2 e = *reinterpret_cast<const char2*>(p);
+  return make_float2(__fmul_rn(static_cast<float>(e.x), sc),
+                     __fmul_rn(static_cast<float>(e.y), sc));
+}
+__device__ __forceinline__ float2 widen2(const __nv_fp8_e4m3* p, float sc) {
+  const float2 v = fp8x2_at(*reinterpret_cast<const unsigned short*>(p));
+  return make_float2(__fmul_rn(v.x, sc), __fmul_rn(v.y, sc));
+}
+
+// Pool row of each key of the tile at t0 of KV head hk of lane b, or -1 for
+// a key at or past `end`: ((page id) * Hkv + hk) * ps + slot, also the index
+// of its scale.  Warps 0 and 1 take 32 keys each; lane l reads the page id
+// of the warp's l-th page (each page id once per warp and tile) and each
+// key gets its page's id by a shuffle.
+__device__ __forceinline__ void page_rows(int* roff, const Args& a, int b, int hk, int t0,
+                                          int end) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  if (warp >= kTile / kWarp) return;
+  const int first = t0 + warp * kWarp;             // this warp's first key
+  const int pg0 = first / a.ps;
+  int phys = 0;
+  if (pg0 + lane <= (first + kWarp - 1) / a.ps && pg0 + lane < a.n_pages)
+    phys = min(max(a.table[(size_t)b * a.n_pages + pg0 + lane], 0), a.n_pool - 1);
+  const int key = first + lane;
+  const int page = key / a.ps;
+  const int id = __shfl_sync(kFull, phys, page - pg0);
+  roff[warp * kWarp + lane] = key < end ? (id * a.hkv + hk) * a.ps + (key - page * a.ps) : -1;
+}
+
+// Stage the tile's rows through roff (from page_rows) into dst (stride ld
+// elements, dp >= d columns; columns d..dp and rows of roff -1 read as 0).
+// With vec (rows of whole 16-byte chunks, 16-byte aligned pools) by
+// cp.async 16-byte copies left in flight for the caller to wait on, else
+// (bf16 only) by element loads and stores.  A narrow pool also stages the
+// tile's scales (cp.async, 4 bytes each).
+template <typename KV>
+__device__ __forceinline__ void stage_paged(KV* dst, int ld, const KV* pool, const int* roff,
+                                            int d, int dp, bool vec, float* sc,
+                                            const float* sc_pool) {
+  constexpr int E = 16 / (int)sizeof(KV);
+  if (vec) {
+    const int per_row = dp / E;
+    for (int c = threadIdx.x; c < kTile * per_row; c += blockDim.x) {
+      const int r = c / per_row, col = (c - r * per_row) * E;
+      const int o = roff[r];
+      const bool ok = o >= 0 && col < d;
+      cp_async16(dst + r * ld + col, ok ? pool + (size_t)o * d + col : pool, ok);
+    }
+  } else if constexpr (!Narrow<KV>::value) {
+    for (int e = threadIdx.x; e < kTile * dp; e += blockDim.x) {
+      const int r = e / dp, col = e - r * dp;
+      const int o = roff[r];
+      dst[r * ld + col] = o >= 0 && col < d ? pool[(size_t)o * d + col] : __float2bfloat16(0.f);
+    }
+  }
+  if constexpr (Narrow<KV>::value) {
+    for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
+      const int o = roff[r];
+      cp_async4(sc + r, o >= 0 ? sc_pool + o : sc_pool, o >= 0);
+    }
+  }
+}
+
+// Split-KV body (group * Sq <= 16 rows: decode and short chunks), dense
+// (kPaged false: bf16 K/V of (B, Hkv, Skv, D)) or paged (pools of KV: bf16,
+// int8 or fp8 e4m3, read through the page table).  One CTA: all rows of
+// one KV head of one lane over split blockIdx.x of the lane's split grid
+// (lane_splits); a split outside the lane's keys returns at once.  K/V
+// tiles of 64 keys, at 64-aligned absolute key positions, arrive as stored
+// through a cp.async ring; f32 math on the CUDA cores (one row does ~1 FLOP
+// per K/V byte: the bytes bound it, not the operations), a narrow element
+// widened to float(x) * scale in registers where it is used.  Each warp
+// takes 16 keys of every tile (Q.K^T: a key per half-warp lane, half of
+// the head dims per half-warp; P.V: 2 head dims per lane and 64 per pass);
+// the 4 warps' softmax states merge in warp order, and the CTA writes its
+// (m, l, acc) rows to part (B, Hkv, splits, rows, d + 2) f32.  What a key
+// contributes depends only on its value and its absolute position, so the
+// dense and the paged instance over the same bf16 keys give the same bits.
+template <int R, typename KV, bool kPaged>
+__global__ void __launch_bounds__(4 * kWarp) flash_split(const Args a, float* part, int dp,
+                                                          int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = dp + 8;
+  constexpr bool kNarrow = Narrow<KV>::value;
+  const int ld = dp + 16 / (int)sizeof(KV);      // row stride in elements (16-byte pad)
   const int d = a.d;
   const int group = a.hq / a.hkv;
   const int rows = group * a.sq;
   float* qs = reinterpret_cast<float*>(smem_raw);               // (rows, dp) f32
-  bf16* ks = reinterpret_cast<bf16*>(qs + R * dp);     // (kStages, 64, ld)
-  bf16* vs = ks + kStages * kTile * ld;
+  KV* ks = reinterpret_cast<KV*>(qs + R * dp);                  // (kStages, 64, ld)
+  KV* vs = ks + kStages * kTile * ld;
+  int* roff = reinterpret_cast<int*>(vs + kStages * kTile * ld);   // (kStages, 64)
+  float* ksc = reinterpret_cast<float*>(roff + kStages * kTile);   // (kStages, 64)
+  float* vsc = ksc + kStages * kTile;
   float* mrg = reinterpret_cast<float*>(ks);    // after the walk: (4, rows, dp + 2)
 
   const int split = blockIdx.x, splits = gridDim.x;
@@ -854,30 +1016,48 @@ __global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, flo
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int j = lane % 16, half = lane / 16;
 
-  const int kv_len = min(a.kv_lens[b], a.skv);
+  const LaneSplits ls = lane_splits(a, b);
+  const int lo = max(split * ls.span, ls.k_begin);
+  const int hi = min((split + 1) * ls.span, ls.k_end);
+  if (lo >= hi) return;                          // uniform: the merge skips it
+  const int t_start = lo / kTile * kTile;
+  const int n_tiles = (hi - t_start + kTile - 1) / kTile;
   const int qoff = a.q_offset[b];
   const int win = a.window[0];
-  int k_begin = qoff - win + 1;
-  if (k_begin < 0) k_begin = 0;
-  int k_end = kv_len;
-  if (a.causal) k_end = min(k_end, qoff + a.sq);
-  int lo, hi;
-  split_range(k_begin, k_end, splits, split, lo, hi);
-  const int n_tiles = (hi - lo + kTile - 1) / kTile;
 
-  const bf16* qg = static_cast<const bf16*>(a.q);
-  const bf16* kg = static_cast<const bf16*>(a.k) + ((size_t)b * a.hkv + hk) * a.skv * d;
-  const bf16* vg = static_cast<const bf16*>(a.v) + ((size_t)b * a.hkv + hk) * a.skv * d;
-
-  for (int p = 0; p < kStages - 1; ++p) {
-    if (p < n_tiles) {
-      stage_rows(ks + p * kTile * ld, ld, kg, lo + p * kTile, hi, d, dp, vec);
-      stage_rows(vs + p * kTile * ld, ld, vg, lo + p * kTile, hi, d, dp, vec);
+  const KV* kg = static_cast<const KV*>(a.k);
+  const KV* vg = static_cast<const KV*>(a.v);
+  if (!kPaged) {
+    kg += ((size_t)b * a.hkv + hk) * a.skv * d;
+    vg += ((size_t)b * a.hkv + hk) * a.skv * d;
+  }
+  auto stage = [&](int tile, int st) {
+    KV* kd = ks + st * kTile * ld;
+    KV* vd = vs + st * kTile * ld;
+    const int t0 = t_start + tile * kTile;
+    if constexpr (kPaged) {
+      stage_paged(kd, ld, kg, roff + st * kTile, d, dp, vec, ksc + st * kTile, a.k_scale);
+      stage_paged(vd, ld, vg, roff + st * kTile, d, dp, vec, vsc + st * kTile, a.v_scale);
+    } else {
+      stage_rows(kd, ld, kg, t0, hi, d, dp, vec);
+      stage_rows(vd, ld, vg, t0, hi, d, dp, vec);
     }
+  };
+
+  // paged: the pool rows of tiles 0 .. kStages - 1 first; later, those of
+  // tile it + kStages while tile it is computed
+  if constexpr (kPaged) {
+    for (int p = 0; p < kStages; ++p)
+      if (p < n_tiles) page_rows(roff + p * kTile, a, b, hk, t_start + p * kTile, hi);
+    __syncthreads();
+  }
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < n_tiles) stage(p, p);
     cp_async_commit();
   }
   // while the first tiles are in flight: row rr of the CTA is query head
   // hk * group + rr / Sq, query row rr % Sq
+  const bf16* qg = static_cast<const bf16*>(a.q);
   for (int e = threadIdx.x; e < rows * dp; e += blockDim.x) {
     const int rr = e / dp, c = e - rr * dp;
     const int h = hk * group + rr / a.sq, qi = rr % a.sq;
@@ -897,32 +1077,23 @@ __global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, flo
 
   for (int it = 0; it < n_tiles; ++it) {
     const int nx = it + kStages - 1;
-    if (nx < n_tiles) {
-      const int st = nx % kStages;
-      stage_rows(ks + st * kTile * ld, ld, kg, lo + nx * kTile, hi, d, dp, vec);
-      stage_rows(vs + st * kTile * ld, ld, vg, lo + nx * kTile, hi, d, dp, vec);
-    }
+    if (nx < n_tiles) stage(nx, nx % kStages);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
     __syncthreads();
-    const bf16* kt = ks + (it % kStages) * kTile * ld;
-    const bf16* vt = vs + (it % kStages) * kTile * ld;
+    const int st = it % kStages;
+    const KV* kt = ks + st * kTile * ld;
+    const KV* vt = vs + st * kTile * ld;
     const int key = warp * 16 + j;                   // this lane's key in the tile
-    const int kp = lo + it * kTile + key;
+    const int kp = t_start + it * kTile + key;
+    const float k_sc = kNarrow ? ksc[st * kTile + key] : 1.f;
 
     float s[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = 0.f;
     for (int c = 0; c < hd; c += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kt + key * ld + half * hd + c);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
       float kf[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(k2[i]);
-        kf[2 * i] = f.x;
-        kf[2 * i + 1] = f.y;
-      }
+      widen8(kt + key * ld + half * hd + c, k_sc, kf);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r < rows) {
@@ -939,7 +1110,7 @@ __global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, flo
       if (r >= rows) continue;     // uniform across the CTA
       s[r] += __shfl_xor_sync(kFull, s[r], 16);
       const int qp = qoff + r % a.sq;
-      bool pred = kp < hi && kp > qp - win;
+      bool pred = kp >= lo && kp < hi && kp > qp - win;
       if (a.causal) pred = pred && qp >= kp;
       const float sv = pred ? s[r] * a.scale : -INFINITY;
       float mx = sv;
@@ -958,13 +1129,13 @@ __global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, flo
     }
     // P.V: lane owns head dims 2 * lane + {0, 1} + 64 * i
     for (int jj = 0; jj < 16; ++jj) {
-      const bf16* vrow = vt + (warp * 16 + jj) * ld;
+      const KV* vrow = vt + (warp * 16 + jj) * ld;
+      const float v_sc = kNarrow ? vsc[st * kTile + warp * 16 + jj] : 1.f;
       float2 vv[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int c = 2 * lane + 64 * i;
-        vv[i] = c < dp ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vrow + c))
-                       : make_float2(0.f, 0.f);
+        vv[i] = c < dp ? widen2(vrow + c, v_sc) : make_float2(0.f, 0.f);
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -977,16 +1148,21 @@ __global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, flo
         }
       }
     }
+    // pool rows of tile it + kStages into the slot tile it staged from
+    if constexpr (kPaged) {
+      if (it + kStages < n_tiles)
+        page_rows(roff + st * kTile, a, b, hk, t_start + (it + kStages) * kTile, hi);
+    }
     __syncthreads();
   }
   cp_async_wait<0>();
   __syncthreads();                 // the ring is free: reuse it for the merge
 
-  const int st = dp + 2;
+  const int stm = dp + 2;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r >= rows) continue;
-    float* slot = mrg + (warp * rows + r) * st;
+    float* slot = mrg + (warp * rows + r) * stm;
     if (lane == 0) {
       slot[0] = m[r];
       slot[1] = l[r];
@@ -1006,11 +1182,11 @@ __global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, flo
   for (int e = threadIdx.x; e < rows * (d + 2); e += blockDim.x) {
     const int r = e / (d + 2), c = e - r * (d + 2);
     float mx = kNeg;
-    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, mrg[(w * rows + r) * st]);
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, mrg[(w * rows + r) * stm]);
     float val = c == 0 ? mx : 0.f;
     if (c > 0) {
       for (int w = 0; w < 4; ++w) {
-        const float* slot = mrg + (w * rows + r) * st;
+        const float* slot = mrg + (w * rows + r) * stm;
         val += expf(slot[0] - mx) * slot[c];
       }
     }
@@ -1018,21 +1194,23 @@ __global__ void __launch_bounds__(4 * kWarp) flash_dense_split(const Args a, flo
   }
 }
 
-// Merge the splits of each row in split order (no atomics: the same bits
-// every run) and write the normalized row in bf16.  One CTA per (KV head,
-// lane).
+// Merge the live splits of each row (lane_splits) in split order (no
+// atomics: the same bits every run) and write the normalized row in bf16;
+// a lane with no live key writes 0.  One CTA per (KV head, lane).
 __global__ void __launch_bounds__(4 * kWarp) flash_split_merge(const Args a, const float* part,
                                                                 int splits) {
   const int hk = blockIdx.x, b = blockIdx.y;
   const int d = a.d, group = a.hq / a.hkv, rows = group * a.sq;
+  const LaneSplits ls = lane_splits(a, b);
+  const int s0 = ls.first(), s1 = ls.last();
   const float* pb = part + ((size_t)b * a.hkv + hk) * splits * rows * (d + 2);
   bf16* og = static_cast<bf16*>(a.o);
   for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
     const int r = e / d, c = e - r * d;
     float mx = kNeg;
-    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, pb[((size_t)sp * rows + r) * (d + 2)]);
+    for (int sp = s0; sp < s1; ++sp) mx = fmaxf(mx, pb[((size_t)sp * rows + r) * (d + 2)]);
     float lt = 0.f, at = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
+    for (int sp = s0; sp < s1; ++sp) {
       const float* row = pb + ((size_t)sp * rows + r) * (d + 2);
       const float w = expf(row[0] - mx);
       lt += w * row[1];
@@ -1055,14 +1233,31 @@ int launch_tc(const Args& a, int b, int vec, cudaStream_t stream) {
 }
 
 // R: the most rows the instance serves (registers per row: acc, m, l, s, p).
-template <int R>
-int launch_split(const Args& a, float* part, int dp, int vec, dim3 grid, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * R * dp + sizeof(bf16) * 2 * kStages * kTile * (size_t)(dp + 8);
-  cudaError_t err = cudaFuncSetAttribute(flash_dense_split<R>,
+template <int R, typename KV, bool kPaged>
+int launch_split_as(const Args& a, float* part, int dp, int vec, dim3 grid, cudaStream_t stream) {
+  const size_t ld = dp + 16 / sizeof(KV);
+  const size_t smem = sizeof(float) * R * dp + sizeof(KV) * 2 * kStages * kTile * ld +
+                      (kPaged ? (sizeof(int) + 2 * sizeof(float)) * kStages * kTile : 0);
+  cudaError_t err = cudaFuncSetAttribute(flash_split<R, KV, kPaged>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_dense_split<R><<<grid, 4 * kWarp, smem, stream>>>(a, part, dp, vec);
+  flash_split<R, KV, kPaged><<<grid, 4 * kWarp, smem, stream>>>(a, part, dp, vec);
+  return (int)cudaGetLastError();
+}
+
+// The split launch for `rows` rows per KV head, then the merge launch.
+template <typename KV, bool kPaged>
+int launch_split(const Args& a, float* part, int vec, int splits, int b, cudaStream_t st) {
+  const int dp = (a.d + 15) / 16 * 16;
+  const int rows = (a.hq / a.hkv) * a.sq;
+  const dim3 grid(splits, a.hkv, b);
+  const int err = rows <= 1   ? launch_split_as<1, KV, kPaged>(a, part, dp, vec, grid, st)
+                  : rows <= 2 ? launch_split_as<2, KV, kPaged>(a, part, dp, vec, grid, st)
+                  : rows <= 4 ? launch_split_as<4, KV, kPaged>(a, part, dp, vec, grid, st)
+                  : rows <= 8 ? launch_split_as<8, KV, kPaged>(a, part, dp, vec, grid, st)
+                              : launch_split_as<16, KV, kPaged>(a, part, dp, vec, grid, st);
+  if (err != 0) return err;
+  flash_split_merge<<<dim3(a.hkv, b), 4 * kWarp, 0, st>>>(a, part, splits);
   return (int)cudaGetLastError();
 }
 
@@ -1109,35 +1304,59 @@ extern "C" int flash_attention_dense_tc(const void* q, const void* k, const void
   }
 }
 
-// The split-KV body: bf16 q, k, v, o; (Hq / Hkv) * sq <= 16 rows; `splits`
-// CTAs per (KV head, lane) write (m, l, acc) rows to part, (b, hkv, splits,
-// rows, d + 2) f32, and a second launch merges them in split order.
+// The split-KV body over dense K/V: bf16 q, k, v, o; (Hq / Hkv) * sq <= 16
+// rows; `splits` CTAs per (KV head, lane) (the grid, at least every lane's
+// live splits of split_keys keys, at most max_splits a lane) write (m, l,
+// acc) rows to part, (b, hkv, splits, rows, d + 2) f32, and a second launch
+// merges them in split order.
 extern "C" int flash_attention_dense_split(const void* q, const void* k, const void* v,
                                            void* o, void* part, const int* kv_lens,
                                            const int* q_offset, const int* window, int b,
                                            int hq, int hkv, int sq, int skv, int d,
-                                           int causal, float scale, int splits,
-                                           void* stream) {
-  if (bad_shape(b, hq, hkv, sq, d) || skv < 0 || splits < 1 || (hq / hkv) * sq > kSplitRows)
+                                           int causal, float scale, int splits, int split_keys,
+                                           int max_splits, void* stream) {
+  if (bad_shape(b, hq, hkv, sq, d) || skv < 0 || splits < 1 || split_keys < kTile ||
+      split_keys % kTile != 0 || max_splits < 1 || (hq / hkv) * sq > kSplitRows)
     return (int)cudaErrorInvalidValue;
   if (sq == 0) return (int)cudaGetLastError();
   Args a{q, k, v, o, kv_lens, q_offset, window, nullptr,
          hq, hkv, sq, skv, d, 0, 0, 0, causal, 1, scale};
-  const int dp = (d + 15) / 16 * 16;
-  const int rows = (hq / hkv) * sq;
-  const dim3 grid(splits, hkv, b);
-  const int vec = dense_vec(q, k, v, d);
+  a.split_keys = split_keys;
+  a.max_splits = max_splits;
+  return launch_split<bf16, false>(a, static_cast<float*>(part), dense_vec(q, k, v, d), splits,
+                                   b, static_cast<cudaStream_t>(stream));
+}
+
+// The split-KV body over pools read through the page table: bf16 q and o;
+// bf16 (kv_kind 0), int8 (1) or fp8 e4m3 (2) pools (P, Hkv, ps, d), the
+// narrow ones with f32 scale pools (P, Hkv, ps), d a multiple of 16 and
+// 16-byte aligned pools; otherwise as flash_attention_dense_split.
+extern "C" int flash_attention_paged_split(const void* q, const void* k_pool,
+                                           const void* v_pool, const float* k_scale,
+                                           const float* v_scale, void* o, void* part,
+                                           const int* page_table, const int* kv_lens,
+                                           const int* q_offset, const int* window, int b,
+                                           int hq, int hkv, int sq, int d, int page_size,
+                                           int n_pages, int n_pool, int causal, float scale,
+                                           int splits, int split_keys, int max_splits,
+                                           int kv_kind, void* stream) {
+  if (bad_shape(b, hq, hkv, sq, d) || page_size < 1 || n_pages < 1 || n_pool < 1 ||
+      splits < 1 || split_keys < kTile || split_keys % kTile != 0 || max_splits < 1 ||
+      (hq / hkv) * sq > kSplitRows || kv_kind < 0 || kv_kind > 2)
+    return (int)cudaErrorInvalidValue;
+  if (sq == 0) return (int)cudaGetLastError();
+  Args a{q, k_pool, v_pool, o, kv_lens, q_offset, window, page_table,
+         hq, hkv, sq, n_pages * page_size, d, page_size, n_pages, n_pool, causal, 1, scale,
+         k_scale, v_scale};
+  a.split_keys = split_keys;
+  a.max_splits = max_splits;
   float* pf = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = rows <= 1   ? launch_split<1>(a, pf, dp, vec, grid, st)
-                  : rows <= 2 ? launch_split<2>(a, pf, dp, vec, grid, st)
-                  : rows <= 4 ? launch_split<4>(a, pf, dp, vec, grid, st)
-                  : rows <= 8 ? launch_split<8>(a, pf, dp, vec, grid, st)
-                              : launch_split<16>(a, pf, dp, vec, grid, st);
-  if (err != 0) return err;
-  flash_split_merge<<<dim3(hkv, b), 4 * kWarp, 0, st>>>(a, static_cast<const float*>(part),
-                                                        splits);
-  return (int)cudaGetLastError();
+  const bool aligned = aligned16(k_pool) && aligned16(v_pool);
+  if (kv_kind == 0) return launch_split<bf16, true>(a, pf, aligned && d % 8 == 0, splits, b, st);
+  if (!aligned || d % 16 != 0) return (int)cudaErrorInvalidValue;
+  return kv_kind == 1 ? launch_split<int8_t, true>(a, pf, 1, splits, b, st)
+                      : launch_split<__nv_fp8_e4m3, true>(a, pf, 1, splits, b, st);
 }
 
 extern "C" int flash_attention_paged(const void* q, const void* k_pool, const void* v_pool,

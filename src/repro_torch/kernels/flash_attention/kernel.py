@@ -6,29 +6,29 @@ kernel each replaces, what bounds it and what the design does about it).
 into ``build/`` at the repo root, named by the hash of the source so an
 edited source rebuilds, and loads it with ``ctypes``.
 
-The dense kernel has three bodies, chosen per call by ``plan_dense`` (plain
-Python, so the CPU tests see the route):
+Each kernel has several bodies, chosen per call by ``plan_dense`` and
+``plan_paged`` (plain Python, so the CPU tests see the route):
 
-- ``tensor_core``, bf16 prefill (more than 16 rows per KV head): 64 query
-  rows per CTA, Q in registers, bf16 K/V tiles through a cp.async ring,
-  ``mma.sync`` products with f32 accumulators.  Bound by operations.
-- ``split_kv``, bf16 decode (at most 16 rows per KV head): the live keys of
-  each (KV head, lane) split over several CTAs so the card is full, f32
+- ``tensor_core``, dense bf16 prefill (more than 16 rows per KV head): 64
+  query rows per CTA, Q in registers, bf16 K/V tiles through a cp.async
+  ring, ``mma.sync`` products with f32 accumulators.  Bound by operations.
+- ``split_kv``, bf16 decode (at most 16 rows per KV head), dense K/V or
+  paged pools (bf16, int8 or fp8): one body for both, split over the keys
+  on a grid that only the lane's own keys decide (``lane_splits``), f32
   partials in scratch that this wrapper allocates, merged in split order by
-  a second launch.  Bound by bytes.
-- ``cuda_core``, f32: the first design, f32 products on the CUDA cores
-  (tensor cores would round f32 to TF32).
-
-The paged kernels (full-precision and int8/fp8 pools) keep the CUDA-core
-design.
+  a second launch.  Bound by bytes.  Dense and paged calls over the same
+  bf16 keys give the same bits, and a lane's bits do not depend on the
+  other lanes of the call or on the cache's allocated length.
+- ``cuda_core``, f32 (and bf16 paged calls with more than 16 rows per KV
+  head): the first design, f32 products on the CUDA cores (tensor cores
+  would round f32 to TF32).
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, raise on anything the kernel does not take, allocate the output
 with ``torch.empty`` and launch on the current stream.  Each keeps a plain
 integer launch count (``flash_dense_cuda.launches``,
 ``flash_paged_cuda.launches``, ``flash_paged_quant_cuda.launches``) that
-grows by one per call; ``flash_dense_cuda.body_launches`` counts the dense
-calls per body.
+grows by one per call, and the calls per body in ``body_launches``.
 """
 
 from __future__ import annotations
@@ -54,8 +54,16 @@ LIBRARY = Library(SOURCE, {
     "flash_attention_dense": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
     "flash_attention_dense_tc": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
     # q, k, v, o, part, kv_lens, q_offset, window, b, hq, hkv, sq, skv, d,
-    # causal, scale, splits, stream: the split-KV body (bf16)
-    "flash_attention_dense_split": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    # causal, scale, splits, split_keys, max_splits, stream: the split-KV
+    # body over dense bf16 K/V
+    "flash_attention_dense_split": [_P] * 8 + [_I] * 7
+                                   + [ctypes.c_float, _I, _I, _I, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, o, part, table, kv_lens,
+    # q_offset, window, b, hq, hkv, sq, d, page_size, n_pages, n_pool,
+    # causal, scale, splits, split_keys, max_splits, kv_kind, stream: the
+    # split-KV body over bf16 (kv_kind 0), int8 (1) or fp8 (2) pools
+    "flash_attention_paged_split": [_P] * 11 + [_I] * 9
+                                   + [ctypes.c_float, _I, _I, _I, _I, _P],
     # q, k_pool, v_pool, o, table, kv_lens, q_offset, window, b, hq, hkv, sq,
     # d, page_size, n_pages, n_pool, causal, scale, is_bf16, stream
     "flash_attention_paged": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _P],
@@ -90,48 +98,112 @@ def _check_common(q, tensors: dict, ints: dict, b: int):
     _check(tuple(ints["window"].shape) == (1,), "window must be (1,)")
 
 
-# The dense kernel's three bodies; the wrapper picks one by ``plan_dense``.
+# The bodies; the wrappers pick one by ``plan_dense`` / ``plan_paged``.
 TENSOR_CORE, SPLIT_KV, CUDA_CORE = "tensor_core", "split_kv", "cuda_core"
 BODIES = (TENSOR_CORE, SPLIT_KV, CUDA_CORE)
+PAGED_BODIES = (SPLIT_KV, CUDA_CORE)
 SPLIT_ROWS = 16        # most rows (group * Sq) the split-KV body serves
-MIN_SPLIT_KEYS = 128   # fewest cache keys per split
-TARGET_CTAS = 1024     # split-KV CTAs to aim for: ~8 per SM of an H100
-MAX_SPLITS = 64
+SPLIT_KEYS = 128       # keys per split while a lane holds <= 64 splits of it
+MAX_SPLITS = 64        # most splits of one lane: past it the span doubles
+TILE_KEYS = 64         # keys per staged K/V tile
 
 
-class DensePlan(NamedTuple):
-    """How the dense kernel runs one call.  ``body``: one of ``BODIES``;
-    ``splits``: CTAs per (KV head, lane) of the split-KV body, each over an
-    equal contiguous share of the lane's live keys, which the kernel computes
-    on the card from kv_lens, q_offset and the window; ``scratch``: the
-    shape of the f32 (m, l, acc) partials the split-KV body writes (None for
-    the others)."""
+def split_span(kv_len: int) -> int:
+    """Keys per split of a lane with ``kv_len`` cached keys: ``SPLIT_KEYS``,
+    doubled until at most ``MAX_SPLITS`` splits cover ``kv_len``.  The
+    kernel computes the same on the card from the lane's ``kv_lens``."""
+    span = SPLIT_KEYS
+    while -(-kv_len // span) > MAX_SPLITS:
+        span *= 2
+    return span
+
+
+def lane_splits(kv_len: int, q_offset: int, sq: int, *, causal: bool,
+                window: int | None = None) -> list:
+    """The live splits of one lane, in order: ``(lo, hi)`` key ranges.
+
+    Split ``s`` covers the absolute keys ``[s * span, (s + 1) * span)``
+    (``span = split_span(kv_len)``, a multiple of the 64-key tile), cut to
+    the keys some row of the lane may attend, ``[k_begin, k_end)`` from
+    ``kv_len``, the causal edge and the window.  Nothing here depends on the
+    batch, the KV heads or the cache's allocated length, so neither do the
+    lane's bits.  Splits outside the range write nothing and the merge
+    skips them."""
+    k_begin = 0 if window is None else max(q_offset - window + 1, 0)
+    k_end = min(kv_len, q_offset + sq) if causal else kv_len
+    span = split_span(kv_len)
+    if k_end <= k_begin:
+        return []
+    return [(max(s * span, k_begin), min((s + 1) * span, k_end))
+            for s in range(k_begin // span, -(-k_end // span))]
+
+
+def split_grid(skv: int) -> int:
+    """CTAs per (KV head, lane) of the split-KV body over a cache of ``skv``
+    keys: enough for the splits of any lane that fits in it."""
+    return max(1, min(MAX_SPLITS, -(-skv // SPLIT_KEYS)))
+
+
+class Plan(NamedTuple):
+    """How a kernel runs one call.  ``body``: one of ``BODIES``; ``splits``:
+    the split-KV body's grid of CTAs per (KV head, lane), each lane using
+    the splits ``lane_splits`` names; ``scratch``: the shape of the f32
+    (m, l, acc) partials the split-KV body writes, one row per split of the
+    grid (None for the other bodies)."""
     body: str
     splits: int
     scratch: tuple | None
 
 
+def _split_plan(b, hq, hkv, sq, skv, d) -> Plan:
+    splits = split_grid(skv)
+    return Plan(SPLIT_KV, splits,
+                     (b, hkv, splits, (hq // hkv) * sq, d + 2))
+
+
 def plan_dense(dtype, b: int, hq: int, hkv: int, sq: int, skv: int,
-               d: int) -> DensePlan:
+               d: int) -> Plan:
     """The dense kernel's plan for q (b, hq, sq, d) over k/v (b, hkv, skv, d).
 
     f32 takes the CUDA-core body (the tensor cores would run it as TF32).
     bf16 with at most ``SPLIT_ROWS`` rows per KV head (group * Sq: decode)
-    takes the split-KV body with enough splits to fill the card, at least
-    ``MIN_SPLIT_KEYS`` cache keys each; other bf16 calls (prefill) the
-    tensor-core body, 64 query rows of one head per CTA."""
+    takes the split-KV body; other bf16 calls (prefill) the tensor-core
+    body, 64 query rows of one head per CTA."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype {dtype} not in {_DTYPES}")
     if d > MAX_HEAD_DIM or hq % hkv:
         raise ValueError(f"unsupported shape: Hq={hq}, Hkv={hkv}, D={d}")
     if dtype == torch.float32:
-        return DensePlan(CUDA_CORE, 1, None)
-    rows = (hq // hkv) * sq
-    if rows <= SPLIT_ROWS:
-        want = -(-TARGET_CTAS // (b * hkv))
-        splits = max(1, min(want, skv // MIN_SPLIT_KEYS, MAX_SPLITS))
-        return DensePlan(SPLIT_KV, splits, (b, hkv, splits, rows, d + 2))
-    return DensePlan(TENSOR_CORE, 1, None)
+        return Plan(CUDA_CORE, 1, None)
+    if (hq // hkv) * sq <= SPLIT_ROWS:
+        return _split_plan(b, hq, hkv, sq, skv, d)
+    return Plan(TENSOR_CORE, 1, None)
+
+
+def plan_paged(dtype, pool_dtype, b: int, hq: int, hkv: int, sq: int,
+               n_pages: int, page_size: int, d: int) -> Plan:
+    """The paged kernel's plan for q (b, hq, sq, d) over (P, hkv, ps, d)
+    pools of ``pool_dtype`` read through a (b, n_pages) table.
+
+    bf16 q with at most ``SPLIT_ROWS`` rows per KV head takes the split-KV
+    body, the dense decode body itself walking the page table, over bf16,
+    int8 and fp8 pools alike; f32 q and longer bf16 chunks the CUDA-core
+    body (f32 paged decode stays on the template of f32 dense decode).
+    A narrow pool needs a head dim that is a multiple of 16."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype {dtype} not in {_DTYPES}")
+    if pool_dtype != dtype and pool_dtype not in _POOL_DTYPES:
+        raise ValueError(f"pool dtype {pool_dtype} is neither q's {dtype} "
+                         f"nor one of {_POOL_DTYPES}")
+    if d > MAX_HEAD_DIM or hq % hkv:
+        raise ValueError(f"unsupported shape: Hq={hq}, Hkv={hkv}, D={d}")
+    if pool_dtype in _POOL_DTYPES and d % 16:
+        # narrow K/V are read 16 elements (16 bytes) at a time
+        raise ValueError(f"head dim {d} of a quantized pool is not a "
+                         "multiple of 16")
+    if dtype == torch.bfloat16 and (hq // hkv) * sq <= SPLIT_ROWS:
+        return _split_plan(b, hq, hkv, sq, n_pages * page_size, d)
+    return Plan(CUDA_CORE, 1, None)
 
 
 def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
@@ -157,7 +229,8 @@ def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
     if plan.body == SPLIT_KV:
         part = torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
         err = lib.flash_attention_dense_split(*ptrs, part.data_ptr(), *ints,
-                                              plan.splits, stream)
+                                              plan.splits, SPLIT_KEYS,
+                                              MAX_SPLITS, stream)
         name = "flash_attention_dense_split"
     elif plan.body == TENSOR_CORE:
         err = lib.flash_attention_dense_tc(*ptrs, *ints, stream)
@@ -171,10 +244,13 @@ def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
     return out
 
 
-def reset_dense_counts():
-    """Set the dense kernel's launch counts, total and per body, to 0."""
+def reset_flash_counts():
+    """Set the flash kernels' launch counts, total and per body, to 0."""
     flash_dense_cuda.launches = 0
     flash_dense_cuda.body_launches = dict.fromkeys(BODIES, 0)
+    for fn in (flash_paged_cuda, flash_paged_quant_cuda):
+        fn.launches = 0
+        fn.body_launches = dict.fromkeys(PAGED_BODIES, 0)
 
 
 def _check_pools(q, k_pool, v_pool, page_table):
@@ -186,12 +262,38 @@ def _check_pools(q, k_pool, v_pool, page_table):
     _check(hq % hkv == 0, f"Hq={hq} is not a multiple of Hkv={hkv}")
     _check(page_table.dim() == 2 and page_table.shape[0] == b,
            "page_table must be (B, n_pages)")
+    n_pool, _, ps = k_pool.shape[:3]
+    # the split-KV body keeps a key's pool row index in an int
+    _check(n_pool * hkv * ps < 2 ** 31, "pools of 2^31 key rows or more")
+
+
+def _paged_split(q, k_pool, v_pool, k_scale, v_scale, page_table, kv_lens,
+                 q_offset, window, plan, causal, scale):
+    """Launch the split-KV body over pools (bf16, or narrow with scales)."""
+    b, hq, sq, d = q.shape
+    n_pool, hkv, ps = k_pool.shape[:3]
+    out = torch.empty_like(q)
+    part = torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
+    kind = {torch.bfloat16: 0, torch.int8: 1,
+            torch.float8_e4m3fn: 2}[k_pool.dtype]
+    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if kind else (None, None))
+    err = LIBRARY.get().flash_attention_paged_split(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+        out.data_ptr(), part.data_ptr(), page_table.data_ptr(),
+        kv_lens.data_ptr(), q_offset.data_ptr(), window.data_ptr(), b, hq,
+        hkv, sq, d, ps, page_table.shape[1], n_pool, int(causal),
+        float(scale), plan.splits, SPLIT_KEYS, MAX_SPLITS, kind,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on(err, "flash_attention_paged_split")
+    return out
 
 
 def flash_paged_cuda(q, k_pool, v_pool, page_table, kv_lens, q_offset, window,
                      *, causal: bool, scale: float):
-    """Paged kernel: q (B,Hq,Sq,D), pools (P,Hkv,ps,D), page_table
-    (B,n_pages) int32 -> (B,Hq,Sq,D) in q's dtype."""
+    """Paged kernel: q (B,Hq,Sq,D), pools (P,Hkv,ps,D) of q's dtype,
+    page_table (B,n_pages) int32 -> (B,Hq,Sq,D) in q's dtype.  The body is
+    ``plan_paged``'s; each call adds one to ``launches`` and to its body's
+    count in ``body_launches``."""
     b, hq, sq, d = q.shape
     _check_common(q, {"k_pool": k_pool, "v_pool": v_pool},
                   {"kv_lens": kv_lens, "q_offset": q_offset, "window": window,
@@ -199,16 +301,21 @@ def flash_paged_cuda(q, k_pool, v_pool, page_table, kv_lens, q_offset, window,
     _check_pools(q, k_pool, v_pool, page_table)
     n_pool, hkv, ps = k_pool.shape[:3]
     n_pages = page_table.shape[1]
-    out = torch.empty_like(q)
-    lib = LIBRARY.get()
-    err = lib.flash_attention_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-        page_table.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
-        window.data_ptr(), b, hq, hkv, sq, d, ps, n_pages, n_pool,
-        int(causal), float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on(err, "flash_attention_paged")
+    plan = plan_paged(q.dtype, k_pool.dtype, b, hq, hkv, sq, n_pages, ps, d)
+    if plan.body == SPLIT_KV:
+        out = _paged_split(q, k_pool, v_pool, None, None, page_table, kv_lens,
+                           q_offset, window, plan, causal, scale)
+    else:
+        out = torch.empty_like(q)
+        err = LIBRARY.get().flash_attention_paged(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+            page_table.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
+            window.data_ptr(), b, hq, hkv, sq, d, ps, n_pages, n_pool,
+            int(causal), float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        raise_on(err, "flash_attention_paged")
     flash_paged_cuda.launches += 1
+    flash_paged_cuda.body_launches[plan.body] += 1
     return out
 
 
@@ -219,7 +326,8 @@ def flash_paged_quant_cuda(q, k_pool, v_pool, k_scale, v_scale, page_table,
     (P,Hkv,ps,D) int8 or float8_e4m3fn; scales (P,Hkv,ps) f32; page_table
     (B,n_pages) int32 -> (B,Hq,Sq,D) in q's dtype.  Each K/V element widens
     to ``float(x) * scale[page, head, slot]`` in f32.  D must be a multiple
-    of 16 (64, 80 and 128 on the serving path)."""
+    of 16 (64, 80 and 128 on the serving path).  The body is
+    ``plan_paged``'s, counted as in ``flash_paged_cuda``."""
     b, hq, sq, d = q.shape
     _check_common(q, {}, {"kv_lens": kv_lens, "q_offset": q_offset,
                           "window": window, "page_table": page_table}, b)
@@ -242,20 +350,24 @@ def flash_paged_quant_cuda(q, k_pool, v_pool, k_scale, v_scale, page_table,
            "quantized pools must start on a 16-byte boundary")
     n_pool, hkv, ps = k_pool.shape[:3]
     n_pages = page_table.shape[1]
-    out = torch.empty_like(q)
-    lib = LIBRARY.get()
-    err = lib.flash_attention_paged_quant(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), out.data_ptr(), page_table.data_ptr(),
-        kv_lens.data_ptr(), q_offset.data_ptr(), window.data_ptr(), b, hq, hkv,
-        sq, d, ps, n_pages, n_pool, int(causal), float(scale),
-        int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.float8_e4m3fn),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on(err, "flash_attention_paged_quant")
+    plan = plan_paged(q.dtype, k_pool.dtype, b, hq, hkv, sq, n_pages, ps, d)
+    if plan.body == SPLIT_KV:
+        out = _paged_split(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                           kv_lens, q_offset, window, plan, causal, scale)
+    else:
+        out = torch.empty_like(q)
+        err = LIBRARY.get().flash_attention_paged_quant(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+            page_table.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
+            window.data_ptr(), b, hq, hkv, sq, d, ps, n_pages, n_pool,
+            int(causal), float(scale), int(q.dtype == torch.bfloat16),
+            int(k_pool.dtype == torch.float8_e4m3fn),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        raise_on(err, "flash_attention_paged_quant")
     flash_paged_quant_cuda.launches += 1
+    flash_paged_quant_cuda.body_launches[plan.body] += 1
     return out
 
 
-reset_dense_counts()
-flash_paged_cuda.launches = 0
-flash_paged_quant_cuda.launches = 0
+reset_flash_counts()

@@ -127,9 +127,9 @@ def test_unknown_impl_raises():
 ])
 def test_plan_routes_bf16_by_rows(b, hq, hkv, sq, skv, body, d):
     """bf16 with more than 16 rows per KV head (group * Sq) takes the
-    tensor-core body on 64-row CTAs; with at most 16 the split-KV body,
-    with (B, Hkv, splits, rows, D + 2) f32 scratch and at least 128 cache
-    keys per split."""
+    tensor-core body on 64-row CTAs; with at most 16 the split-KV body on
+    a grid of ``split_grid(skv)`` splits per (KV head, lane), with
+    (B, Hkv, splits, rows, D + 2) f32 scratch."""
     plan = K.plan_dense(torch.bfloat16, b, hq, hkv, sq, skv, d)
     assert plan.body == body
     if body == K.TENSOR_CORE:
@@ -137,7 +137,8 @@ def test_plan_routes_bf16_by_rows(b, hq, hkv, sq, skv, body, d):
     else:
         rows = (hq // hkv) * sq
         assert plan.scratch == (b, hkv, plan.splits, rows, d + 2)
-        assert 1 <= plan.splits <= max(1, skv // K.MIN_SPLIT_KEYS)
+        assert plan.splits == K.split_grid(skv)
+        assert 1 <= plan.splits <= K.MAX_SPLITS
 
 
 @pytest.mark.parametrize("sq,skv", [(1, 1027), (963, 1027), (3, 10)])
@@ -148,25 +149,103 @@ def test_plan_f32_takes_cuda_core_body(sq, skv):
     assert plan.body == K.CUDA_CORE and plan.scratch is None
 
 
-def test_plan_fills_the_card_at_decode():
-    """stablelm-3b decode (8 lanes x 32 KV heads over 1027 keys) runs 4
-    splits: 1024 CTAs; olmoe-1b-7b's 16 KV heads 8."""
-    assert K.plan_dense(torch.bfloat16, 8, 32, 32, 1, 1027, 80).splits == 4
-    assert K.plan_dense(torch.bfloat16, 8, 16, 16, 1, 1027, 128).splits == 8
+def _lanes(skv):
+    """(kv_len, q_offset, sq, causal, window) of decode lanes that fit in a
+    cache of ``skv`` keys: full, ragged, one key, empty, windowed."""
+    lens = sorted({skv, max(skv // 2, 1), min(5, skv), 1, 0})
+    lanes = [(n, max(n - 1, 0), 1, True, None) for n in lens]
+    lanes += [(n, max(n - 1, 0), 1, False, 100) for n in lens]
+    return lanes
 
 
 @pytest.mark.parametrize("skv", [1, 40, 127, 128, 1027, 4097, 10 ** 5])
 @pytest.mark.parametrize("b,hkv", [(1, 1), (8, 1), (8, 32)])
-def test_plan_splits_fill_the_card_with_long_enough_shares(b, hkv, skv):
-    """The split-KV plan takes as many splits as reach ``TARGET_CTAS`` CTAs,
-    unless the cache holds fewer than ``MIN_SPLIT_KEYS`` keys per split or
-    ``MAX_SPLITS`` caps it; never fewer than one."""
-    splits = K.plan_dense(torch.bfloat16, b, hkv, hkv, 1, skv, 64).splits
-    assert 1 <= splits <= K.MAX_SPLITS
-    assert splits == 1 or splits * K.MIN_SPLIT_KEYS <= skv
-    full = b * hkv * splits >= K.TARGET_CTAS
-    assert (full or splits == K.MAX_SPLITS
-            or (splits + 1) * K.MIN_SPLIT_KEYS > skv)
+def test_lane_splits_do_not_depend_on_the_call(b, hkv, skv):
+    """A lane's split boundaries follow from its own kv_len, q_offset and
+    window (``lane_splits`` takes nothing else), whatever the batch, the KV
+    heads and the cache's allocated length: every lane that fits in a
+    cache of ``skv`` keys has the same splits in any larger cache, and all
+    of them inside the plan's grid, which the scratch covers."""
+    plan = K.plan_dense(torch.bfloat16, b, hkv, hkv, 1, skv, 64)
+    assert plan.body == K.SPLIT_KV
+    assert plan.scratch == (b, hkv, plan.splits, 1, 66)
+    for kv_len, q_offset, sq, causal, window in _lanes(skv):
+        splits = K.lane_splits(kv_len, q_offset, sq, causal=causal,
+                               window=window)
+        span = K.split_span(kv_len)
+        assert all(hi <= (lo // span + 1) * span for lo, hi in splits)
+        assert all(lo // span < plan.splits for lo, _ in splits)
+        for bigger in (skv + 1, 2 * skv + 63, 10 ** 6):
+            grid = K.plan_dense(torch.bfloat16, b, hkv, hkv, 1, bigger,
+                                64).splits
+            assert grid >= plan.splits
+            assert all(lo // span < grid for lo, _ in splits)
+
+
+@pytest.mark.parametrize("kv_len,q_offset,sq,causal,window", [
+    (1027, 1026, 1, True, None),      # stablelm decode, longest lane
+    (320, 319, 1, False, None),       # shortest lane of the smoke batch
+    (1027, 1026, 1, True, 300),       # a window: splits below it skipped
+    (100, 90, 10, True, None),        # a short chunk of 10 rows
+    (0, 0, 1, True, None),            # an empty lane: no split
+    (5, 4, 1, False, 2),              # fewer live keys than one tile
+    (10 ** 5, 10 ** 5 - 1, 1, True, None),   # the span doubles
+    (64 * 256, 64 * 256 - 1, 1, True, None),  # exactly MAX_SPLITS spans
+])
+def test_lane_splits_partition_the_live_keys(kv_len, q_offset, sq, causal,
+                                             window):
+    """The splits of a lane are disjoint, in key order, and cover exactly
+    the keys some row may attend; each lies inside one span of
+    ``split_span(kv_len)`` keys at a fixed absolute position (a multiple of
+    the 64-key tile, ``SPLIT_KEYS`` doubled until at most ``MAX_SPLITS``
+    splits cover the lane); every split but the first starts on a span
+    boundary."""
+    splits = K.lane_splits(kv_len, q_offset, sq, causal=causal, window=window)
+    k_begin = 0 if window is None else max(q_offset - window + 1, 0)
+    k_end = min(kv_len, q_offset + sq) if causal else kv_len
+    covered = [k for lo, hi in splits for k in range(lo, hi)]
+    assert covered == list(range(k_begin, max(k_end, k_begin)))
+    span = K.split_span(kv_len)
+    assert span % K.TILE_KEYS == 0 and span % K.SPLIT_KEYS == 0
+    assert (span // K.SPLIT_KEYS) & (span // K.SPLIT_KEYS - 1) == 0
+    assert -(-kv_len // span) <= K.MAX_SPLITS
+    assert span == K.SPLIT_KEYS or -(-kv_len // (span // 2)) > K.MAX_SPLITS
+    for i, (lo, hi) in enumerate(splits):
+        assert lo < hi and lo // span == (hi - 1) // span
+        assert i == 0 or lo % span == 0
+    assert len(splits) <= K.split_grid(kv_len)
+
+
+@pytest.mark.parametrize("dtype,pool,sq,group,body", [
+    (torch.bfloat16, torch.bfloat16, 1, 1, K.SPLIT_KV),     # decode
+    (torch.bfloat16, torch.bfloat16, 4, 4, K.SPLIT_KV),     # 16 rows
+    (torch.bfloat16, torch.bfloat16, 17, 1, K.CUDA_CORE),   # a longer chunk
+    (torch.bfloat16, torch.bfloat16, 3, 8, K.CUDA_CORE),    # 24 rows
+    (torch.float32, torch.float32, 1, 1, K.CUDA_CORE),      # f32 decode
+    (torch.float32, torch.float32, 40, 2, K.CUDA_CORE),
+])
+def test_plan_paged_routes_by_dtype_and_rows(dtype, pool, sq, group, body):
+    """bf16 q with at most 16 rows per KV head takes the split-KV body on
+    the grid a dense cache of n_pages * ps keys would take; f32 q (the
+    template of f32 dense decode) and more rows the CUDA-core body."""
+    b, hkv, n_pages, ps, d = 8, 4, 65, 16, 80
+    plan = K.plan_paged(dtype, pool, b, hkv * group, hkv, sq, n_pages, ps, d)
+    assert plan.body == body
+    if body == K.SPLIT_KV:
+        dense = K.plan_dense(dtype, b, hkv * group, hkv, sq, n_pages * ps, d)
+        assert plan == dense
+        assert plan.scratch == (b, hkv, plan.splits, group * sq, d + 2)
+    else:
+        assert plan.splits == 1 and plan.scratch is None
+
+
+def test_plan_paged_refuses_what_no_body_takes():
+    with pytest.raises(ValueError):
+        K.plan_paged(torch.bfloat16, torch.bfloat16, 1, 2, 2, 1, 4, 16, 160)
+    with pytest.raises(ValueError):
+        K.plan_paged(torch.bfloat16, torch.float32, 1, 2, 2, 1, 4, 16, 64)
+    with pytest.raises(ValueError):
+        K.plan_paged(torch.float16, torch.float16, 1, 2, 2, 1, 4, 16, 64)
 
 
 def test_plan_refuses_what_no_body_takes():

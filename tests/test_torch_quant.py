@@ -173,6 +173,40 @@ def test_quantized_flash_refuses_what_it_cannot_take():
                                  causal=False, scale=1.0)
 
 
+@pytest.mark.parametrize("page_dtype", DTYPES)
+@pytest.mark.parametrize("sq,group,body", [
+    (1, 1, K.SPLIT_KV), (1, 16, K.SPLIT_KV), (4, 4, K.SPLIT_KV),
+    (17, 1, K.CUDA_CORE),
+])
+def test_plan_paged_routes_narrow_pools(page_dtype, sq, group, body):
+    """bf16 q over int8/fp8 pools with at most 16 rows per KV head takes
+    the split-KV body, on the grid of a bf16 pool of the same pages; more
+    rows, and f32 q, the CUDA-core body."""
+    pool = PG.resolve_page_dtype(page_dtype)
+    args = (8, 2 * group, 2, sq, 65, 16, 80)
+    plan = K.plan_paged(torch.bfloat16, pool, *args)
+    assert plan.body == body
+    if body == K.SPLIT_KV:
+        assert plan == K.plan_paged(torch.bfloat16, torch.bfloat16, *args)
+        assert plan.scratch == (8, 2, K.split_grid(65 * 16), group * sq, 82)
+    f32 = K.plan_paged(torch.float32, pool, *args)
+    assert f32.body == K.CUDA_CORE and f32.scratch is None
+
+
+@pytest.mark.parametrize("page_dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 40, 72, 100])
+def test_plan_paged_refuses_narrow_head_dims_off_16(page_dtype, d):
+    """Narrow K/V are read 16 elements (16 bytes) at a time: a head dim
+    that is not a multiple of 16 is refused over int8/fp8 pools, on either
+    body, and taken over a bf16 pool."""
+    pool = PG.resolve_page_dtype(page_dtype)
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            K.plan_paged(dtype, pool, 2, 4, 2, 1, 3, 16, d)
+    assert K.plan_paged(torch.bfloat16, torch.bfloat16, 2, 4, 2, 1, 3, 16,
+                        d).body == K.SPLIT_KV
+
+
 @pytest.mark.parametrize("family", ["dense", "hybrid"])
 def test_to_paged_and_view_match_jax(family):
     """to_paged(page_dtype="int8") of the same dense cache: pool bytes and
