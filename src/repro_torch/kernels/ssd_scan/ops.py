@@ -61,13 +61,20 @@ def ssd_scan(x, dt, A, B, C, D=None, *, seq_lens=None, h0=None,
         y = y[:, :s]
     else:
         y, hT = _kernel.ssd_scan_cuda(
-            x.contiguous(), dt.contiguous(), A.float().contiguous(),
-            B.to(x.dtype).contiguous(), C.to(x.dtype).contiguous(),
-            h0.float().contiguous(), chunk=chunk)
+            _aligned(x), dt.contiguous(), A.float().contiguous(),
+            _aligned(B.to(x.dtype)), _aligned(C.to(x.dtype)),
+            _aligned(h0.float()), chunk=chunk)
 
     if D is not None:
         y = (y.float() + D.float()[None, None, :, None] * x.float()).to(y.dtype)
     return y, hT
+
+
+def _aligned(t):
+    """``t`` contiguous and starting on a 16-byte boundary (the kernel copies
+    rows 16 bytes at a time): a view that is neither is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ssd_decode_step(x_t, dt_t, A, B_t, C_t, h, D=None):

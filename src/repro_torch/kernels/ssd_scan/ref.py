@@ -86,3 +86,55 @@ def ssd_chunked_ref(x, dt, A, B, C, D=None, h0=None, chunk: int = 64):
     if D is not None:
         y = y + D.float()[None, None, :, None] * x.float()
     return y.to(x.dtype), hprev
+
+
+def _hi_lo(v):
+    """f32 ``v`` as the sum of a bf16 hi half and the bf16 lo half of what hi
+    rounded off, both returned widened to f32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_chunked_tc_ref(x, dt, A, B, C, D=None, h0=None, chunk: int = 64):
+    """``ssd_chunked_ref`` rounded as the CUDA kernel's tensor-core body
+    rounds: x, B and C enter the products as they are (bf16, exact), and
+    every f32 operand of a product, the decay-weighted ``att``, the carried
+    state ``h_prev`` and the state update's ``w * B``, as a hi and a lo bf16
+    half, one product each, summed in f32.  A model of the body's precision
+    for the tests; no path runs it.  S % chunk == 0."""
+    bz, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
+    nc = s // chunk
+    xf = x.float().reshape(bz, nc, chunk, h, p)
+    dtf = dt.float().reshape(bz, nc, chunk, h)
+    Bf = B.float().reshape(bz, nc, chunk, n)
+    Cf = C.float().reshape(bz, nc, chunk, n)
+    a = dtf * A.float()[None, None, None, :]
+
+    hprev = (torch.zeros((bz, h, p, n), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    ys = []
+    for c in range(nc):
+        xc, dtc, bc, cc, ac = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c], a[:, c]
+        cum = torch.cumsum(ac, dim=1)                     # (bz, Q, h)
+        L = torch.exp(_segsum(ac.transpose(1, 2)))        # (bz, h, Q, Q)
+        att = torch.einsum("bqn,bkn->bqk", cc, bc)
+        att = att[:, None] * L * dtc.transpose(1, 2)[:, :, None, :]
+        y = sum(torch.einsum("bhqk,bkhp->bqhp", part, xc)
+                for part in _hi_lo(att))
+        y_inter = sum(torch.einsum("bqn,bhpn->bqhp", cc, part)
+                      for part in _hi_lo(hprev))
+        y = y + y_inter * torch.exp(cum)[:, :, :, None]
+        wexp = torch.exp(cum[:, -1:, :] - cum) * dtc      # (bz, Q, h)
+        wb = wexp[..., None] * bc[:, :, None, :]          # (bz, Q, h, N)
+        upd = sum(torch.einsum("bqhp,bqhn->bhpn", xc, part)
+                  for part in _hi_lo(wb))
+        hprev = torch.exp(cum[:, -1, :])[:, :, None, None] * hprev + upd
+        ys.append(y)
+    y = (torch.stack(ys, dim=1).reshape(bz, s, h, p) if ys
+         else x.float().clone())
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), hprev
