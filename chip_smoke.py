@@ -21,7 +21,8 @@
    decode equal alone and in the batch, checks the threefry bits on the
    card against the CPU's, and times each kernel at the shapes its path
    gives it, beside its plain version, its bound and, where one exists,
-   one PyTorch library call.
+   one PyTorch library call (``moe_positions`` and ``fadda`` also beside
+   the launch floor: the time of one empty kernel).
 3. Serves 8 greedy requests through ``ServeEngine.generate`` at the full
    width of stablelm-3b (dense family), zamba2-1.2b (hybrid), mamba2-130m
    (ssm) and olmoe-1b-7b (moe), random weights from seed 0, with the dense
@@ -52,11 +53,25 @@ builds the kernels and runs only the measurements behind the SSD scan's
 tensor-core body (``ssd_probes``): faulty copies of the body that its check
 must fail, the body with the accurate ``expf`` timed against the shipped
 one, and the card's ``mma.sync`` rate.
+
+    python3 chip_smoke.py --fadda-probes [--parent DIR]
+
+builds the kernels and runs only the measurements behind the ``fadda`` and
+``moe_positions`` bodies (``fadda_probes``): the latency of a dependent f32
+add, faulty copies of the fadda body that ``check_fadda`` must fail, the
+walker's cycles per element by phase (clock64() stamps), the price of the
+moe_positions blocks' redundant counting and its rounds per warp.  With
+``--parent DIR``, a tree holding the kernels before their redesign (e.g.
+``git archive <commit> src/repro_torch/kernels | tar -x -C DIR``), also the
+old fadda body's phases and both trees' kernels timed in turns, with the
+host's enqueue time per ``moe_positions_cuda`` call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -126,6 +141,36 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
             return statistics.median(s.elapsed_time(e) for s, e in marks)
     raise RuntimeError("the host could not enqueue the timed calls within "
                        "the spin: device time is not isolated")
+
+
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int launch_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def empty_library():
+    return _probe_library("launch_floor", EMPTY_KERNEL,
+                          {"launch_empty": [ctypes.c_void_p]})
+
+
+def launch_floor_ms() -> float:
+    """Device time of one launch of an empty kernel (one block of one
+    warp) by ``time_ms``: what no one-launch call can go below."""
+    from repro_torch.kernels._build import raise_on
+
+    lib = empty_library().get()
+    stream = torch.cuda.current_stream().cuda_stream
+    return time_ms(lambda: raise_on(lib.launch_empty(stream), "launch_empty"), 50)
+
+
+def _sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def check(ok, what) -> None:
@@ -198,7 +243,7 @@ def build_all():
 
     libs = {"flash_attention": K.LIBRARY, "ssd_scan": SK.LIBRARY,
             "moe_dispatch": MK.LIBRARY, "fadda": FK.LIBRARY,
-            "daxpy": DK.LIBRARY}
+            "daxpy": DK.LIBRARY, "launch_floor": empty_library()}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(lib.build) for name, lib in libs.items()}
@@ -603,31 +648,66 @@ def check_batch_independence(flash_attention):
           f"and paged, bit for bit", flush=True)
 
 
+def moe_cases():
+    """(T, K, E) cases of ``check_moe_positions`` with how their ids are
+    drawn: T*K not a multiple of a tile, one tile and many, -1 ids and ids
+    >= E, K = 2, 6 and 8, the olmoe decode (8, 8) and prefill (7704, 8)
+    shapes and 20001 x 8; n at a tile boundary of the plan and one either
+    side of it (K = 1: the one-warp block's 128 assignments, a many-warp
+    block's tile and a cluster of tiles); E = 1
+    and E = 1024; every id the same expert; every id invalid."""
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+
+    tile = MK.plan_positions(10 ** 5, 64, 132)["tile"]
+    cases = [((8, 8, 64), "mixed"), ((5, 2, 4), "mixed"),
+             ((1000, 6, 64), "mixed"), ((7704, 8, 64), "mixed"),
+             ((20001, 8, 64), "mixed"), ((333, 2, 4), "mixed")]
+    for n in (MK.WARP * MK.DECODE_ROUNDS, tile, MK.CLUSTER * tile):
+        cases += [((m, 1, 64), "mixed") for m in (n - 1, n, n + 1)]
+    cases += [((777, 3, 1), "mixed"), ((7704, 8, 1024), "mixed"),
+              ((3000, 8, 64), "same"), ((3000, 8, 64), "invalid"),
+              ((8, 8, 64), "same"), ((8, 8, 64), "invalid")]
+    return cases
+
+
+def moe_case_ids(gen, t, k, e, how):
+    """Seeded ids: uniform with 5% -1 and 3% >= E ("mixed"), every id
+    expert e // 2 ("same"), or every id invalid ("invalid": -1 and >= E)."""
+    ids = torch.randint(0, e, (t, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    odd = torch.rand((t, k), generator=gen, device="cuda")
+    if how == "same":
+        return torch.full((t, k), e // 2, dtype=torch.int32, device="cuda")
+    if how == "invalid":
+        return torch.where(odd < 0.5, -1, e + (ids % 7)).to(torch.int32)
+    ids = torch.where(odd < 0.05, -1, ids)
+    return torch.where(odd > 0.97, e + (ids % 7), ids).to(torch.int32).contiguous()
+
+
 def check_moe_positions():
-    """The dispatch-rank kernel against ``moe_positions_ref``, exactly:
-    T*K not a multiple of the 256-assignment tile, one tile and many, more
-    than 256 tiles (the scan's carry across chunks), -1 ids and ids >= E,
-    E = 4 and 64, K = 2, 6 and 8, and the olmoe prefill shape."""
+    """The dispatch-rank kernel against ``moe_positions_ref``, exactly, on
+    every case of ``moe_cases``, one launch per call."""
+    from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.kernels.moe_dispatch import moe_positions
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    cases = ((8, 8, 64), (5, 2, 4), (1000, 6, 64), (7704, 8, 64),
-             (20001, 8, 64), (333, 2, 4))
-    for t, k, e in cases:
-        ids = torch.randint(0, e, (t, k), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        odd = torch.rand((t, k), generator=gen, device="cuda")
-        ids = torch.where(odd < 0.05, -1, ids)
-        ids = torch.where(odd > 0.97, e + (ids % 7), ids).contiguous()
+    cases = moe_cases()
+    for (t, k, e), how in cases:
+        ids = moe_case_ids(gen, t, k, e, how)
+        before = MK.moe_positions_cuda.launches
         got = moe_positions(ids, e, impl="kernel")
         want = moe_positions(ids, e, impl="naive")
         torch.cuda.synchronize()
+        check(MK.moe_positions_cuda.launches == before + 1,
+              "one moe_positions call, one launch")
         for g, w, what in zip(got, want, ("pos", "counts")):
             check(g.dtype == w.dtype == torch.int32 and torch.equal(g, w),
                   f"moe_positions {what} equal to the plain version at "
-                  f"T={t} K={k} E={e}")
+                  f"T={t} K={k} E={e} ({how} ids)")
     print(f"[kernels] moe_positions checked against moe_positions_ref "
-          f"(exact): {len(cases)} cases, (T, K, E) in {cases}", flush=True)
+          f"(exact): {len(cases)} cases, (T, K, E) in "
+          f"{[c for c, _ in cases]}, ids mixed / all one expert / all "
+          f"invalid", flush=True)
 
 
 def _same_bits(got, want) -> bool:
@@ -644,64 +724,116 @@ def sorted_probs(gen, rows, v):
                       descending=True).values.contiguous()
 
 
-def check_fadda():
-    """The ordered kernel against the plain loop (``fadda_scan_plain``) on
-    the card, bit for bit, and the op against the numpy scalar loop: n not a
-    multiple of the block, blocks 8 to 1024, rows that start off a 16-byte
-    boundary, block 128 and 512 giving the same bits, the adversarial
-    sequence of §2.4, init = -0.0 with n = 0 (masked lanes add +0.0) and an
-    empty row (init kept), and the row scan of (8, 50304) sorted softmax
-    probabilities, with every row's n and ragged n."""
+def fadda_cases():
+    """The cases of ``check_fadda``: (name, call) pairs, each call True when
+    the kernel's bits equal the plain loop's (``fadda_scan_plain``) and, for
+    the op, the numpy scalar loop's.  Op cases: n not a multiple of the
+    block, n past the length, blocks 8 to 8192, rows that start 4, 8 and 12
+    bytes off a 16-byte boundary; the adversarial sequence of §2.4 at blocks
+    128 and 512; init = -0.0 with n = 0 and a row of -0.0 with n < V (masked
+    lanes add +0.0) and an empty row (init kept); the (8, 50304) row scan of
+    sorted softmax probabilities with every partial at blocks 128, 512 and
+    8192, with ragged n, per-row init and n past V; rows of V = 1001 (V % 4
+    != 0: every row starts elsewhere modulo 16 bytes) with partials; and
+    rows whose base is 4, 8 and 12 bytes off a 16-byte boundary, with
+    partials (x and the partials then disagree modulo 16 bytes)."""
     from repro_torch.core.reductions import pairwise_sum
     from repro_torch.kernels.fadda import fadda, fadda_rows
     from repro_torch.kernels.fadda.ref import fadda_ref, fadda_scan_plain
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    n_cases = 0
+    cases = []
+
+    def op(xv, n, block):
+        got = fadda(xv, n, block=block)
+        want = fadda_scan_plain(xv[None], n, 0.0)[0, -1]
+        ref = fadda_ref(xv.cpu().numpy(), n)
+        return (_same_bits(got, want) and
+                np.float32(got.item()).tobytes() == ref.tobytes())
+
+    def rows(x, n, init, block):
+        n = x.shape[1] if n is None else n
+        init = 0.0 if init is None else init
+        out, part = fadda_rows(x, n, init, partials=True, block=block)
+        want = fadda_scan_plain(x, n, init)
+        return _same_bits(part, want) and _same_bits(out, want[:, -1])
+
     for length, n, block in ((600, 600, 128), (600, 421, 128), (1024, 1024, 512),
-                             (3, 3, 512), (4096, 4095, 1024), (5000, 4097, 8)):
-        x = torch.randn(length + 1, generator=gen, device="cuda")
-        for xv in (x[:length], x[1:]):        # 16-byte aligned, and not
-            got = fadda(xv, n, block=block)
-            want = fadda_scan_plain(xv[None], n, 0.0)[0, -1]
-            ref = fadda_ref(xv.cpu().numpy(), n)
-            check(_same_bits(got, want) and
-                  np.float32(got.item()).tobytes() == ref.tobytes(),
-                  f"fadda ({length}, n={n}, block={block}) equal to the loop")
-            n_cases += 1
+                             (3, 3, 512), (4096, 4095, 1024), (5000, 4097, 8),
+                             (600, 700, 128), (20000, 19999, 8192),
+                             (9000, 9000, 8192)):
+        x = torch.randn(length + 3, generator=gen, device="cuda")
+        for off in (0, 1, 2, 3):        # 0, 4, 8 and 12 bytes off 16
+            cases.append((f"op ({length}, n={n}, block={block}) at +{4 * off} B",
+                          lambda xv=x[off:off + length], n=n, b=block: op(xv, n, b)))
     adv = torch.tensor([1e8, 1.0, -1e8, 1.0] * 64, device="cuda")
-    want = fadda_ref(adv.cpu().numpy())
-    for block in (128, 512):
-        got = np.float32(fadda(adv, block=block).item())
-        check(got.tobytes() == want.tobytes(), f"adversarial fadda at block {block}")
-    check(np.float32(pairwise_sum(adv).item()) != want,
+    want_adv = fadda_ref(adv.cpu().numpy())
+    check(np.float32(pairwise_sum(adv).item()) != want_adv,
           "the adversarial sum differs from the tree sum")
-    x = torch.randn(2, 16, generator=gen, device="cuda")
-    out, part = fadda_rows(x, n=0, init=-0.0, partials=True)
-    want = fadda_scan_plain(x, 0, -0.0)
-    check(_same_bits(part, want) and _same_bits(out, want[:, -1])
-          and not torch.signbit(out).any(),
-          "init -0.0, n = 0: every masked lane adds +0.0")
-    out, _ = fadda_rows(torch.empty(1, 0, device="cuda"), n=0, init=-0.0,
-                        partials=True)
-    check(bool(torch.signbit(out).all()), "an empty row keeps init -0.0")
-    sp = sorted_probs(gen, 8, 50304)
-    want = fadda_scan_plain(sp, 50304, 0.0)
-    scans = {}
     for block in (128, 512):
-        out, scans[block] = fadda_rows(sp, partials=True, block=block)
-        check(_same_bits(scans[block], want) and _same_bits(out, want[:, -1]),
-              f"(8, 50304) probability scan at block {block}")
-    ragged = torch.tensor([50304, 50303, 1, 0, 4096, 777, 50304, 30000],
+        cases.append((f"adversarial at block {block}", lambda b=block: np.float32(
+            fadda(adv, block=b).item()).tobytes() == want_adv.tobytes()))
+
+    def zero_n():
+        x = torch.randn(2, 16, generator=gen, device="cuda")
+        out, part = fadda_rows(x, n=0, init=-0.0, partials=True)
+        want = fadda_scan_plain(x, 0, -0.0)
+        return (_same_bits(part, want) and _same_bits(out, want[:, -1])
+                and not torch.signbit(out).any())
+
+    def neg_zero_row():
+        x = torch.full((3, 40), -0.0, device="cuda")
+        n = torch.tensor([40, 17, 0], dtype=torch.int32, device="cuda")
+        out, part = fadda_rows(x, n, init=-0.0, partials=True, block=16)
+        want = fadda_scan_plain(x, n, -0.0)
+        return (_same_bits(part, want) and _same_bits(out, want[:, -1])
+                and torch.signbit(out).tolist() == [True, False, False])
+
+    def empty_row():
+        out, _ = fadda_rows(torch.empty(1, 0, device="cuda"), n=0, init=-0.0,
+                            partials=True)
+        return bool(torch.signbit(out).all())
+    cases += [("init -0.0, n = 0: every masked lane adds +0.0", zero_n),
+              ("rows of -0.0 from -0.0, n = V, V - 23, 0", neg_zero_row),
+              ("an empty row keeps init -0.0", empty_row)]
+    sp = sorted_probs(gen, 8, 50304)
+    for block in (128, 512, 8192):
+        cases.append((f"(8, 50304) probability scan at block {block}",
+                      lambda b=block: rows(sp, None, None, b)))
+    ragged = torch.tensor([50304, 50303, 1, 0, 4096, 777, 60000, 30000],
                           dtype=torch.int32, device="cuda")
     init = torch.linspace(-1, 1, 8, device="cuda")
-    out, part = fadda_rows(sp, ragged, init, partials=True)
-    want = fadda_scan_plain(sp, ragged, init)
-    check(_same_bits(part, want) and _same_bits(out, want[:, -1]),
-          "(8, 50304) scan with ragged n and per-row init")
+    cases.append(("(8, 50304) scan, ragged n (one past V), per-row init",
+                  lambda: rows(sp, ragged, init, 512)))
+    x = torch.randn(5, 1001, generator=gen, device="cuda")
+    n5 = torch.tensor([1001, 1000, 998, 3, 2000], dtype=torch.int32, device="cuda")
+    for block in (8, 136, 512):
+        cases.append((f"(5, 1001) rows (V % 4 = 1), ragged n, block {block}",
+                      lambda b=block: rows(x, n5, init[:5], b)))
+    buf = torch.randn(6 * 2048 + 3, generator=gen, device="cuda")
+    for off in (1, 2, 3):
+        xo = buf[off:off + 6 * 2048].view(6, 2048)
+        n6 = torch.tensor([2048, 2047, 5, 1000, 0, 3000], dtype=torch.int32,
+                          device="cuda")
+        cases.append((f"(6, 2048) rows at +{4 * off} B, ragged n",
+                      lambda xo=xo, n6=n6: rows(xo, n6, init[:6], 512)))
+    return cases
+
+
+def check_fadda():
+    """The ordered kernel against the plain loop, bit for bit, on every
+    case of ``fadda_cases``."""
+    cases = fadda_cases()
+    for name, call in cases:
+        ok = call()
+        torch.cuda.synchronize()
+        check(ok, f"fadda {name} equal to the plain loop")
     print(f"[kernels] fadda checked against the plain loop, bit for bit: "
-          f"{n_cases} op cases, the adversarial sequence, -0.0, the (8, 50304) "
-          f"probability scan at blocks 128 and 512, ragged n", flush=True)
+          f"{len(cases)} cases (op with n past the length and rows 4, 8, 12 "
+          f"bytes off 16, blocks 8 to 8192; the adversarial sequence; -0.0; "
+          f"the (8, 50304) probability scan at blocks 128, 512 and 8192, "
+          f"ragged n; V % 4 != 0 rows; misaligned rows with partials)",
+          flush=True)
 
 
 def check_daxpy():
@@ -1000,12 +1132,15 @@ def time_kernels(cfg, lens, max_len, gpu):
     return rows
 
 
-def time_moe_positions(lens, gpu):
+def time_moe_positions(lens, gpu, floor_ms):
     """The dispatch-rank kernel at olmoe's shapes: the prefill call ranks
     every position of the padded (8, S) batch (T = 8 * S, K = 8, E = 64),
-    the decode call one token per lane (T = 8), beside the plain version and
+    the decode call one token per lane (T = 8), beside the plain version,
     the byte bound (4 bytes read and 4 written per assignment, 4 per
-    count; the integer operations are a few per assignment)."""
+    count; the integer operations are a few per assignment) and the launch
+    floor (an empty kernel, ``launch_floor_ms``), which the byte bound, under
+    a nanosecond at decode, says nothing about; and the host's enqueue
+    time per call."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.kernels.moe_dispatch.ref import moe_positions_ref
@@ -1026,17 +1161,22 @@ def time_moe_positions(lens, gpu):
         rows[name] = dict(shape=f"ids ({t}, {k}) int32, E {e}",
                           ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20),
                           library_ms=None, flops=0, bytes=8 * t * k + 4 * e,
-                          max_abs_err=0.0)
-    for name, r in rows.items():
-        _bound(r)
-        print(f"[time] moe_positions {name}: {r['shape']}: kernel {r['ms']:.4f} "
-              f"ms, plain {r['plain_ms']:.4f} ms, library null (no one PyTorch "
-              f"call computes the ranks), bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']}), exact  [{gpu}]", flush=True)
+                          max_abs_err=0.0, launch_floor_ms=floor_ms,
+                          host_us=host_enqueue_us(kern))
+        _bound(rows[name])
+    p, d = rows["prefill"], rows["decode"]
+    print(f"[time] moe_positions prefill {p['shape']}: kernel {p['ms']:.4f} ms "
+          f"(one launch), plain {p['plain_ms']:.4f} ms, bound "
+          f"{p['bound_ms']:.6f} ms ({p['bound_by']}); decode {d['shape']}: kernel "
+          f"{d['ms']:.4f} ms (one launch), plain "
+          f"{d['plain_ms']:.4f} ms, bound {d['bound_ms']:.6f} ms ({d['bound_by']}); "
+          f"launch floor {floor_ms:.4f} ms (an empty kernel); host enqueue "
+          f"{p['host_us']:.2f} / {d['host_us']:.2f} us per call; library null "
+          f"(no one PyTorch call computes the ranks), exact  [{gpu}]", flush=True)
     return rows
 
 
-def time_fadda(v, gpu):
+def time_fadda(v, gpu, floor_ms):
     """The ordered kernel at its two calls: the top-p scan of (8, V) sorted
     probabilities with every partial (once per stochastic sampling step),
     and the ``fadda`` op at n = 4096.  Beside the plain loop and the bound:
@@ -1075,7 +1215,8 @@ def time_fadda(v, gpu):
             shape=f"x ({r}, {c}) f32{', every partial' if partials else ''}",
             ms=time_ms(kern, 50), plain_ms=start.elapsed_time(end),
             library_ms=None, cumsum_ms=time_ms(lambda: torch.cumsum(xs, -1), 50),
-            bytes=nbytes, chain_ms=chain_ms, max_abs_err=0.0)
+            bytes=nbytes, chain_ms=chain_ms, max_abs_err=0.0,
+            launch_floor_ms=floor_ms)
         bytes_ms = nbytes / PEAK_BYTES * 1e3
         rows[name].update(bound_ms=max(chain_ms, bytes_ms),
                           bound_by="operations" if chain_ms >= bytes_ms else "bytes")
@@ -1086,7 +1227,8 @@ def time_fadda(v, gpu):
               f"{r['cumsum_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: chain of {FADD_CYCLES}-cycle adds at "
               f"{clock / 1e9:.3f} GHz {r['chain_ms']:.4f} ms, bytes "
-              f"{r['bytes'] / PEAK_BYTES * 1e3:.4f} ms), exact  [{gpu}]", flush=True)
+              f"{r['bytes'] / PEAK_BYTES * 1e3:.4f} ms), launch floor "
+              f"{floor_ms:.4f} ms, exact  [{gpu}]", flush=True)
     return rows
 
 
@@ -2074,8 +2216,6 @@ def ssd_probes(gpu):
     element timed against the shipped one in turns at both serving shapes,
     and the ``mma.sync`` m16n8k16 bf16 rate of this card (8 independent
     chains a warp, 8 warps a block, 4 blocks an SM)."""
-    import ctypes
-
     from repro_torch.configs import get_config
     from repro_torch.kernels._build import raise_on
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -2153,6 +2293,495 @@ def ssd_probes(gpu):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# ``--fadda-probes``: how the fadda and moe_positions bodies were measured
+# ---------------------------------------------------------------------------
+
+# One dependent add after another in one thread: add.rn.f32, the
+# instruction __fadd_rn is, as volatile asm so that nothing moves across the
+# clock64() reads.
+FADD_CHAIN = r"""
+#include <cuda_runtime.h>
+__global__ void fadd_chain(float* out, long long* cycles, float y, int iters) {
+  float acc = out[0];
+  const long long c0 = clock64();
+  for (int i = 0; i < iters; i += 64) {
+#pragma unroll
+    for (int k = 0; k < 64; ++k) asm volatile("add.rn.f32 %0, %0, %1;" : "+f"(acc) : "f"(y));
+  }
+  const long long c1 = clock64();
+  out[0] = acc;
+  cycles[0] = c1 - c0;
+}
+extern "C" int fadd_chain_run(float* out, long long* cycles, float y, int iters, void* stream) {
+  fadd_chain<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, cycles, y, iters);
+  return (int)cudaGetLastError();
+}
+"""
+# Copies of the shipped fadda body with one fault each: ``check_fadda``
+# must fail every one.
+FADDA_MUTANTS = (
+    ("the first pair of every whole group of 8 added as acc + (a + b)",
+     "    acc = __fadd_rn(acc, a.x);\n    acc = __fadd_rn(acc, a.y);\n",
+     "    acc = __fadd_rn(acc, __fadd_rn(a.x, a.y));\n"),
+    ("the masked lanes' +0.0 skipped",
+     "const float fin = len < v ? __fadd_rn(final_acc, 0.0f) : final_acc;",
+     "const float fin = final_acc;"),
+)
+# A cluster barrier's price: blocks of 1024 threads in clusters of 8, one
+# wave of 64 blocks, each passing `syncs` cluster barriers.
+CLUSTER_BENCH = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
+__global__ void __cluster_dims__(8, 1, 1) cluster_syncs(int syncs, int* out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int i = 0; i < syncs; ++i) cluster.sync();
+  if (threadIdx.x == 0 && syncs < 0) out[blockIdx.x] = 1;
+}
+extern "C" int cluster_bench(int syncs, int* out, void* stream) {
+  cluster_syncs<<<64, 1024, 0, static_cast<cudaStream_t>(stream)>>>(syncs, out);
+  return (int)cudaGetLastError();
+}
+"""
+# clock64() stamps of the walking thread, per row: [0] cycles to the first
+# tile, [1] cycles waiting after it (block barriers in the old body,
+# mbarriers in the new), [2] the walk from its start to its last add, [3]
+# its start; [4] and [5] the ends of the threads that write out and the
+# partials past n.
+PROBE_HEAD = "__device__ long long g_probe[64][8];\n"
+PROBE_TAIL = r"""
+extern "C" int probe_read(long long* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, g_probe, sizeof(g_probe));
+}
+extern "C" int probe_reset() {
+  void* p = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&p, g_probe);
+  return (int)(err != cudaSuccess ? err : cudaMemset(p, 0, sizeof(g_probe)));
+}
+"""
+FADDA_STAMPS = {
+    "new": (
+        ("  __device__ __forceinline__ void wait(uint64_t* bar, unsigned parity) "
+         "{ bar_wait(bar, parity); }",
+         "  long long probe_t0 = 0, probe_first = -1, probe_wait = 0;\n"
+         "  __device__ __forceinline__ void wait(uint64_t* bar, unsigned parity) {\n"
+         "    const long long c0 = clock64();\n    bar_wait(bar, parity);\n"
+         "    const long long c1 = clock64();\n"
+         "    if (probe_first < 0) probe_first = c1 - probe_t0; else probe_wait += c1 - c0;\n"
+         "  }"),
+        ("  // group 0 holds the skipped head; groups [first, whole) are whole",
+         "  w.probe_t0 = clock64();\n"
+         "  // group 0 holds the skipped head; groups [first, whole) are whole"),
+        ("  return w.acc;\n}",
+         "  g_probe[blockIdx.x][0] = w.probe_first;\n  g_probe[blockIdx.x][1] = w.probe_wait;\n"
+         "  g_probe[blockIdx.x][2] = clock64() - w.probe_t0;\n"
+         "  g_probe[blockIdx.x][3] = w.probe_t0;\n  return w.acc;\n}"),
+        ("  if (threadIdx.x == 0) out[row] = fin;",
+         "  if (threadIdx.x == 0) { out[row] = fin; g_probe[row][4] = clock64(); }"),
+        ('    if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\\n" ::: "memory");',
+         '    if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\\n" ::: "memory");\n'
+         "    if (lane == 0) g_probe[row][5] = clock64();"),
+    ),
+    "old": (
+        ("  float acc = init[row];\n  for (int t = 0; t < tiles; ++t) {",
+         "  const long long probe_t0 = clock64();\n"
+         "  long long probe_first = -1, probe_wait = 0, probe_c = 0;\n"
+         "  float acc = init[row];\n  for (int t = 0; t < tiles; ++t) {"),
+        ("    __syncthreads();\n    if (threadIdx.x == 0) {\n      acc = walk_tile",
+         "    probe_c = clock64();\n    __syncthreads();\n    if (threadIdx.x == 0) {\n"
+         "      if (t == 0) probe_first = clock64() - probe_t0;\n"
+         "      else probe_wait += clock64() - probe_c;\n      acc = walk_tile"),
+        ("  if (threadIdx.x == 0) final_acc = acc;",
+         "  if (threadIdx.x == 0) {\n    final_acc = acc;\n"
+         "    g_probe[row][0] = probe_first;\n    g_probe[row][1] = probe_wait;\n"
+         "    g_probe[row][2] = clock64() - probe_t0;\n    g_probe[row][3] = probe_t0;\n  }"),
+        ("  if (threadIdx.x == 0) out[row] = fin;",
+         "  if (threadIdx.x == 0) { out[row] = fin; g_probe[row][4] = clock64(); }"),
+    ),
+}
+# globaltimer stamps (ns) by thread 0 of every block of the shipped
+# moe_positions body, at its entry and after each step: [0] entry, [1] the
+# shared tables zeroed, [2] the ranks, [3] the share counted, [4] the warps
+# scanned, [5] the peers written and the cluster barrier passed, [6] the
+# earlier tiles summed and the positions written.
+MOE_STAMPS = (
+    ("  extern __shared__ int smem[];\n",
+     "  extern __shared__ int smem[];\n  probe_stamp(0);\n"),
+    ("  // 1. the warp's rounds, in order\n",
+     "  probe_stamp(1);\n  // 1. the warp's rounds, in order\n"),
+    ("  if constexpr (kOneWarp) {\n", "  probe_stamp(2);\n  if constexpr (kOneWarp) {\n"),
+    ("    // 3. per expert, an exclusive scan", "    probe_stamp(3);\n    // 3. per expert, an exclusive scan"),
+    ("    // 4. this block's share", "    probe_stamp(4);\n    // 4. this block's share"),
+    ("    // 5. the earlier tiles", "    probe_stamp(5);\n    // 5. the earlier tiles"),
+    ("      if (r < rounds && g < n) pos[g] = id >= 0 ? pre[id] + run[id] + rank_r[r] : 0;\n    }\n",
+     "      if (r < rounds && g < n) pos[g] = id >= 0 ? pre[id] + run[id] + rank_r[r] : 0;\n    }\n"
+     "    probe_stamp(6);\n"),
+)
+MOE_PROBE_HEAD = r"""
+__device__ unsigned long long g_probe[1024][8];
+__device__ __forceinline__ void probe_stamp(int k) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  if (threadIdx.x == 0) g_probe[blockIdx.x][k] = t;
+}
+"""
+# The shipped moe_positions body without step 2 (each block's share of the
+# earlier clusters' ids counted): wrong, and timed only to price that
+# counting.
+# A variant of the shipped moe_positions body, timed against it in turns:
+# the peers of a lane found by one ballot per bit of the id (the invalid ids
+# as id E) in place of __match_any_sync.
+MOE_VARIANTS = (
+    ("peers by ballots", "      const unsigned peers = __match_any_sync(kFull, id);\n",
+     "      unsigned peers = kFull;\n"
+     "      const int key = id < 0 ? e : id;\n"
+     "      for (int bit = 1; bit <= e; bit <<= 1) {\n"
+     "        const unsigned on = __ballot_sync(kFull, key & bit);\n"
+     "        peers &= (key & bit) ? on : ~on;\n"
+     "      }\n"),
+)
+MOE_NO_PREFIX = ("    count_ids(ids, q * part, part, share, e, vec);\n", "")
+
+
+def ptxas_report(sources) -> None:
+    """What ptxas says of each kernel of ``sources`` (registers, spills,
+    stack), from a build with ``-Xptxas -v`` into build/, where the
+    library's SASS (cuobjdump) is also written, beside it."""
+    from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, nvcc_path
+
+    def one(src):
+        out = BUILD_DIR / f"ptxas_{Path(src).stem}.so"
+        res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                              str(out), str(src)], capture_output=True, text=True)
+        return src, res.stdout + res.stderr
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for src, text in pool.map(one, sources):
+            so = BUILD_DIR / f"ptxas_{Path(src).stem}.so"
+            sass = subprocess.run([str(Path(nvcc_path()).parent / "cuobjdump"),
+                                   "-sass", str(so)], capture_output=True, text=True)
+            so.with_suffix(".sass").write_text(sass.stdout + sass.stderr)
+            lines = [ln.strip() for ln in text.splitlines()
+                     if "Compiling entry" in ln or "registers" in ln
+                     or "spill" in ln or "stack frame" in ln]
+            for ln in lines:
+                print(f"[probe] ptxas {Path(src).name}: {ln}", flush=True)
+
+
+def _replace_once(src: str, old: str, new: str) -> str:
+    check(src.count(old) == 1, f"one {old!r} in the source")
+    return src.replace(old, new)
+
+
+def _load_module(path: Path, name: str):
+    """The module at ``path`` (a kernel module of another tree), imported
+    under ``name``: it builds its own source into build/."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_enqueue_us(fn, calls: int = 1000) -> float:
+    """Host time per call: perf_counter over ``calls`` calls between two
+    synchronises."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def fadda_phase_split(FK, lib, gpu, what):
+    """clock64() stamps of a stamped copy ``lib`` of a fadda body, swapped
+    into the kernel module ``FK``: cycles per element by phase at the top-p
+    scan (8, 50304) with every partial and the op (1, 4096), block 512."""
+    from repro_torch.kernels._build import raise_on
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shipped = FK.LIBRARY
+    FK.LIBRARY = lib
+    stamps = np.zeros((64, 8), np.int64)
+    try:
+        for name, xs, partials in (("scan (8, 50304), every partial",
+                                    sorted_probs(gen, 8, 50304), True),
+                                   ("op (1, 4096)", torch.randn(
+                                       1, 4096, generator=gen, device="cuda"), False)):
+            r, c = xs.shape
+            n_t = torch.full((r,), c, dtype=torch.int32, device="cuda")
+            init = torch.zeros(r, device="cuda")
+            for _ in range(3):                  # the last of three calls
+                raise_on(lib.get().probe_reset(), "probe_reset")
+                FK.fadda_rows_cuda(xs, n_t, init, partials=partials, block=512)
+                torch.cuda.synchronize()
+            raise_on(lib.get().probe_read(stamps.ctypes.data_as(ctypes.c_void_p)),
+                     "probe_read")
+            st = stamps[:r].astype(np.float64)
+            first, waits, span = st[:, 0], st[:, 1], st[:, 2]
+            tail = np.maximum(st[:, 4], st[:, 5]) - (st[:, 3] + span)
+            walking = span - first - waits
+            per = lambda a: float(a.mean() / c)
+            print(f"[probe] fadda {what} body, {name}, cycles per element: "
+                  f"walking {per(walking):.3f}, waiting after the first tile "
+                  f"{per(waits):.3f}, first tile {per(first):.3f}, tail "
+                  f"{per(tail):.3f}; in all {per(span + tail):.3f} (mean of "
+                  f"{r} rows; {float(first.mean()):.0f} cycles to the first "
+                  f"tile)  [{gpu}]", flush=True)
+    finally:
+        FK.LIBRARY = shipped
+
+
+def _tree_calls(old, FK, MK, ids, e, k):
+    """name -> {"old": call, "new": call}: the top-p scan, the op, and
+    moe_positions at prefill and decode, on the old and the new bodies."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sp = sorted_probs(gen, N_REQ, 50304)
+    x1 = torch.randn(1, 4096, generator=gen, device="cuda")
+    calls = {}
+    for name, xs, partials in (("fadda scan (8, 50304), every partial", sp, True),
+                               ("fadda op (1, 4096)", x1, False)):
+        n_t = torch.full((xs.shape[0],), xs.shape[1], dtype=torch.int32, device="cuda")
+        init = torch.zeros(xs.shape[0], device="cuda")
+        calls[name] = {tree: (lambda m=m, xs=xs, n_t=n_t, init=init, p=partials:
+                              m.fadda_rows_cuda(xs, n_t, init, partials=p, block=512))
+                       for tree, m in (("old", old["fadda"]), ("new", FK))}
+    for name, t in (("prefill", 7704), ("decode", 8)):
+        calls[f"moe_positions {name} ({t}, {k})"] = {
+            tree: (lambda m=m, x=ids[name]: m.moe_positions_cuda(x, e))
+            for tree, m in (("old", old["moe"]), ("new", MK))}
+    return calls
+
+
+def moe_phase_split(MK, lib, ids, e, gpu):
+    """globaltimer stamps of the stamped moe_positions body (``MOE_STAMPS``)
+    swapped into ``MK``, at ``ids``: the span from the first block's entry
+    to the last block's end, and each step's time in the median block and
+    in the last block."""
+    from repro_torch.kernels._build import raise_on
+
+    shipped = MK.LIBRARY
+    stamps = np.zeros((1024, 8), np.uint64)
+    MK.LIBRARY = lib
+    try:
+        for _ in range(3):
+            raise_on(lib.get().probe_reset(), "probe_reset")
+            MK.moe_positions_cuda(ids, e)
+            torch.cuda.synchronize()
+        raise_on(lib.get().probe_read(stamps.ctypes.data_as(ctypes.c_void_p)),
+                 "probe_read")
+    finally:
+        MK.LIBRARY = shipped
+    grid = MK.plan_positions(ids.numel(), e, _sm_count())["grid"]
+    st = stamps[:grid, :7].astype(np.float64)
+    steps = np.diff(st, axis=1)
+    names = ("zero", "rank", "count share", "scan", "push to peers + cluster barrier",
+             "sum + write")
+    med = np.median(steps, axis=0)
+    print(f"[probe] moe_positions {tuple(ids.shape)} by step (globaltimer, ns; "
+          f"grid {grid}): first entry to last end {st[:, 6].max() - st[:, 0].min():.0f}, "
+          f"entries spread over {st[:, 0].max() - st[:, 0].min():.0f}; median block: "
+          + ", ".join(f"{n} {v:.0f}" for n, v in zip(names, med))
+          + "; last block: " + ", ".join(f"{n} {v:.0f}" for n, v in zip(names, steps[-1]))
+          + f"  [{gpu}]", flush=True)
+
+
+def fadda_probes(gpu, parent=None):
+    """Measurements behind the redesigned ``fadda`` and ``moe_positions``,
+    apart from the smoke run: the latency of a dependent f32 add (a chain
+    of 2^20, clock64()), the faulty copies of ``FADDA_MUTANTS`` against
+    the cases of ``check_fadda`` (each must fail some), the phase split of
+    the shipped fadda body by clock64() stamps, the price of the
+    moe_positions blocks' redundant counting and a sweep of its rounds per
+    warp at olmoe's prefill.  With ``parent`` (a tree holding the kernels
+    before the redesign, e.g. unpacked by ``git archive``), the same
+    stamps in the old fadda body, and both trees' kernels timed in turns
+    (old, new, new, old) at the smoke run's shapes, with the host's
+    enqueue time per ``moe_positions_cuda`` call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import raise_on
+    from repro_torch.kernels.fadda import kernel as FK
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.kernels.moe_dispatch.ref import moe_positions_ref
+
+    src = FK.SOURCE.read_text()
+    libs = {f"mutant{i}": _probe_library(f"fadda_mutant{i}",
+                                         _replace_once(src, old, new),
+                                         FK.LIBRARY.signatures)
+            for i, (_, old, new) in enumerate(FADDA_MUTANTS)}
+    probe_sig = {"probe_read": [ctypes.c_void_p], "probe_reset": []}
+
+    def stamped(text, which, signatures):
+        for old, new in FADDA_STAMPS[which]:
+            text = _replace_once(text, old, new)
+        text = _replace_once(text, "#include <cstdint>\n",
+                             "#include <cstdint>\n" + PROBE_HEAD) + PROBE_TAIL
+        return _probe_library(f"fadda_stamped_{which}", text,
+                              {**signatures, **probe_sig})
+    libs["stamped_new"] = stamped(src, "new", FK.LIBRARY.signatures)
+    libs["moe_no_prefix"] = _probe_library(
+        "moe_no_prefix", _replace_once(MK.SOURCE.read_text(), *MOE_NO_PREFIX),
+        MK.LIBRARY.signatures)
+    for i, (_, old_text, new_text) in enumerate(MOE_VARIANTS):
+        libs[f"moe_variant{i}"] = _probe_library(
+            f"moe_variant{i}", _replace_once(MK.SOURCE.read_text(), old_text, new_text),
+            MK.LIBRARY.signatures)
+    moe_text = MK.SOURCE.read_text()
+    for a, b in MOE_STAMPS:
+        moe_text = _replace_once(moe_text, a, b)
+    moe_text = _replace_once(moe_text, "namespace {\n", MOE_PROBE_HEAD + "namespace {\n")
+    libs["moe_stamped"] = _probe_library(
+        "moe_stamped", moe_text + PROBE_TAIL,
+        {**MK.LIBRARY.signatures, **probe_sig})
+    libs["cluster_bench"] = _probe_library("cluster_bench", CLUSTER_BENCH, {
+        "cluster_bench": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]})
+    libs["fadd_chain"] = _probe_library("fadd_chain", FADD_CHAIN, {
+        "fadd_chain_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                           ctypes.c_int, ctypes.c_void_p]})
+    old = {}
+    if parent is not None:
+        kdir = Path(parent) / "src" / "repro_torch" / "kernels"
+        old["fadda"] = _load_module(kdir / "fadda" / "kernel.py", "parent_fadda")
+        old["moe"] = _load_module(kdir / "moe_dispatch" / "kernel.py", "parent_moe")
+        libs["stamped_old"] = stamped(old["fadda"].SOURCE.read_text(), "old",
+                                      old["fadda"].LIBRARY.signatures)
+        libs["old_fadda"] = old["fadda"].LIBRARY
+        libs["old_moe"] = old["moe"].LIBRARY
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(), libs.values()))
+    stream = torch.cuda.current_stream().cuda_stream
+    ptxas_report([FK.SOURCE, MK.SOURCE])
+
+    # the latency of one dependent add
+    out = torch.zeros(1, device="cuda")
+    cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
+    iters = 2 ** 20
+    for _ in range(3):
+        raise_on(libs["fadd_chain"].get().fadd_chain_run(
+            out.data_ptr(), cyc.data_ptr(), 1e-7, iters, stream), "fadd_chain")
+    torch.cuda.synchronize()
+    print(f"[probe] dependent add.rn.f32 (__fadd_rn) latency: "
+          f"{cyc.item() / iters:.3f} cycles (clock64() over a chain of 2^20; "
+          f"FADD_CYCLES = {FADD_CYCLES})  [{gpu}]", flush=True)
+
+    cfg = get_config("olmoe_1b_7b")
+    e, k = cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    ids = {name: torch.randint(0, e, (t, k), generator=gen, device="cuda",
+                               dtype=torch.int32)
+           for name, t in (("prefill", 7704), ("decode", 8))}
+    if old:
+        # the old bodies alone, before the new ones run
+        fadda_phase_split(old["fadda"], libs["stamped_old"], gpu, "old")
+        calls = _tree_calls(old, FK, MK, ids, e, k)
+        floor = launch_floor_ms()
+        for name, fns in calls.items():
+            fns["old"]()
+            torch.cuda.synchronize()
+            print(f"[probe] {name}: old body alone {time_ms(fns['old'], 50):.4f} ms; "
+                  f"launch floor {floor:.4f} ms  [{gpu}]", flush=True)
+        dec = calls[f"moe_positions decode (8, {k})"]["old"]
+        print(f"[probe] moe_positions_cuda host enqueue per call at (8, {k}), old "
+              f"body alone: {host_enqueue_us(dec):.2f} us  [{gpu}]", flush=True)
+    check_fadda()
+    check_moe_positions()
+
+    # the faulty copies against check_fadda's cases
+    shipped = FK.LIBRARY
+    try:
+        for i, (what, _, _) in enumerate(FADDA_MUTANTS):
+            FK.LIBRARY = libs[f"mutant{i}"]
+            cases = fadda_cases()
+            failed = [name for name, call in cases if not call()]
+            print(f"[probe] fadda mutant '{what}': fails {len(failed)} of "
+                  f"{len(cases)} cases of check_fadda ({'; '.join(failed)})  "
+                  f"[{gpu}]", flush=True)
+            check(failed, f"the mutant '{what}' passes check_fadda")
+    finally:
+        FK.LIBRARY = shipped
+
+    # where the walker's cycles go
+    fadda_phase_split(FK, libs["stamped_new"], gpu, "new")
+    # moe_positions: the redundant counting, and rounds per warp
+    pre = ids["prefill"]
+    call = lambda: MK.moe_positions_cuda(pre, e)
+    shipped_moe, turns = MK.LIBRARY, []
+    try:
+        for lib in (shipped_moe, libs["moe_no_prefix"], libs["moe_no_prefix"],
+                    shipped_moe):
+            MK.LIBRARY = lib
+            turns.append(time_ms(call, 50))
+    finally:
+        MK.LIBRARY = shipped_moe
+    print(f"[probe] moe_positions prefill (7704, 8): shipped {turns[0]:.4f} / "
+          f"{turns[3]:.4f} ms, without counting the earlier tiles {turns[1]:.4f} "
+          f"/ {turns[2]:.4f} ms (turns): the counting costs "
+          f"{(turns[0] + turns[3] - turns[1] - turns[2]) / 2 * 1e3:.2f} us  "
+          f"[{gpu}]", flush=True)
+    for i, (what, _, _) in enumerate(MOE_VARIANTS):
+        for name, x in ids.items():
+            turns = []
+            try:
+                for lib in (shipped_moe, libs[f"moe_variant{i}"],
+                            libs[f"moe_variant{i}"], shipped_moe):
+                    MK.LIBRARY = lib
+                    want = moe_positions_ref(x, e)
+                    got = MK.moe_positions_cuda(x, e)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"moe variant '{what}' exact")
+                    turns.append(time_ms(lambda: MK.moe_positions_cuda(x, e), 50))
+            finally:
+                MK.LIBRARY = shipped_moe
+            print(f"[probe] moe_positions {name} {tuple(x.shape)}: shipped "
+                  f"{turns[0]:.4f} / {turns[3]:.4f} ms, {what} {turns[1]:.4f} / "
+                  f"{turns[2]:.4f} ms (turns)  [{gpu}]", flush=True)
+    moe_phase_split(MK, libs["moe_stamped"], ids["prefill"], e, gpu)
+    bench = libs["cluster_bench"].get()
+    sink = torch.zeros(64, dtype=torch.int32, device="cuda")
+    per = {k: time_ms(lambda k=k: raise_on(bench.cluster_bench(k, sink.data_ptr(), stream),
+                                           "cluster_bench"), 50) for k in (0, 2, 8)}
+    print(f"[probe] 64 blocks of 1024 threads in clusters of 8: {per[0]:.4f} ms with no "
+          f"cluster barrier, {per[2]:.4f} ms with 2, {per[8]:.4f} ms with 8: "
+          f"{(per[8] - per[0]) / 8 * 1e3:.3f} us a barrier  [{gpu}]", flush=True)
+    sweep, shipped_min = {}, MK.MIN_ROUNDS
+    try:
+        for r in (1, 2, 4):
+            MK.MIN_ROUNDS = r
+            MK.plan_positions.cache_clear()
+            sweep[r] = (time_ms(lambda: MK.moe_positions_cuda(pre, e), 50),
+                        MK.plan_positions(pre.numel(), e, _sm_count())["grid"])
+    finally:
+        MK.MIN_ROUNDS = shipped_min
+        MK.plan_positions.cache_clear()
+    print("[probe] moe_positions prefill (7704, 8) by rounds per warp: "
+          + ", ".join(f"{r}: {ms:.4f} ms (grid {g})" for r, (ms, g) in sweep.items())
+          + f" (shipped: {MK.plan_positions(pre.numel(), e, _sm_count())['rounds']})"
+          f"  [{gpu}]", flush=True)
+
+    if not old:
+        return
+    # both trees' kernels in turns, by the same time_ms
+    floor = launch_floor_ms()
+    calls = _tree_calls(old, FK, MK, ids, e, k)
+    for name, fns in calls.items():
+        for tree in ("old", "new"):
+            fns[tree]()
+        torch.cuda.synchronize()
+        t = [time_ms(fns[tree], 50) for tree in ("old", "new", "new", "old")]
+        print(f"[probe] {name}: old body {t[0]:.4f} / {t[3]:.4f} ms, new body "
+              f"{t[1]:.4f} / {t[2]:.4f} ms (turns); launch floor {floor:.4f} ms"
+              f"  [{gpu}]", flush=True)
+    dec = calls[f"moe_positions decode (8, {k})"]
+    us = [host_enqueue_us(dec[tree]) for tree in ("old", "new", "new", "old")]
+    print(f"[probe] moe_positions_cuda host enqueue per call at (8, {k}): old "
+          f"{us[0]:.2f} / {us[3]:.2f} us, new {us[1]:.2f} / {us[2]:.2f} us "
+          f"(turns; perf_counter over 1,000 calls between two synchronises)  "
+          f"[{gpu}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2176,9 +2805,14 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
         return out
 
+    args = sys.argv[1:]
     phase("build", build_all)
-    if "--ssd-probes" in sys.argv[1:]:
+    if "--ssd-probes" in args:
         phase("ssd probes", ssd_probes, gpu)
+        return 0
+    if "--fadda-probes" in args:
+        parent = args[args.index("--parent") + 1] if "--parent" in args else None
+        phase("fadda probes", fadda_probes, gpu, parent)
         return 0
     phase("check flash", check_kernels, flash_attention)
     phase("check flash quant", check_quant_kernel, flash_attention)
@@ -2194,8 +2828,11 @@ def main() -> int:
     cfg, lens, max_len, _ = served["stablelm_3b"]
     rows = phase("time flash", time_kernels, cfg, lens, max_len, gpu)
     ssd_rows = phase("time ssd", time_ssd, lens, gpu)
-    moe_rows = phase("time moe_positions", time_moe_positions, lens, gpu)
-    fadda_times = phase("time fadda", time_fadda, cfg.padded_vocab, gpu)
+    floor_ms = phase("launch floor", launch_floor_ms)
+    moe_rows = phase("time moe_positions", time_moe_positions, lens, gpu,
+                     floor_ms)
+    fadda_times = phase("time fadda", time_fadda, cfg.padded_vocab, gpu,
+                        floor_ms)
     daxpy_rows = phase("time daxpy", time_daxpy, gpu)
     quick = phase("quickstart", run_quickstart)
 
@@ -2230,6 +2867,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"],
+            **({"launch_floor_ms": row["launch_floor_ms"]}
+               if "launch_floor_ms" in row else {}),
             **({"bodies": bodies[name]} if name in bodies else {})})
     dd = rows["dense_decode"]
     print(f"[time] flash_attention_dense also runs every dense-cache decode "

@@ -80,6 +80,48 @@ def test_moe_positions_wrapper_refuses_cpu_tensors():
         moe_positions(torch.zeros((4, 2), dtype=torch.int32), 4, impl="pallas")
 
 
+def test_moe_positions_ref_matches_pallas_at_olmoe_prefill():
+    """The plain ranks at the served prefill shape, ids (7704, 8) over 64
+    experts with 5% invalid, against the JAX op's Pallas kernel
+    (interpret mode), exactly."""
+    ids = _ids(np.random.RandomState(7704), 7704, 8, 64, invalid=0.05)
+    pos_j, cnt_j = j_moe_positions(jnp.asarray(ids), 64, impl="kernel")
+    pos_t, cnt_t = moe_positions(torch.from_numpy(ids), 64)
+    np.testing.assert_array_equal(np_(pos_t), np_(pos_j))
+    np.testing.assert_array_equal(np_(cnt_t), np_(cnt_j))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 64, 127, 128])
+def test_plan_positions_one_warp_at_decode(n):
+    """Up to the decode tile (128 assignments): one block of one warp,
+    enough rounds of 32 for n."""
+    plan = K.plan_positions(n, 64, 132)
+    assert plan["grid"] == 1 and plan["warps"] == 1
+    assert plan["tile"] >= n and plan["rounds"] <= K.DECODE_ROUNDS
+
+
+@pytest.mark.parametrize("n", [257, 7704 * 8, 20001 * 8])
+def test_plan_positions_one_wave(n):
+    """Past decode, the grid is one wave of the card's 132 SMs, a whole
+    number of clusters whose last holds the last assignment, and the tiles
+    cover n."""
+    plan = K.plan_positions(n, 64, 132)
+    assert 1 <= plan["grid"] <= 132 and plan["grid"] % K.CLUSTER == 0
+    assert plan["tile"] == plan["rounds"] * K.WARP * plan["warps"]
+    assert ((plan["grid"] - K.CLUSTER) * plan["tile"] < n
+            <= plan["grid"] * plan["tile"])
+    assert K.MIN_ROUNDS <= plan["rounds"] <= K.MAX_ROUNDS
+
+
+def test_plan_positions_shared_memory_at_1024_experts():
+    """(warps + 3 + 2 x CLUSTER) x E ints stay under one block's 227 KB at
+    E = 1024."""
+    for n in (64, 7704 * 8, 20001 * 8):
+        plan = K.plan_positions(n, K.MAX_EXPERTS, 132)
+        assert plan["smem_bytes"] <= 4 * (plan["warps"] + 3 + 2 * K.CLUSTER) * K.MAX_EXPERTS
+        assert plan["smem_bytes"] < K.SMEM_CAP
+
+
 @pytest.mark.parametrize("cap", [4, 32])
 def test_build_dispatch_matches_jax(cap):
     """All six tables, exactly; cap 4 drops assignments, and -1 ids never

@@ -131,3 +131,41 @@ def test_ptrue_pfalse():
     assert PT.ptrue(5).tolist() == [True] * 5
     assert PT.pfalse(3).tolist() == [False] * 3
     assert PT.ptrue(2, torch.int32).dtype == torch.int32
+
+
+def test_fadda_rows_scan_bitwise_equals_jax_on_sorted_probabilities():
+    """The top-p scan's shape: (8, 50304) softmax probabilities sorted
+    descending, every partial, on the CPU (the plain loop the kernel is held
+    to on the card) against ``repro.core.reductions.fadda_scan``."""
+    from repro_torch.kernels.fadda import fadda_rows
+
+    rng = np.random.RandomState(18)
+    logits = rng.randn(8, 50304).astype(np.float32) * 3
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    probs = -np.sort(-(p / p.sum(-1, keepdims=True)).astype(np.float32), axis=-1)
+    out, part = fadda_rows(torch.from_numpy(probs), partials=True)
+    want = np_(RJ.fadda_scan(None, jnp.asarray(probs)))
+    np.testing.assert_array_equal(_bits(np_(part)), _bits(want))
+    np.testing.assert_array_equal(_bits(np_(out)), _bits(want[:, -1]))
+
+
+@pytest.mark.parametrize("partials", [False, True])
+def test_fadda_plan_fits_shared_memory(partials):
+    """At every block, the kernel's rings fit in one block's 227 KB, and
+    each ring holds more than the groups of 8 the walker reads or writes
+    ahead beyond the tile in use (else the producer or the store warp could
+    never refill or free one)."""
+    from repro_torch.kernels.fadda import kernel as FK
+
+    for block in range(8, FK.MAX_BLOCK + 1, 8):
+        plan = FK.plan_fadda(block, partials)
+        assert plan["smem_bytes"] < FK.SMEM_CAP
+        assert (plan["stages"] - 1) * (block // 8) >= FK.AHEAD
+        if partials:
+            assert (plan["ctiles"] - 1) * (block // 8) >= FK.AHEAD
+        else:
+            assert plan["ctiles"] == 0
+    widest = FK.plan_fadda(FK.MAX_BLOCK, partials)
+    tiles = widest["stages"] + (2 if partials else 0)
+    assert widest["smem_bytes"] == (4 * FK.MAX_BLOCK * tiles + 4 * widest["ctiles"] * (
+        FK.MAX_BLOCK // 8) + 16 * (widest["stages"] + widest["ctiles"]))
