@@ -39,6 +39,22 @@
    logits equal to the dense cache's at every step (bf16 and f32 weights);
    the mixed batch's greedy lanes against the all-greedy run and its
    stochastic lanes' first tokens against the keep set of the plain path.
+   ``generate`` decodes through one CUDA graph per shape bucket: each run
+   is held bit for bit (tokens, n_generated, active, every cache tensor)
+   against the same ``generate`` through the eager body, with equal launch
+   counts (the graph's counted once per replay), and every lane of both
+   decodes its whole budget in vocab ids; two faulty copies of the body
+   (no carry written back; the merge kept on ``tok`` in a gated step) must
+   fail that check; each graph's nodes hold the port's kernels as their
+   wrappers counted; a graphed generate reads one device value per burst;
+   two buckets share one static carry, a new prompt width evicts the old
+   shapes' graphs, and a returned cache is a copy; and the scheduler's page
+   and lane movers restore pools and resume a spilled lane bit for bit.
+   Each model and cache is timed in turns (eager, graph, graph), with each
+   bucket's capture seconds, graph-pool and static-carry bytes, and 20
+   replayed bursts timed, two of them profiled, beside the eager step of
+   ``profile_decode``.  The moe_positions and fadda checks also run inside
+   a CUDA graph.
 4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
 5. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
@@ -69,6 +85,7 @@ host's enqueue time per ``moe_positions_cuda`` call.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -684,9 +701,10 @@ def moe_case_ids(gen, t, k, e, how):
     return torch.where(odd > 0.97, e + (ids % 7), ids).to(torch.int32).contiguous()
 
 
-def check_moe_positions():
+def check_moe_positions(run=None):
     """The dispatch-rank kernel against ``moe_positions_ref``, exactly, on
-    every case of ``moe_cases``, one launch per call."""
+    every case of ``moe_cases``, one launch per call.  With ``run`` (e.g.
+    ``graphed``) each kernel call goes through it."""
     from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.kernels.moe_dispatch import moe_positions
 
@@ -695,7 +713,8 @@ def check_moe_positions():
     for (t, k, e), how in cases:
         ids = moe_case_ids(gen, t, k, e, how)
         before = MK.moe_positions_cuda.launches
-        got = moe_positions(ids, e, impl="kernel")
+        got = (run or (lambda f: f()))(
+            lambda: moe_positions(ids, e, impl="kernel"))
         want = moe_positions(ids, e, impl="naive")
         torch.cuda.synchronize()
         check(MK.moe_positions_cuda.launches == before + 1,
@@ -705,7 +724,8 @@ def check_moe_positions():
                   f"moe_positions {what} equal to the plain version at "
                   f"T={t} K={k} E={e} ({how} ids)")
     print(f"[kernels] moe_positions checked against moe_positions_ref "
-          f"(exact): {len(cases)} cases, (T, K, E) in "
+          f"(exact){' inside a CUDA graph' if run else ''}: {len(cases)} "
+          f"cases, (T, K, E) in "
           f"{[c for c, _ in cases]}, ids mixed / all one expert / all "
           f"invalid", flush=True)
 
@@ -724,9 +744,26 @@ def sorted_probs(gen, rows, v):
                       descending=True).values.contiguous()
 
 
-def fadda_cases():
+_PLAIN_SCANS: dict = {}
+
+
+def plain_scan(x, n, init):
+    """``fadda_scan_plain`` (a host loop over the columns, seconds at V =
+    50304), each result kept by its inputs' bytes, so that ``check_fadda``
+    inside a graph holds the kernel to the same plain results without
+    computing them again."""
+    from repro_torch.kernels.fadda.ref import fadda_scan_plain
+
+    key = tuple((tuple(t.shape), str(t.dtype), t.cpu().numpy().tobytes())
+                if torch.is_tensor(t) else repr(t) for t in (x, n, init))
+    if key not in _PLAIN_SCANS:
+        _PLAIN_SCANS[key] = fadda_scan_plain(x, n, init)
+    return _PLAIN_SCANS[key]
+
+
+def fadda_cases(run=None):
     """The cases of ``check_fadda``: (name, call) pairs, each call True when
-    the kernel's bits equal the plain loop's (``fadda_scan_plain``) and, for
+    the kernel's bits equal the plain loop's (``plain_scan``) and, for
     the op, the numpy scalar loop's.  Op cases: n not a multiple of the
     block, n past the length, blocks 8 to 8192, rows that start 4, 8 and 12
     bytes off a 16-byte boundary; the adversarial sequence of §2.4 at blocks
@@ -736,17 +773,19 @@ def fadda_cases():
     8192, with ragged n, per-row init and n past V; rows of V = 1001 (V % 4
     != 0: every row starts elsewhere modulo 16 bytes) with partials; and
     rows whose base is 4, 8 and 12 bytes off a 16-byte boundary, with
-    partials (x and the partials then disagree modulo 16 bytes)."""
+    partials (x and the partials then disagree modulo 16 bytes).  With
+    ``run`` (e.g. ``graphed``) each kernel call goes through it."""
     from repro_torch.core.reductions import pairwise_sum
     from repro_torch.kernels.fadda import fadda, fadda_rows
-    from repro_torch.kernels.fadda.ref import fadda_ref, fadda_scan_plain
+    from repro_torch.kernels.fadda.ref import fadda_ref
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     cases = []
+    run = run or (lambda f: f())
 
     def op(xv, n, block):
-        got = fadda(xv, n, block=block)
-        want = fadda_scan_plain(xv[None], n, 0.0)[0, -1]
+        got = run(lambda: fadda(xv, n, block=block))
+        want = plain_scan(xv[None], n, 0.0)[0, -1]
         ref = fadda_ref(xv.cpu().numpy(), n)
         return (_same_bits(got, want) and
                 np.float32(got.item()).tobytes() == ref.tobytes())
@@ -754,8 +793,9 @@ def fadda_cases():
     def rows(x, n, init, block):
         n = x.shape[1] if n is None else n
         init = 0.0 if init is None else init
-        out, part = fadda_rows(x, n, init, partials=True, block=block)
-        want = fadda_scan_plain(x, n, init)
+        out, part = run(lambda: fadda_rows(x, n, init, partials=True,
+                                           block=block))
+        want = plain_scan(x, n, init)
         return _same_bits(part, want) and _same_bits(out, want[:, -1])
 
     for length, n, block in ((600, 600, 128), (600, 421, 128), (1024, 1024, 512),
@@ -772,26 +812,27 @@ def fadda_cases():
           "the adversarial sum differs from the tree sum")
     for block in (128, 512):
         cases.append((f"adversarial at block {block}", lambda b=block: np.float32(
-            fadda(adv, block=b).item()).tobytes() == want_adv.tobytes()))
+            run(lambda: fadda(adv, block=b)).item()).tobytes() == want_adv.tobytes()))
 
     def zero_n():
         x = torch.randn(2, 16, generator=gen, device="cuda")
-        out, part = fadda_rows(x, n=0, init=-0.0, partials=True)
-        want = fadda_scan_plain(x, 0, -0.0)
+        out, part = run(lambda: fadda_rows(x, n=0, init=-0.0, partials=True))
+        want = plain_scan(x, 0, -0.0)
         return (_same_bits(part, want) and _same_bits(out, want[:, -1])
                 and not torch.signbit(out).any())
 
     def neg_zero_row():
         x = torch.full((3, 40), -0.0, device="cuda")
         n = torch.tensor([40, 17, 0], dtype=torch.int32, device="cuda")
-        out, part = fadda_rows(x, n, init=-0.0, partials=True, block=16)
-        want = fadda_scan_plain(x, n, -0.0)
+        out, part = run(lambda: fadda_rows(x, n, init=-0.0, partials=True,
+                                           block=16))
+        want = plain_scan(x, n, -0.0)
         return (_same_bits(part, want) and _same_bits(out, want[:, -1])
                 and torch.signbit(out).tolist() == [True, False, False])
 
     def empty_row():
-        out, _ = fadda_rows(torch.empty(1, 0, device="cuda"), n=0, init=-0.0,
-                            partials=True)
+        out, _ = run(lambda: fadda_rows(torch.empty(1, 0, device="cuda"), n=0,
+                                        init=-0.0, partials=True))
         return bool(torch.signbit(out).all())
     cases += [("init -0.0, n = 0: every masked lane adds +0.0", zero_n),
               ("rows of -0.0 from -0.0, n = V, V - 23, 0", neg_zero_row),
@@ -820,15 +861,16 @@ def fadda_cases():
     return cases
 
 
-def check_fadda():
+def check_fadda(run=None):
     """The ordered kernel against the plain loop, bit for bit, on every
-    case of ``fadda_cases``."""
-    cases = fadda_cases()
+    case of ``fadda_cases`` (each kernel call through ``run`` when given)."""
+    cases = fadda_cases(run)
     for name, call in cases:
         ok = call()
         torch.cuda.synchronize()
         check(ok, f"fadda {name} equal to the plain loop")
-    print(f"[kernels] fadda checked against the plain loop, bit for bit: "
+    print(f"[kernels] fadda checked against the plain loop, bit for bit"
+          f"{' inside a CUDA graph' if run else ''}: "
           f"{len(cases)} cases (op with n past the length and rows 4, 8, 12 "
           f"bytes off 16, blocks 8 to 8192; the adversarial sequence; -0.0; "
           f"the (8, 50304) probability scan at blocks 128, 512 and 8192, "
@@ -1622,14 +1664,455 @@ def _want_bodies(cfg, page_size, page_dtype, steps):
     return want
 
 
+def engine_classes():
+    """``ServeEngine`` and three subclasses for the checks (the engine has no
+    switch of its own): ``Eager`` decodes through the eager burst, the body
+    the graph captures, run as it is; ``NoWriteBack`` is a faulty graph body
+    that copies no carry back, so every replay restarts from the first
+    one's inputs; ``KeepMerge`` a faulty gated step that keeps the merge on
+    ``tok``, so a step that is not live turns each lane's last token into
+    the stop token."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import _unflatten
+
+    class Eager(ServeEngine):
+        def _decode_chunk(self, *args, **kw):
+            with torch.inference_mode():
+                return self._burst(*args, **kw)
+
+    class NoWriteBack(ServeEngine):
+        def _graph_body(self, static, kw):
+            cache, out_buf, tok, p, n_gen, sstate, _ = _unflatten(static)
+            self._burst(cache, out_buf, tok, p, n_gen, static["lane_budget"],
+                        sstate, **kw)
+
+    class KeepMerge(ServeEngine):
+        def _step(self, *args, **kw):
+            *carry, live = super()._step(*args, **kw)
+            # a live step's tok is its merged token; a gated step's merged
+            # token is the stop token on every lane
+            carry[2] = torch.where(live, carry[2],
+                                   torch.full_like(carry[2], self.stop_token))
+            return (*carry, live)
+    return ServeEngine, Eager, NoWriteBack, KeepMerge
+
+
+def bursts(steps: int) -> int:
+    """The bursts ``generate`` runs for ``steps`` live decode steps."""
+    from repro_torch.serve.engine import BURST
+    return -(-steps // BURST)
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def graph_differs(a, b) -> list:
+    """What two ``generate`` results disagree on, bit for bit: tokens,
+    n_generated, active, and every tensor of the cache (the final pos, and
+    the K/V below pos and past it)."""
+    bad = [k for k in ("tokens", "n_generated", "active")
+           if not torch.equal(a[k], b[k])]
+    for k, t in a["cache"].items():
+        u = b["cache"][k]
+        if t.shape != u.shape or not torch.equal(_bits(t), _bits(u)):
+            bad.append(f"cache[{k!r}]")
+    return bad
+
+
+def timed(fn, *args, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def served(cfg, eng, batch, name, **gen_kw):
+    """One ``generate`` with every kernel's launches counted (across the
+    graphs' replays): its result, timed, with the launches per kernel and
+    per body.  Every lane must decode its whole budget (the stop token is
+    -1) into token ids of the vocab (held)."""
+    reset_counts()
+    res, secs = timed(eng.generate, batch, **gen_kw)
+    counts, bodies = read_counts(), read_bodies()
+    n_gen = res["n_generated"].cpu().numpy()
+    toks = res["tokens"].cpu().numpy()
+    check((n_gen == MAX_NEW).all(), f"{cfg.name} {name}: n_generated {n_gen}")
+    check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
+          f"{cfg.name} {name}: token ids in the vocab")
+    return res, secs, counts, bodies
+
+
+def served_graphed(cfg, eng, eager, batch, name, gen_kw, turns=True) -> dict:
+    """One ``generate`` through the graphs (its first burst captures the
+    bucket), the same through the eager body, each held to its whole budget
+    in vocab ids (``served``), and the two held equal bit for bit
+    (``graph_differs``) with equal launch counts; then, with ``turns``, the
+    graphs timed twice more (turns eager, graph, graph: the eager run is
+    the one held)."""
+    res, first_s, counts, bodies = served(cfg, eng, batch, name, **gen_kw)
+    res_e, eager_s, counts_e, bodies_e = served(cfg, eager, batch,
+                                                f"{name} eager", **gen_kw)
+    check(counts_e == counts and bodies_e == bodies,
+          f"{cfg.name} {name}: the eager body's launches {counts_e} equal "
+          f"the graph's counted across replays {counts}")
+    bad = graph_differs(res, res_e)
+    check(not bad, f"{cfg.name} {name}: graphed generate differs from the "
+          f"eager body in {bad}")
+    del res_e
+    times = [eager_s] + [timed(eng.generate, batch, **gen_kw)[1]
+                         for _ in range(2 if turns else 1)]
+    graphs = list(eng.graphs.values())
+    check(len(graphs) == 1, f"{cfg.name} {name}: one bucket, {len(graphs)} graphs")
+    print(f"[graph] {cfg.name} {name}: graphed generate equals the eager body "
+          f"bit for bit (tokens, n_generated, active, every cache tensor: held), "
+          f"launches equal (held), every lane its {MAX_NEW} tokens in the vocab "
+          f"(held, both); first generate {first_s:.2f} s with the capture",
+          flush=True)
+    return dict(tokens=res["tokens"].cpu().numpy(), cache=res["cache"],
+                counts=counts, bodies=bodies, engine=eng, gen_kw=gen_kw,
+                total_s=statistics.mean(times[1:]), eager_s=eager_s,
+                turns=times, order="e, g, g" if turns else "e, g",
+                capture_s=graphs[0].capture_s, pool_bytes=graphs[0].pool_bytes,
+                carry_bytes=eng.carry_bytes,
+                n_generated=res["n_generated"].cpu().numpy())
+
+
+def check_buckets(cfg, runs, batch, specs):
+    """The graphs' buckets on the card, stablelm-3b dense: the all-greedy
+    run's engine serves the mixed batch (the same carry shapes, a second
+    bucket: two graphs over one shared carry) with the tokens of the mixed
+    run on its own engine, and the cache the first run returned is not
+    overwritten (generate returns a copy of the carry); then a batch padded
+    to a wider prompt (new carry shapes) captures anew and evicts the old
+    shapes' graphs and carry (held)."""
+    eng = runs["dense"]["engine"]
+    kept = {k: v.clone() for k, v in runs["dense"]["cache"].items()}
+    res = served(cfg, eng, batch, "mixed on the greedy run's engine",
+                 sampling=specs)[0]
+    graphs = list(eng.graphs.values())
+    check(len(graphs) == 2 and graphs[0].static is graphs[1].static,
+          f"{cfg.name}: two buckets over one carry, {len(graphs)} graphs")
+    check(np.array_equal(res["tokens"].cpu().numpy(), runs["mixed"]["tokens"]),
+          f"{cfg.name}: the mixed batch on the greedy run's engine differs "
+          f"from the mixed run")
+    same = all(torch.equal(_bits(kept[k]), _bits(v))
+               for k, v in runs["dense"]["cache"].items())
+    check(same, f"{cfg.name}: a later generate overwrote a returned cache")
+    del res, kept
+    carry = eng.carry_bytes
+    wide = dict(batch, tokens=torch.nn.functional.pad(batch["tokens"], (0, 8),
+                                                      value=1))
+    res, secs, _, _ = served(cfg, eng, wide, "prompts padded by 8")
+    graphs = list(eng.graphs.values())
+    check(len(graphs) == 1 and graphs[0].kw["stochastic"] is False,
+          f"{cfg.name}: the wider batch's graphs {[g.kw for g in graphs]}")
+    g = graphs[0]
+    same = np.array_equal(res["tokens"].cpu().numpy(), runs["dense"]["tokens"])
+    print(f"[graph] {cfg.name} buckets: the mixed batch on the all-greedy run's "
+          f"engine shares its carry ({carry / 2**20:.1f} MiB) in a second "
+          f"graph and equals the mixed run's tokens, and the first run's "
+          f"returned cache is intact (held); prompts padded by 8 columns: a new "
+          f"carry ({eng.carry_bytes / 2**20:.1f} MiB), the old shapes' two graphs "
+          f"evicted (held), generate {secs:.2f} s with the capture "
+          f"({g.capture_s:.2f} s), tokens equal to the unpadded run: {same} "
+          f"(reported)", flush=True)
+    del res
+
+
+def faulty_copies(cfg, model, batch, dense_run):
+    """Two faulty copies of the graph body must fail ``graph_differs``
+    against the eager body's result: one that copies no carry back, and one
+    whose gated step keeps the merge on ``tok`` (the last of 8 bursts has
+    one gated step: the lanes that ran out of budget read inactive)."""
+    _, Eager, NoWriteBack, KeepMerge = engine_classes()
+    kw = dict(max_new_tokens=MAX_NEW, stop_token=-1)
+    want = Eager(cfg, model, **kw).generate(batch)
+    for cls, must in ((NoWriteBack, "tokens"), (KeepMerge, "active")):
+        got = cls(cfg, model, **kw).generate(batch)
+        bad = graph_differs(got, want)
+        check(must in bad, f"{cfg.name}: the faulty copy {cls.__name__} passed "
+              f"the graphed == eager check (differs in {bad})")
+        print(f"[graph] {cfg.name} faulty copy {cls.__name__}: differs from the "
+              f"eager body in {bad} (the check fails it, as it must)", flush=True)
+        del got
+
+
+def host_waits(cfg, eng, batch, gpu):
+    """Host calls that wait for the device in one graphed ``generate``
+    (torch.profiler): one read of a device value per burst (the loop's stop
+    check), one for the all-greedy check, and one graph launch per burst
+    (held)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.generate(batch)
+        torch.cuda.synchronize()
+    waits = collections.Counter(
+        (e.name, e.cpu_parent.name if e.cpu_parent else None)
+        for e in prof.events() if e.device_type == DeviceType.CPU
+        and ("Synchronize" in e.name or e.name == "cudaMemcpy"))
+    replays = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+                  and e.name == "cudaGraphLaunch")
+    n = bursts(MAX_NEW - 1)
+    reads = waits[("cudaStreamSynchronize", "aten::_local_scalar_dense")]
+    check(replays == n and reads == n + 1, f"{cfg.name}: {replays} replays and "
+          f"{reads} reads of a device value in a generate of {n} bursts")
+    print(f"[graph] {cfg.name} host waits in one graphed generate of {n} "
+          f"bursts: {sum(waits.values())} (by call and caller: {dict(waits)}): "
+          f"{reads} reads of a device value, one stop check per burst and the "
+          f"greedy check (held), the lane state's host-to-device copies and "
+          f"the synchronizes around the run; {replays} graph launches  [{gpu}]",
+          flush=True)
+
+
+@torch.inference_mode()
+def check_movers(cfg, runs, batch):
+    """The scheduler's movers on the card, stablelm-3b: ``_gather_blocks``
+    then ``_scatter_blocks`` over clobbered pages restores every pool and
+    scale pool bit for bit (bf16, int8, fp8 pages); spill, clobber, a burst
+    with the lane out, page-in and resume equals the uninterrupted graphed
+    run bit for bit (tokens and n_generated of every lane, paged bf16)."""
+    from repro_torch.serve.engine import BURST
+
+    for name in ("paged", "int8", "fp8"):
+        eng, cache = runs[name]["engine"], runs[name]["cache"]
+        pids = torch.cat([cache["page_table"][1], cache["page_table"][5]])
+        blocks = eng._gather_blocks(cache, pids)
+        before = {k: v.clone() for k, v in blocks.items()}
+        saved = {k: cache[k].clone() for k in blocks}
+        for k in blocks:                        # clobber those pages
+            cache[k].view(torch.uint8)[:, pids.long()] = 0x5A
+        eng._scatter_blocks(cache, pids, blocks)
+        same = all(torch.equal(_bits(cache[k]), _bits(saved[k])) and
+                   torch.equal(_bits(blocks[k]), _bits(before[k])) for k in blocks)
+        check(same, f"{cfg.name} {name}: gather, clobber, scatter restores the pools")
+        del saved, before, blocks
+    eng = runs["paged"]["engine"]
+    cache, out, tok, p, n_gen, budget, s, stoch = eng._start(
+        batch, page_size=PAGE_SIZE)
+    burst = lambda c, o, t, p, n, s: eng._decode_chunk(
+        c, o, t, p, n, budget, s, n_steps=BURST, stochastic=stoch)[:6]
+    from repro_torch.serve.engine import BURST
+    c, o, t, p, n, s = burst(cache, out, tok, p, n_gen, s)
+    lane = 3
+    dense, row, srow = eng._spill_lane(c, o, t, n, budget, s, lane)
+    table = c["page_table"][lane].clone()
+    blocks = eng._gather_blocks(c, table)
+    blocks = {k: v.clone() for k, v in blocks.items()}
+    for k in blocks:                            # clobber the lane's pages
+        c[k][:, table.long()] = 0
+    p = p.clone()
+    p[lane] = False
+    c, o, t, p, n, s = burst(c, o, t, p, n, s)
+    eng._scatter_blocks(c, table, blocks)
+    c, o, t, p, n, budget, s = eng._resume_lane(c, o, t, p, n, budget, s, lane,
+                                                dense, row, srow, table)
+    extra = 0
+    while bool(p.any()):
+        c, o, t, p, n, s = burst(c, o, t, p, n, s)
+        extra += 1
+    same = (np.array_equal(o.cpu().numpy(), runs["paged"]["tokens"]) and
+            np.array_equal(n.cpu().numpy(), runs["paged"]["n_generated"]))
+    check(same, f"{cfg.name} paged: spill, clobber, resume equals the "
+          f"uninterrupted run")
+    print(f"[graph] {cfg.name} movers: gather, clobber, scatter restores the "
+          f"bf16, int8 and fp8 pools bit for bit (held); lane {lane} spilled "
+          f"after one burst, its {table.numel()} pages clobbered, a burst "
+          f"without it, paged back in and resumed ({2 + extra} bursts in all): "
+          f"every lane's tokens and n_generated equal the uninterrupted run's "
+          f"(held)", flush=True)
+
+
+def profile_burst(cfg, name, eng, batch, gen_kw, gpu, reps: int = 20,
+                  window: int = 2):
+    """Replayed bursts of ``eng``'s graph (from the state after one burst of
+    a fresh ``generate``): the wall per step on the host clock over ``reps``
+    replays in a row; the device's busy time per step (the union of its
+    kernels, and of all its events) over a profiled window of ``window``
+    replays, and the idle share, one minus busy over wall, as
+    ``profile_decode`` reads it (that method's eager step gives the eager
+    side).  The graph's nodes (libcuda)
+    hold each of the port's kernels as often as its wrapper counted at
+    capture (held: the libraries' launches, made through their own CUDA
+    runtime, land in the capture); the kernels the profiler sees per
+    replay against the graph's kernel nodes (reported: the profiler can
+    miss events of a large burst)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import BURST
+
+    state = eng._start(batch, **gen_kw)
+    kw = dict(n_steps=BURST, stochastic=state[7], width=None)
+    # one burst, every lane live (it captures anew if the engine's carry
+    # has other shapes by now)
+    eng._decode_chunk(*state[:7], **kw)
+    (g,) = [g for g in eng.graphs.values() if g.kw == kw]
+    del state
+    n = BURST
+    g.graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        g.graph.replay()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps / n
+    # device events only: the host's ops would cost the profiler minutes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(window):
+            g.graph.replay()
+        torch.cuda.synchronize()
+        wall_window = (time.perf_counter() - t0) * 1e3 / window / n
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        print(f"[profile] {cfg.name} {name} burst: wall {wall:.2f} ms/step "
+              f"replayed; device time not measured (the profiler saw no "
+              f"device events)  [{gpu}]", flush=True)
+        return
+    # copies and sets: the runtime's, and the kernels CUDA runs for a
+    # graph's memcpy nodes (``memcpy32_post``)
+    kern = [e for e in dev
+            if not e.name.lower().startswith(("memcpy", "memset"))]
+    busy = busy_ms(kern) / window / n
+    busy_all = busy_ms(dev) / window / n
+    # the port's libraries launch through their own CUDA runtime: every
+    # launch the wrappers counted at capture is a node of the graph
+    nodes = graph_nodes(g.graph)
+    want = collections.Counter()
+    for fn, (calls, by_body) in g.counts.items():
+        name_ = fn.__name__
+        if name_.startswith("flash"):
+            want["flash_split"] += by_body.get("split_kv", 0)
+            want["flash_split_merge"] += by_body.get("split_kv", 0)
+            want["flash_dense_tc"] += by_body.get("tensor_core", 0)
+            want["flash_fwd"] += by_body.get("cuda_core", 0)
+        elif calls:
+            want[{"moe_positions_cuda": "moe_positions_kernel",
+                  "fadda_rows_cuda": "fadda_rows_kernel"}[name_]] += calls
+    got = {k: nodes[k] for k in PORT_KERNELS if nodes[k] or want[k]}
+    check(got == {k: want[k] for k in got}, f"{cfg.name} {name}: the graph's "
+          f"nodes of the port's kernels {got}, its wrappers counted {dict(want)}")
+    kernel_nodes = sum(v for k, v in nodes.items() if k not in ("memcpy", "memset"))
+    seen = len(kern) / window
+    print(f"[profile] {cfg.name} {name} burst of {n}: replayed {wall:.2f} ms/step "
+          f"wall (mean of {reps} replays in a row; {wall_window:.2f} in the "
+          f"profiled window of {window}), device {busy:.2f} ms/step busy in "
+          f"kernels ({busy_all:.2f} with the copies and sets), idle "
+          f"{1 - busy / wall:.1%} ({1 - busy_all / wall:.1%}) against the "
+          f"{reps}-replay wall; "
+          f"{seen / n:.3f} kernels + {(len(dev) / window - seen) / n:.3f} "
+          f"copies/sets per step seen by the profiler, against the graph's "
+          f"{kernel_nodes / n:.3f} kernel nodes per step ({seen - kernel_nodes:+.1f} "
+          f"per replay, reported); the graph's nodes {dict(nodes)}, the port's "
+          f"kernels among them as its wrappers counted at capture (held)  "
+          f"[{gpu}]", flush=True)
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of libcuda."""
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz", "smem")] + [
+        ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+# the port's kernels, by a part of their (mangled) names, in the order they
+# are matched: the merge before the split body it contains
+PORT_KERNELS = ("flash_split_merge", "flash_split", "flash_dense_tc",
+                "flash_fwd", "ssd_tc", "ssd_fwd", "moe_positions_kernel",
+                "fadda_rows_kernel", "daxpy")
+
+
+def graph_nodes(graph) -> collections.Counter:
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` (kept with
+    ``keep_graph=True``), read through libcuda: copies and sets by
+    type, kernels of the port's libraries by ``PORT_KERNELS`` name, and
+    every other kernel as ``"other kernel"``."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.cuGraphKernelNodeGetParams_v2.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(_KernelNodeParams)]
+    for fn in (lib.cuFuncGetName, lib.cuKernelGetName):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(lib.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    out, kind = collections.Counter(), ctypes.c_int()
+    for node in nodes:
+        check(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+              == 0, "cuGraphNodeGetType")
+        if kind.value != 0:                      # CU_GRAPH_NODE_TYPE_KERNEL
+            out[{1: "memcpy", 2: "memset"}.get(kind.value, f"type {kind.value}")] += 1
+            continue
+        prm, name = _KernelNodeParams(), ctypes.c_char_p()
+        check(lib.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                ctypes.byref(prm)) == 0,
+              "cuGraphKernelNodeGetParams")
+        err = (lib.cuFuncGetName(ctypes.byref(name), prm.func) if prm.func
+               else lib.cuKernelGetName(ctypes.byref(name), prm.kern))
+        check(err == 0, "cuFuncGetName / cuKernelGetName")
+        text = name.value.decode()
+        out[next((k for k in PORT_KERNELS if k in text), "other kernel")] += 1
+    return out
+
+
+def busy_ms(events) -> float:
+    """The device's busy time over profiler ``events``: the union of their
+    intervals (kernels of a graph may overlap), in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def graphed(fn):
+    """``fn()`` captured in a CUDA graph (after a warm-up call on the side
+    stream, not counted) and replayed once; its launches counted once, as a
+    replay.  Returns what the capture returned, filled by the replay."""
+    from repro_torch import kernels as KN
+
+    before = KN.read_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    KN.set_counts(before)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    delta = KN.counts_since(before)
+    KN.set_counts(before)
+    graph.replay()
+    KN.add_counts(delta)
+    torch.cuda.synchronize()
+    return out
+
+
 def serve_model(arch, gpu):
     """One model at its published widths through ``ServeEngine.generate``:
-    8 prompts, 64 new tokens each, with each cache of ``RUNS[arch]``; every
-    kernel's launches counted in each run."""
+    8 prompts, 64 new tokens each, with each cache of ``RUNS[arch]``, graphed
+    and held against the eager body (``served_graphed``); every kernel's
+    launches counted in each run."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model, paged_view, to_paged
     from repro_torch.sample import greedy_tokens
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import BURST
 
     cfg = get_config(arch)
     fam = get_model(cfg)
@@ -1662,70 +2145,64 @@ def serve_model(arch, gpu):
 
     runs = {}
     steps = MAX_NEW - 1
+    # the steps each generate runs: whole bursts, the last one's tail gated
+    slots = bursts(steps) * BURST
+    Engine, Eager, *_ = engine_classes()
     for name, page_size, page_dtype in RUNS[arch]:
         # stop token -1: argmax never emits it, so every lane decodes its budget
-        eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=-1,
-                          page_dtype=page_dtype)
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = eng.generate(batch, page_size=page_size)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-        counts = read_counts()
-        n_gen = res["n_generated"].cpu().numpy()
-        toks = res["tokens"].cpu().numpy()
-        check((n_gen == MAX_NEW).all(), f"n_generated {n_gen}")
-        check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token ids in the vocab")
-        want = _want_launches(cfg, page_size, page_dtype, steps)
-        check(counts == want, f"{arch} {name} launches {counts}, expected {want}")
-        bodies = read_bodies()
-        want = _want_bodies(cfg, page_size, page_dtype, steps)
-        check(bodies == want, f"{arch} {name} bodies {bodies}, expected {want}")
-        runs[name] = dict(tokens=toks, total_s=total, counts=counts,
-                          bodies=bodies, cache=res["cache"])
+        kw = dict(max_new_tokens=MAX_NEW, stop_token=-1, page_dtype=page_dtype)
+        eng, eager = Engine(cfg, model, **kw), Eager(cfg, model, **kw)
+        run = served_graphed(cfg, eng, eager, batch, name,
+                             dict(page_size=page_size))
+        want = _want_launches(cfg, page_size, page_dtype, slots)
+        check(run["counts"] == want,
+              f"{arch} {name} launches {run['counts']}, expected {want}")
+        want = _want_bodies(cfg, page_size, page_dtype, slots)
+        check(run["bodies"] == want,
+              f"{arch} {name} bodies {run['bodies']}, expected {want}")
+        runs[name] = run
         print(f"[full] {cfg.name} generate {name}: launches "
-              f"{ {k: v for k, v in counts.items() if v} }, bodies "
-              f"{ _nonzero(bodies) } (as expected)", flush=True)
+              f"{ {k: v for k, v in run['counts'].items() if v} }, bodies "
+              f"{ _nonzero(run['bodies']) } (as expected, counted across "
+              f"replays; the eager body's the same)", flush=True)
 
     # one mixed batch on the dense cache: lanes 0-3 greedy, 4-7 stochastic
-    # (stablelm twice: a seeded batch must repeat its tokens)
+    # (stablelm twice, the second on a fresh engine: a seeded batch must
+    # repeat its tokens)
     specs = mixed_specs()
-    for name in ("mixed", "mixed again")[:2 if cfg.family == "dense" else 1]:
-        eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=-1)
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = eng.generate(batch, sampling=specs)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-        counts = read_counts()
-        n_gen = res["n_generated"].cpu().numpy()
-        toks = res["tokens"].cpu().numpy()
-        check((n_gen == MAX_NEW).all(), f"n_generated {n_gen}")
-        check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token ids in the vocab")
-        want = _want_launches(cfg, None, None, steps, stochastic=True)
+    kw = dict(max_new_tokens=MAX_NEW, stop_token=-1)
+    eng, eager = Engine(cfg, model, **kw), Eager(cfg, model, **kw)
+    run = served_graphed(cfg, eng, eager, batch, "mixed",
+                         dict(sampling=specs), turns=False)
+    runs["mixed"] = run
+    mixed = [("mixed", run["counts"], run["bodies"], run["tokens"])]
+    if cfg.family == "dense":
+        res, _, counts, bodies = served(cfg, Engine(cfg, model, **kw), batch,
+                                        "mixed again", sampling=specs)
+        mixed.append(("mixed again", counts, bodies,
+                      res["tokens"].cpu().numpy()))
+        del res
+    for name, counts, bodies, toks in mixed:
+        want = _want_launches(cfg, None, None, slots, stochastic=True)
         check(counts == want, f"{arch} {name} launches {counts}, expected {want}")
-        bodies = read_bodies()
-        check(bodies == _want_bodies(cfg, None, None, steps),
+        check(bodies == _want_bodies(cfg, None, None, slots),
               f"{arch} {name} bodies {bodies}")
         check((toks[:4] == runs["dense"]["tokens"][:4]).all(),
               f"{cfg.name} {name}: greedy lanes equal the all-greedy run")
-        runs[name] = dict(tokens=toks, total_s=total, counts=counts,
-                          bodies=bodies)
-        if name == "mixed":
-            runs[name]["cache"] = res["cache"]
-        del res
         print(f"[full] {cfg.name} generate {name} (lanes 0-3 greedy, 4-7 "
               f"stochastic): launches { {k: v for k, v in counts.items() if v} } "
               f"on the tensor-core and split-KV bodies (as expected); greedy "
-              f"lanes equal the all-greedy run (held)",
-              flush=True)
-    if "mixed again" in runs:
-        check((runs["mixed"]["tokens"] == runs["mixed again"]["tokens"]).all(),
+              f"lanes equal the all-greedy run (held)", flush=True)
+    if len(mixed) == 2:
+        check((mixed[0][3] == mixed[1][3]).all(),
               f"{cfg.name}: the seeded mixed batch repeats its tokens")
-        print(f"[full] {cfg.name} mixed batch run twice: identical tokens (held)",
-              flush=True)
+        print(f"[full] {cfg.name} mixed batch run twice, the second on a fresh "
+              f"engine: identical tokens (held)", flush=True)
+    if cfg.family == "dense":
+        faulty_copies(cfg, model, batch, runs["dense"])
+        host_waits(cfg, runs["dense"]["engine"], batch, gpu)
+        check_movers(cfg, runs, batch)
+        check_buckets(cfg, runs, batch, specs)
     first_token_keep_set(fam, model, cfg, batch, eng.make_cache(N_REQ, max_len),
                          runs["mixed"]["tokens"][:, 0], gpu)
 
@@ -1757,11 +2234,17 @@ def serve_model(arch, gpu):
         decode_ms = (r["total_s"] - prefill_s) * 1e3 / steps
         r.update(prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_ms,
                  tokens_per_s=N_REQ * MAX_NEW / r["total_s"])
+        eager_ms = (r["eager_s"] - prefill_s) * 1e3 / steps
+        turns = " / ".join(f"{t * 1e3:.1f}" for t in r["turns"])
         print(f"[full] {cfg.name} {name}: generate {r['total_s'] * 1e3:.1f} ms "
-              f"for {N_REQ}x{MAX_NEW} tokens, prompts {lens.min()}-{lens.max()}: "
-              f"prefill {r['prefill_ms']:.1f} ms (timed alone), decode "
-              f"{decode_ms:.2f} ms/step, {r['tokens_per_s']:.1f} tokens/s  "
-              f"[{gpu}]", flush=True)
+              f"graphed, {r['eager_s'] * 1e3:.1f} ms eager, for {N_REQ}x{MAX_NEW} "
+              f"tokens, prompts {lens.min()}-{lens.max()} (turns {r['order']}: "
+              f"{turns} ms): prefill {r['prefill_ms']:.1f} ms (timed alone), "
+              f"decode {decode_ms:.2f} ms/step graphed, {eager_ms:.2f} eager, "
+              f"{r['tokens_per_s']:.1f} tokens/s graphed; capture "
+              f"{r['capture_s']:.3f} s, graph pool {r['pool_bytes'] / 2**20:.1f} "
+              f"MiB, static carry {r['carry_bytes'] / 2**20:.1f} MiB  [{gpu}]",
+              flush=True)
     if pages:
         # dense and paged decode run one split-KV body over the same keys:
         # the same logits bit for bit, so the same greedy tokens
@@ -1779,9 +2262,9 @@ def serve_model(arch, gpu):
           f"all greedy {greedy_ms:.2f} ms ({mixed_ms - greedy_ms:+.2f} ms for "
           f"sampling)  [{gpu}]", flush=True)
     for name, r in runs.items():
-        if "cache" in r:
-            profile_decode(model, cfg, name, r.pop("cache"), r["tokens"][:, -1], gpu,
-                           sampling=specs if name == "mixed" else None)
+        profile_decode(model, cfg, name, r.pop("cache"), r["tokens"][:, -1], gpu,
+                       sampling=specs if name == "mixed" else None)
+        profile_burst(cfg, name, r.pop("engine"), batch, r.pop("gen_kw"), gpu)
     profile_sampler(cfg, gpu)
 
     # first decode step: kernel path vs plain path, dense vs paged cache, and
@@ -1839,7 +2322,7 @@ def serve_model(arch, gpu):
             forced["bf16 weights"] = teacher_forced(
                 fam, model, cfg, batch, max_len, runs["dense"]["tokens"], pages,
                 quant)
-        del model, eng, eng_warm
+        del model, eng, eager, eng_warm
         torch.cuda.empty_cache()
         cfg32 = cfg.replace(compute_dtype="float32")
         model32 = fam.init(cfg32, seed0(), "cuda")
@@ -2821,6 +3304,8 @@ def main() -> int:
     phase("check ssd", check_ssd)
     phase("check moe_positions", check_moe_positions)
     phase("check fadda", check_fadda)
+    phase("check moe_positions in a graph", check_moe_positions, graphed)
+    phase("check fadda in a graph", check_fadda, graphed)
     phase("check daxpy", check_daxpy)
     phase("check threefry", check_prng)
     served = {arch: phase(f"serve {arch}", serve_model, arch, gpu)

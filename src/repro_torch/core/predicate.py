@@ -65,3 +65,35 @@ def zeroing(p, a):
 def merging(p, new, old):
     """Merging predication: inactive lanes keep the old value (SVE ``/m``)."""
     return torch.where(_bcast(p, new.dim()), new, old)
+
+
+def set_lanes(v: torch.Tensor, lanes, src, *, axis: int = 0) -> torch.Tensor:
+    """JAX's ``v.at[lanes].set(src)`` along ``axis``, as a new tensor: lane
+    ``lanes[i]`` takes ``src``'s slice i (``src`` broadcasts against the
+    indexed shape; a 0-d ``lanes`` indexes one lane and ``src`` has no lane
+    axis).  A negative lane wraps, and a lane outside ``[-n, n)`` drops, as
+    JAX's scatters drop it: the scheduler pads admission rows with lane
+    ``n``.  Dropped rows land in one spare lane that is sliced off, so the
+    result does not depend on the order of writes however many padded rows
+    repeat one index, and the splice needs no host sync and has no shape
+    that depends on the data (it can run inside a CUDA graph)."""
+    n = v.shape[axis]
+    idx = torch.as_tensor(lanes, device=v.device).to(torch.int64)
+    if isinstance(src, (bool, int, float)):
+        # a fill, not a tensor made from a host number: that would be a
+        # blocking host-to-device copy
+        src = torch.full((), src, dtype=v.dtype, device=v.device)
+    src = torch.as_tensor(src, device=v.device).to(v.dtype)
+    if idx.dim() == 0:
+        idx = idx[None]
+        src = src.unsqueeze(axis) if src.dim() == v.dim() - 1 else src
+    idx = torch.where(idx < 0, idx + n, idx)
+    idx = torch.where((idx < 0) | (idx >= n), torch.full_like(idx, n), idx)
+    shape = list(v.shape)
+    shape[axis] = idx.shape[0]
+    spare = list(v.shape)
+    spare[axis] = n + 1
+    out = v.new_empty(spare)
+    out.narrow(axis, 0, n).copy_(v)
+    out.index_copy_(axis, idx, torch.broadcast_to(src, shape).contiguous())
+    return out.narrow(axis, 0, n).contiguous()

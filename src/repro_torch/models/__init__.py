@@ -18,6 +18,7 @@ import importlib
 import torch
 
 from repro_torch.core import paging as PG
+from repro_torch.core import predicate as P
 
 from .config import ModelConfig  # noqa: F401
 
@@ -68,15 +69,14 @@ def slot_update(cfg, cache, lanes, sub_cache):
     """Write ``sub_cache`` (lane count ``len(lanes)``) into ``cache`` at lane
     indices ``lanes`` along each tensor's lane axis; returns a new dict of new
     tensors.  Keys without a lane axis (pools) and keys missing from
-    ``sub_cache`` pass through."""
+    ``sub_cache`` pass through.  A lane index past the last lane drops, as
+    in JAX (``P.set_lanes``): padded admission rows aim there."""
     axes = _lane_axes(cfg, cache)
-    lanes = torch.as_tensor(lanes).to(torch.int64)
     out = dict(cache)
     for k, v in cache.items():
         if k not in axes or k not in sub_cache:
             continue
-        out[k] = v.index_copy(axes[k], lanes.to(v.device),
-                              sub_cache[k].to(v.dtype))
+        out[k] = P.set_lanes(v, lanes, sub_cache[k], axis=axes[k])
     return out
 
 

@@ -127,7 +127,7 @@ def make_paged_cache(cfg, batch_size: int, max_len: int, *, page_size: int,
 
 
 def _run(model: HybridLM, cfg, x, positions, cache, *, lens, q_offset,
-         cache_pos, causal, decode_step, kv_lens):
+         cache_pos, causal, decode_step, kv_lens, live=None):
     """The backbone over a dense or a paged cache, every cache write IN
     PLACE: each group's blocks, then the shared block on that group's K/V
     slot (``cache["shared_k"][gi]``, or the group's pools ``[gi]``: views,
@@ -137,7 +137,7 @@ def _run(model: HybridLM, cfg, x, positions, cache, *, lens, q_offset,
         for li, blk in enumerate(group):
             h = S.run_block(blk, h, cfg, cache["conv"][gi, li],
                             cache["state"][gi, li], lens=lens,
-                            decode_step=decode_step)
+                            decode_step=decode_step, live=live)
         h, _ = L.block_apply(model.shared, h, positions, cfg, causal=causal,
                              kv_lens=kv_lens, q_offset=q_offset,
                              cache=L.layer_cache(cache, "shared_", gi),
@@ -145,7 +145,7 @@ def _run(model: HybridLM, cfg, x, positions, cache, *, lens, q_offset,
     for li, blk in enumerate(model.tail):
         h = S.run_block(blk, h, cfg, cache["tail_conv"][li],
                         cache["tail_state"][li], lens=lens,
-                        decode_step=decode_step)
+                        decode_step=decode_step, live=live)
     return h
 
 
@@ -168,11 +168,12 @@ def prefill(model: HybridLM, cfg, batch, cache):
 
 def decode(model: HybridLM, cfg, batch, cache):
     """One-token decode over a dense or a paged cache: batch = {"token":
-    (B, 1)}.  Returns (logits, cache)."""
+    (B, 1)} [+ "live", as ``ssm.decode``].  Returns (logits, cache)."""
     pos = cache["pos"]
     x = L.embed(model.embed, batch["token"], cfg)
     h = _run(model, cfg, x, pos[:, None], cache, lens=None, q_offset=pos,
-             cache_pos=pos, causal=False, decode_step=True, kv_lens=pos + 1)
+             cache_pos=pos, causal=False, decode_step=True, kv_lens=pos + 1,
+             live=batch.get("live"))
     cache = dict(cache)
     cache["pos"] = pos + 1
     h = L.apply_norm(model.final_norm, h, cfg)

@@ -177,16 +177,24 @@ def mamba_block_decode(p: MambaBlock, x_t, cfg, conv_cache, state):
     return out, (window[:, 1:, :], state)
 
 
-def run_block(p: MambaBlock, h, cfg, conv, state, *, lens, decode_step):
+def run_block(p: MambaBlock, h, cfg, conv, state, *, lens, decode_step,
+              live=None):
     """Apply one block (prefill or decode) and write its conv tail and SSM
-    state IN PLACE into the cache views ``conv`` and ``state``."""
+    state IN PLACE into the cache views ``conv`` and ``state``.  With
+    ``live`` (a 0-d bool tensor, a gated decode step) the carries are
+    written only where it holds, so a step that is not live leaves them as
+    they were without a host sync."""
     if decode_step:
         h, (tail, st) = mamba_block_decode(p, h, cfg, conv, state)
     else:
         h, (tail, st) = mamba_block(p, h, cfg, seq_lens=lens, conv_init=conv,
                                     state_init=state)
-    conv.copy_(tail)
-    state.copy_(st)
+    if live is None:
+        conv.copy_(tail)
+        state.copy_(st)
+    else:
+        torch.where(live, tail, conv, out=conv)
+        torch.where(live, st, state, out=state)
     return h
 
 
@@ -294,11 +302,13 @@ def prefill(model: SSMLM, cfg, batch, cache):
 
 
 def decode(model: SSMLM, cfg, batch, cache):
-    """One-token decode: batch = {"token": (B, 1)}.  Returns (logits, cache)."""
+    """One-token decode: batch = {"token": (B, 1)} [+ "live", a 0-d bool:
+    when False the step leaves the conv taps and SSM state as they were].
+    Returns (logits, cache)."""
     h = L.embed(model.embed, batch["token"], cfg)
     for li, blk in enumerate(model.blocks):
         h = run_block(blk, h, cfg, cache["conv"][li], cache["state"][li],
-                      lens=None, decode_step=True)
+                      lens=None, decode_step=True, live=batch.get("live"))
     cache = dict(cache)
     cache["pos"] = cache["pos"] + 1
     h = L.apply_norm(model.final_norm, h, cfg)

@@ -22,6 +22,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.predicate import set_lanes
 
 from . import prng
 
@@ -138,14 +139,9 @@ def gather_lanes(state: dict, lanes) -> dict:
 
 def slot_update(state: dict, lanes, sub: dict) -> dict:
     """Splice ``sub`` (lane count == len(lanes)) into a copy of ``state`` at
-    ``lanes`` — the admission path."""
-    idx = torch.as_tensor(lanes, device=state["key"].device).long()
-    out = {}
-    for k, v in state.items():
-        v = v.clone()
-        v[idx] = sub[k].to(v.dtype)
-        out[k] = v
-    return out
+    ``lanes`` — the admission path.  A lane index past the last lane drops,
+    as in JAX (``set_lanes``)."""
+    return {k: set_lanes(v, lanes, sub[k]) for k, v in state.items()}
 
 
 def split_keys(state: dict):
