@@ -55,6 +55,25 @@
    replayed bursts timed, two of them profiled, beside the eager step of
    ``profile_decode``.  The moe_positions and fadda checks also run inside
    a CUDA graph.
+   Then the continuous-batching scheduler (``serve_scheduler``): 32
+   requests (prompts 128–1024, budgets 16–64, 8 at step 0 then one every 4
+   decode steps, requests 4k+2 and 4k+3 sampled) on 8 lanes, bursts of 8,
+   compaction below half occupancy, through ``ContinuousBatchingScheduler``
+   at full width: stablelm-3b with the dense cache (the first 8 requests
+   held to ``generate`` of their 8 prompts bit for bit, the first 12 held
+   fused == unfused and traced == untraced bit for bit with equal
+   dispatches and host syncs, the trace exported and validated) and paged
+   (prefix sharing, the host-swap tier, chunked prefill of 256, requests
+   16–23 second turns of earlier requests: session hits held, no page
+   leaked, the requests with no prefix hit and no chunk held to the dense
+   leg bit for bit and the others' first-token logits to one bf16 rounding
+   step), zamba2-1.2b paged int8 with chunked prefill and olmoe-1b-7b
+   dense.  Each leg runs twice (the first run captures its graphs), both
+   runs held to every budget in vocab ids and to the same tokens, the warm
+   run's launches per kernel and body held; it prints tokens per second,
+   TTFT, the decode step, a round's anatomy (admission and compaction
+   cost, the splices' ms and bytes), captures and, for stablelm dense, the
+   device's idle share over 10 profiled rounds.
 4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
 5. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
@@ -62,6 +81,17 @@
 Any failed phase raises, and the script exits non-zero without a result.
 It needs CUDA; without it, or without the repo's ``src/`` beside it, it
 fails.
+
+    python3 chip_smoke.py --scheduler
+
+builds the kernels and runs only the continuous-batching phase.
+
+    python3 chip_smoke.py --chunk-probe
+
+builds the kernels and holds chunked against whole-prompt prefill of
+stablelm-3b on the card (``chunk_probe``), through the kernels and the
+plain attention, and the dense kernel alone at a short last chunk's
+shapes: a bf16 prefill's logits move with its GEMMs' row count.
 
     python3 chip_smoke.py --ssd-probes
 
@@ -2608,6 +2638,740 @@ def profile_decode(model, cfg, name, cache, last_tok, gpu, steps: int = 4,
               f"{kname[:90]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: continuous batching through ContinuousBatchingScheduler
+# ---------------------------------------------------------------------------
+
+# the phase's traffic: 32 requests on 8 lanes, bursts of 8 decode steps,
+# compaction below half occupancy, lanes of 1088 tokens
+SCHED_REQ, SCHED_CAP, SCHED_CHUNK, SCHED_MAX_LEN = 32, 8, 8, 1088
+# first-token logits across prefill layouts: one bf16 rounding step
+SCHED_LOGIT_TOL = (1e-5, 2 ** -7)
+# the paged leg's host-swap store, in pages of 16 tokens (5.2 MB each at
+# stablelm-3b): 16384 tokens.  A second turn waits in the queue behind the
+# requests that arrived before it, and those spill their pages meanwhile:
+# a store of 64 pages had evicted its first turn's pages by then and held
+# no session
+SCHED_SWAP_PAGES = 1024
+
+
+def sched_workload(vocab: int) -> list:
+    """The phase's requests, one dict each: prompt lengths and budgets from
+    ``np.random.RandomState(20)`` (lengths 128–1024, then budgets 16–64),
+    then the prompts from the same generator; the first 8 arrive at step 0,
+    the rest one every 4 decode steps; requests 4k+2 and 4k+3 sample
+    (``mixed_specs``' distribution, seed 100 + i), the rest are greedy."""
+    import dataclasses
+    rs = np.random.RandomState(20)
+    lens = rs.randint(128, 1025, SCHED_REQ)
+    budgets = rs.randint(16, 65, SCHED_REQ)
+    spec = mixed_specs()[4]
+    return [{"prompt": rs.randint(1, vocab, int(n)).astype(np.int32),
+             "budget": int(b), "arrival": 0.0 if i < 8 else 4.0 * (i - 7),
+             "sampling": (dataclasses.replace(spec, seed=100 + i)
+                          if i % 4 in (2, 3) else None)}
+            for i, (n, b) in enumerate(zip(lens, budgets))]
+
+
+class _PrefillRecorder:
+    """A family module whose ``prefill`` counts its calls and, when
+    ``keep``, keeps each call's tokens, lens, pos0 and logits on the card
+    (no host read); every other name is the family's."""
+
+    def __init__(self, fam, keep: bool):
+        self.fam, self.keep, self.calls, self.rows = fam, keep, 0, []
+
+    def __getattr__(self, name):
+        return getattr(self.fam, name)
+
+    def prefill(self, model, cfg, batch, cache):
+        logits, cache = self.fam.prefill(model, cfg, batch, cache)
+        self.calls += 1
+        if self.keep:
+            toks = batch["tokens"]
+            pos0 = batch.get("pos0")
+            self.rows.append((toks.clone(), batch["lens"].clone(),
+                              torch.zeros_like(batch["lens"]) if pos0 is None
+                              else pos0.clone(), logits.float()))
+        return logits, cache
+
+    def first_logits(self, prompt):
+        """The logits of the first prefill row kept that ended on
+        ``prompt``'s last token (the whole prompt, the suffix after a
+        shared prefix, or the last chunk) and its call's tokens' shape, or
+        (None, None)."""
+        n = len(prompt)
+        for toks, lens, pos0, logits in self.rows:
+            lens_h, pos0_h = lens.cpu().numpy(), pos0.cpu().numpy()
+            for r in np.flatnonzero(lens_h + pos0_h == n):
+                a, m = int(pos0_h[r]), int(lens_h[r])
+                if np.array_equal(toks[r, :m].cpu().numpy(), prompt[a:a + m]):
+                    return logits[r], tuple(toks.shape)
+        return None, None
+
+
+def sched_engine(cfg, model, keep=False, **kw):
+    """A ServeEngine for the phase (stop token -1: every request decodes
+    its whole budget), its family module wrapped in ``_PrefillRecorder`` and its bursts
+    counted (``bursts``, with each one's lane width in ``widths``)."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=-1, **kw)
+    eng.model = _PrefillRecorder(eng.model, keep)
+    burst, eng.bursts, eng.widths = eng._decode_chunk, 0, []
+
+    def counted(*args, **kwargs):
+        eng.bursts += 1
+        eng.widths.append(kwargs.get("width") or SCHED_CAP)
+        return burst(*args, **kwargs)
+    eng._decode_chunk = counted
+    return eng
+
+
+def new_sched(eng, **kw):
+    from repro_torch.serve import ContinuousBatchingScheduler
+    return ContinuousBatchingScheduler(
+        eng, capacity=SCHED_CAP, max_len=SCHED_MAX_LEN, chunk=SCHED_CHUNK,
+        compact_threshold=0.5, **kw)
+
+
+_ROUND_KEYS = ("decode_steps", "prefill_chunks", "compactions",
+               "prefill_tokens", "dispatches", "host_syncs")
+
+
+def drive(sched, work, follow=None, window=None):
+    """Serve ``work`` through ``sched`` until drained.  Every request is
+    submitted at the start with its arrival, except each ``follow`` entry
+    ``i: (j, extra)``: request i, the second turn of request j (j's prompt,
+    its output and ``extra``), submitted once j's result is in, arriving
+    then.  Each round is timed on the host clock (a round ends with its
+    harvest's read of the device) with its stats' deltas.  A request
+    arrives at the end of the round after which the scheduler's clock has
+    passed its arrival, and its first token is stamped at the end of the
+    round that committed it (after that round's sync): TTFT is the
+    difference.  ``window`` (first, last) rounds run under torch.profiler
+    (device events).  Returns the results by request index and the log."""
+    from torch.profiler import ProfilerActivity, profile
+    follow = follow or {}
+    rid_of, arrived, prompts = {}, {}, {}
+
+    def submit(i, prompt, arrival):
+        w = work[i]
+        prompts[i] = prompt
+        rid_of[i] = sched.submit(prompt, max_new_tokens=w["budget"],
+                                 arrival=arrival, sampling=w["sampling"])
+
+    for i, w in enumerate(work):
+        if i not in follow:
+            submit(i, w["prompt"], w["arrival"])
+    st = sched.stats
+    log = {"rounds": [], "first": {}, "prompts": prompts, "done": set()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, req in sched._live_req.items():
+        if req.arrival <= sched.now:
+            arrived[rid] = t0
+    prof, k = None, 0
+    while sched.queue or (sched.lane_rid >= 0).any():
+        if window is not None and k == window[0]:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            tp = time.perf_counter()
+        before = [st[q] for q in _ROUND_KEYS]
+        resident = set(sched.lane_rid[sched.lane_rid >= 0].tolist())
+        nb = len(sched.engine.widths)
+        ts = time.perf_counter()
+        sched.step()
+        te = time.perf_counter()
+        d = {q: st[q] - b for q, b in zip(_ROUND_KEYS, before)}
+        resident |= set(sched.lane_rid[sched.lane_rid >= 0].tolist())
+        resident |= {rid for rid in sched.results if rid not in log["done"]}
+        log["done"].update(sched.results)
+        d.update(ms=(te - ts) * 1e3, admit=bool(sched._round_admitted)
+                 or d["prefill_chunks"] > 0, resident=resident,
+                 narrow=any(w < SCHED_CAP for w in sched.engine.widths[nb:]))
+        log["rounds"].append(d)
+        for rid, t in sched.req_times.items():
+            if "first_token" in t and rid not in log["first"]:
+                log["first"][rid] = te
+        for i, (j, extra) in follow.items():
+            if i not in rid_of and rid_of.get(j) in sched.results:
+                prev = sched.results[rid_of[j]]["tokens"]
+                submit(i, np.concatenate([prompts[j], prev, extra]).astype(
+                    np.int32), max(work[i]["arrival"], sched.now))
+        for rid, req in sched._live_req.items():
+            if rid not in arrived and req.arrival <= sched.now:
+                arrived[rid] = te
+        k += 1
+        if prof is not None and (k == window[1] or not (
+                sched.queue or (sched.lane_rid >= 0).any())):
+            torch.cuda.synchronize()
+            log["window_ms"] = (time.perf_counter() - tp) * 1e3
+            prof.__exit__(None, None, None)
+            log["prof"], log["window_rounds"], prof = prof, k - window[0], None
+    log["wall_s"] = time.perf_counter() - t0
+    res = {i: sched.results[rid] for i, rid in rid_of.items()}
+    log["ttft_ms"] = sorted((log["first"][rid] - arrived[rid]) * 1e3
+                            for rid in rid_of.values())
+    log["rid_of"] = rid_of
+    narrowed = set().union(*(r["resident"] for r in log["rounds"]
+                             if r["narrow"]))
+    log["narrowed"] = {i for i, rid in rid_of.items() if rid in narrowed}
+    return res, log
+
+
+def sched_served(cfg, work, res, name) -> None:
+    """Every request decoded its whole budget (stop token -1) into token ids
+    of the vocab (held)."""
+    for i, r in sorted(res.items()):
+        check(r["n_generated"] == work[i]["budget"]
+              and r["finish_reason"].value == "done",
+              f"{cfg.name} {name}: request {i} n_generated {r['n_generated']}"
+              f" of {work[i]['budget']} ({r['finish_reason'].value})")
+        t = r["tokens"]
+        check(((t >= 0) & (t < cfg.vocab_size)).all(),
+              f"{cfg.name} {name}: request {i} token ids in the vocab")
+
+
+def same_tokens(a, b, idx=None) -> list:
+    """Request indices whose tokens differ between two results."""
+    idx = sorted(a) if idx is None else idx
+    return [i for i in idx if a[i]["tokens"].tobytes() != b[i]["tokens"].tobytes()
+            or a[i]["n_generated"] != b[i]["n_generated"]]
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def round_anatomy(log) -> dict:
+    """A run's rounds by kind: the decode step's ms in rounds that only
+    decode (round wall over the steps they ran), and what an admission and
+    a compaction round cost above their decode steps at that rate."""
+    rounds = log["rounds"]
+    dec = [r for r in rounds if r["dispatches"] and not r["admit"]
+           and not r["compactions"]]
+    adm = [r for r in rounds if r["admit"]]
+    comp = [r for r in rounds if r["compactions"]]
+    steps = sum(r["decode_steps"] for r in dec)
+    step_ms = sum(r["ms"] for r in dec) / steps if steps else float("nan")
+    extra = lambda rs: [r["ms"] - r["decode_steps"] * step_ms for r in rs]
+    n = len(rounds)
+    return {"rounds": n, "decode_rounds": len(dec), "step_ms": step_ms,
+            "admit_rounds": len(adm),
+            "admit_ms": statistics.mean(extra(adm)) if adm else 0.0,
+            "admit_tokens": (statistics.mean(r["prefill_tokens"] for r in adm)
+                             if adm else 0.0),
+            "compact_rounds": len(comp),
+            "compact_ms": statistics.mean(extra(comp)) if comp else 0.0,
+            "syncs_per_round": sum(r["host_syncs"] for r in rounds) / n,
+            "dispatches": sum(r["dispatches"] for r in rounds)}
+
+
+def window_profile(log) -> dict:
+    """The device's idle share over the profiled rounds (one minus the
+    union of its events' intervals over the window's wall) and its
+    host-to-device copies per round."""
+    from torch.autograd import DeviceType
+    if "prof" not in log:
+        return {}
+    dev = [e for e in log["prof"].events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return {"idle": None}
+    n = log["window_rounds"]
+    return {"idle": 1 - busy_ms(dev) / log["window_ms"],
+            "h2d_per_round": sum("HtoD" in e.name for e in dev) / n,
+            "window_rounds": n, "window_ms": log["window_ms"]}
+
+
+def splice_costs(cfg, eng, sched, gpu) -> dict:
+    """The device side of an admission round's splices and of a
+    compaction, at the scheduler's cache: ms by CUDA events of the one-row
+    sub-cache's zeros, ``slot_update`` of one lane, the copy into the
+    graphs' carry that the next burst makes, and ``gather_lanes`` of a
+    compaction; bytes each moves by its definition (every tensor read and
+    written once, ``set_lanes`` copying the tensor twice)."""
+    from repro_torch.models import gather_lanes, slot_update
+    cache = sched.cache
+    axes = eng.model.cache_batch_axes(cfg)
+    lane_keys = [k for k in cache if k in axes and k != "page_table"]
+    big = sum(cache[k].numel() * cache[k].element_size() for k in lane_keys)
+    sub = eng.make_cache(1, sched.max_len)
+    sub_b = sum(sub[k].numel() * sub[k].element_size() for k in lane_keys)
+    lanes = torch.tensor([3], device="cuda")
+    perm = torch.tensor([1, 0] + list(range(2, SCHED_CAP)), device="cuda")
+    dst = {k: cache[k].clone() for k in lane_keys}
+
+    def event_ms(fn, reps=3):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    with torch.inference_mode():
+        zeros_ms = event_ms(lambda: eng.make_cache(1, sched.max_len))
+        splice_ms = event_ms(lambda: slot_update(cfg, cache, lanes, sub))
+        carry_ms = event_ms(lambda: [dst[k].copy_(cache[k]) for k in lane_keys])
+        gather_ms = event_ms(lambda: gather_lanes(cfg, cache, perm))
+    out = {"cache_bytes": big, "zeros_ms": zeros_ms, "zeros_bytes": sub_b,
+           "splice_ms": splice_ms, "splice_bytes": 4 * big + 2 * sub_b,
+           "carry_ms": carry_ms, "carry_bytes": 2 * big,
+           "gather_ms": gather_ms, "gather_bytes": 2 * big}
+    del dst, sub
+    torch.cuda.empty_cache()
+    return out
+
+
+def _want_sched(cfg, eng) -> tuple:
+    """Each kernel's launches in a bf16 scheduler run, and the bodies that
+    can be stated: every prefill call (an admission or a chunk, counted by
+    ``_PrefillRecorder``) launches the dense flash kernel once per attention
+    layer, on its tensor-core body, or on the split-KV body when the call
+    has few query rows (a short suffix or last chunk: ``plan_dense``), and
+    the SSD scan once per Mamba layer on its tensor-core body; every burst
+    (counted by ``sched_engine``) runs ``SCHED_CHUNK`` steps, each
+    launching the decode kernel's split-KV body once per attention layer;
+    MoE layers rank once per prefill call and decode step; no call runs a
+    CUDA-core body.  ``fadda`` depends on the sampled steps and is not
+    stated.  Returns (launches, decode kernel, its decode launches)."""
+    attn, calls = _attn_layers(cfg), eng.model.calls
+    steps = SCHED_CHUNK * eng.bursts
+    decode = ("flash_attention_dense" if eng.paged is None else
+              "flash_attention_paged_quant" if eng.page_dtype else
+              "flash_attention_paged")
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want["flash_attention_dense"] = attn * calls
+    want[decode] += attn * steps
+    if cfg.family in ("ssm", "hybrid"):
+        want["ssd_scan"] = cfg.n_layers * calls
+    if cfg.family == "moe":
+        want["moe_positions"] = (cfg.n_layers - cfg.first_k_dense) * (
+            calls + steps)
+    return want, decode, attn * steps
+
+
+def _held_bodies(bodies, want, decode, decode_launches) -> bool:
+    """The bodies ``_want_sched`` states: no CUDA-core body; the decode
+    kernel's split-KV launches those of the bursts plus, on the dense
+    kernel, those of short prefill calls; the SSD scan all on its
+    tensor-core body."""
+    if any(b.get("cuda_core", 0) for b in bodies.values()):
+        return False
+    prefill_split = (bodies["flash_attention_dense"]["split_kv"]
+                     - (decode_launches if decode == "flash_attention_dense"
+                        else 0))
+    return (prefill_split >= 0
+            and bodies["flash_attention_dense"]["tensor_core"] + prefill_split
+            == want["flash_attention_dense"] - (
+                decode_launches if decode == "flash_attention_dense" else 0)
+            and (decode == "flash_attention_dense"
+                 or bodies[decode]["split_kv"] == decode_launches)
+            and bodies["ssd_scan"]["tensor_core"] == want["ssd_scan"])
+
+
+def sched_report(cfg, name, work, res, log, sched, captures, gpu, extra=""):
+    """The leg's numbers on one line (host clock unless named), and the
+    host time in each span of its trace."""
+    a = round_anatomy(log)
+    st = sched.stats
+    toks = sum(r["n_generated"] for r in res.values())
+    occ = st["occupancy_trace"]
+    print(f"[sched] {cfg.name} {name}: {len(res)} requests, {toks} tokens in "
+          f"{log['wall_s']:.3f} s = {toks / log['wall_s']:.1f} tokens/s (wall, "
+          f"prefill included, graphs warm); TTFT p50 {_pct(log['ttft_ms'], 50):.1f}"
+          f" / p90 {_pct(log['ttft_ms'], 90):.1f} ms (stamped after the round's "
+          f"sync); decode {a['step_ms']:.3f} ms/step in the {a['decode_rounds']} "
+          f"rounds without admission; {a['rounds']} rounds, {st['dispatches']} "
+          f"dispatches, {st['host_syncs']} host syncs ({a['syncs_per_round']:.2f}"
+          f" a round); mean occupancy {sum(occ) / max(len(occ), 1):.3f}, "
+          f"{st['compactions']} compactions, {st['prefix_hits']} prefix hits, "
+          f"{st['session_hits']} session hits, {st['prefill_chunks']} prefill "
+          f"chunks; {a['admit_rounds']} admission rounds at +{a['admit_ms']:.2f}"
+          f" ms above their decode steps ({a['admit_tokens']:.0f} prefill tokens"
+          f" each), {a['compact_rounds']} compaction rounds at "
+          f"+{a['compact_ms']:.2f} ms; {len(captures)} captures, "
+          f"{sum(s for _, s in captures):.2f} s ({captures}){extra}  [{gpu}]",
+          flush=True)
+    if sched.obs.tracing:
+        print(f"[sched] {cfg.name} {name}: host ms in each span over the run "
+              f"(traced): {span_ms(sched.obs)}  [{gpu}]", flush=True)
+    return a
+
+
+def sched_leg(cfg, model, work, gpu, name, *, keep=False, follow=None,
+              engine_kw=None, obs=None, **sched_kw):
+    """One leg: a first run (its bursts capture their graphs), then the
+    same traffic again on warm graphs (traced into ``obs``, a fresh tracer
+    by default), counted and timed; both held to their budgets in vocab
+    ids, and to the same tokens.  Returns the engine, the warm run's scheduler, results,
+    log, stats, counts and the captures."""
+    from repro_torch.obs import Obs, Tracer
+    eng = sched_engine(cfg, model, keep=keep, **(engine_kw or {}))
+    eng.paged = sched_kw.get("page_size")
+    res1, _ = drive(new_sched(eng, **sched_kw), work, follow)
+    sched_served(cfg, work, res1, f"{name} (first run)")
+    captures = [((g.kw["stochastic"], g.kw["width"] or SCHED_CAP),
+                 round(g.capture_s, 3)) for g in eng.graphs.values()]
+    eng.model.calls = eng.bursts = 0
+    obs = obs if obs is not None else Obs(tracer=Tracer())
+    sched = new_sched(eng, obs=obs, **sched_kw)
+    reset_counts()
+    res, log = drive(sched, work, follow)
+    counts, bodies = read_counts(), read_bodies()
+    sched_served(cfg, work, res, name)
+    bad = same_tokens(res, res1)
+    check(not bad, f"{cfg.name} {name}: the warm run repeats the first run's "
+          f"tokens (requests {bad} differ)")
+    st = dict(sched.stats)
+    want, decode, decode_launches = _want_sched(cfg, eng)
+    print(f"[sched] {cfg.name} {name}: launches "
+          f"{ {k: v for k, v in counts.items() if v} }, bodies "
+          f"{_nonzero(bodies)} ({eng.model.calls} prefill calls, "
+          f"{eng.bursts} bursts of {SCHED_CHUNK}); the warm run repeats the "
+          f"first run's tokens (held)", flush=True)
+    check({k: v for k, v in counts.items() if k != "fadda"}
+          == {k: v for k, v in want.items() if k != "fadda"}
+          and _held_bodies(bodies, want, decode, decode_launches),
+          f"{cfg.name} {name}: launches {counts} bodies {_nonzero(bodies)}, "
+          f"expected {want} ({decode_launches} of {decode} by the bursts)")
+    if any(w["sampling"] is not None for w in work):
+        check(counts["fadda"] > 0, f"{cfg.name} {name}: sampled lanes ran fadda")
+    if sched.page_size is not None:
+        check(sched.allocator.live_pages == 0
+              and (sched.allocator.refcount == 0).all(),
+              f"{cfg.name} {name}: no page leaked")
+    return eng, sched, res, log, st, counts, captures
+
+
+def span_ms(obs) -> dict:
+    """Host milliseconds in each span of a tracer's serve-loop track, by
+    name, summed over the run (a span includes the spans nested in it)."""
+    out, stack = collections.Counter(), []
+    for e in obs.tracer.events:
+        if e.get("pid") != 1:
+            continue
+        if e["ph"] == "B":
+            stack.append((e["name"], e["ts"]))
+        elif e["ph"] == "E" and stack:
+            name, ts = stack.pop()
+            out[name] += (e["ts"] - ts) / 1e3
+    return {k: round(v, 1) for k, v in out.items()}
+
+
+def _events_by_rid(obs) -> dict:
+    """Each request's lifecycle events in a tracer: rid -> [(name, args)]."""
+    out = collections.defaultdict(list)
+    for e in obs.tracer.events:
+        if e.get("pid") == 2 and e.get("ph") == "i":
+            out[e["tid"]].append((e["name"], e.get("args", {})))
+    return out
+
+
+def serve_scheduler(gpu) -> dict:
+    """The continuous-batching scheduler on the card at full width: the
+    ``sched_workload`` traffic through four legs (stablelm-3b dense and
+    paged with prefix sharing, host swap and chunked prefill, zamba2-1.2b
+    paged int8 with chunked prefill, olmoe-1b-7b dense), each held to its
+    budgets in vocab ids, its launches per body, and its numbers printed.
+    Returns each leg's launches (its warm run's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.obs import Obs, Tracer, validate_trace
+
+    seed0 = lambda: torch.Generator(device="cuda").manual_seed(0)
+    launches = {}
+    t0 = time.perf_counter()
+    lap = lambda what: print(f"[sched] {what} at {time.perf_counter() - t0:.1f}"
+                             f" s into the phase", flush=True)
+
+    # ---- stablelm-3b, dense cache ----
+    cfg = get_config("stablelm_3b")
+    model = get_model(cfg).init(cfg, seed0(), "cuda")
+    work = sched_workload(cfg.vocab_size)
+    eng, sched, res, log, st, counts, caps = sched_leg(
+        cfg, model, work, gpu, "dense", keep=True)
+    lap("stablelm-3b dense leg done")
+    launches["stablelm_3b dense"] = counts
+    dense_res, dense_eng, dense_log = res, eng, log
+    # the first 8 requests against generate of their 8 prompts, padded to
+    # the width admission pads them to (the next power of two)
+    from repro_torch.serve import ServeEngine
+    first8 = work[:8]
+    width = 1 << (max(len(w["prompt"]) for w in first8) - 1).bit_length()
+    toks = np.zeros((8, width), np.int32)
+    for i, w in enumerate(first8):
+        toks[i, :len(w["prompt"])] = w["prompt"]
+    g_eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=-1)
+    g = g_eng.generate({"tokens": torch.from_numpy(toks).cuda(),
+                        "lens": torch.tensor([len(w["prompt"]) for w in first8],
+                                             device="cuda")},
+                       max_len=SCHED_MAX_LEN,
+                       sampling=[w["sampling"] for w in first8])
+    g_toks = g["tokens"].cpu().numpy()
+    lap("generate of the first 8 done")
+    diff_g = [i for i in range(8) if not np.array_equal(
+        res[i]["tokens"], g_toks[i, :work[i]["budget"]])]
+    del g_eng, g
+    # the first 12 requests: untraced (10 rounds profiled), traced, unfused
+    work12 = work[:12]
+    off, log_off = drive(new_sched(eng), work12, window=(2, 12))
+    obs = Obs(tracer=Tracer(), annotations=True)
+    s_on = new_sched(eng, obs=obs)
+    on, log_on = drive(s_on, work12)
+    s_unf = new_sched(eng, fused=False)
+    unf, log_unf = drive(s_unf, work12)
+    for r_, nm in ((off, "untraced"), (on, "traced"), (unf, "unfused")):
+        sched_served(cfg, work12, r_, f"dense 12 {nm}")
+    path = ROOT / "build" / "sched_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    n_ev = obs.export(str(path))
+    errs = validate_trace(json.loads(path.read_text())["traceEvents"])
+    check(not errs, f"{cfg.name}: the exported trace validates ({errs[:3]})")
+    st_off = {q: sum(r[q] for r in log_off["rounds"])
+              for q in ("dispatches", "host_syncs")}
+    st_on = {q: s_on.stats[q] for q in ("dispatches", "host_syncs")}
+    diff_on, diff_unf = same_tokens(on, off), same_tokens(unf, off)
+    lap("first-12 runs done")
+    prof = window_profile(log_off)
+    unprof_ms = sum(r["ms"] for r in log_on["rounds"][2:12])
+    costs = splice_costs(cfg, eng, sched, gpu)
+    a = sched_report(cfg, "dense", work, res, log, sched, caps, gpu)
+    print(f"[sched] {cfg.name} dense round anatomy: an admission round's "
+          f"splices on the device: the sub-cache's zeros {costs['zeros_ms']:.3f}"
+          f" ms ({costs['zeros_bytes'] / 1e9:.3f} GB), slot_update of one lane "
+          f"{costs['splice_ms']:.3f} ms ({costs['splice_bytes'] / 1e9:.3f} GB "
+          f"by definition), the copy into the carry {costs['carry_ms']:.3f} ms "
+          f"({costs['carry_bytes'] / 1e9:.3f} GB); a compaction's gather "
+          f"{costs['gather_ms']:.3f} ms ({costs['gather_bytes'] / 1e9:.3f} GB) "
+          f"plus that copy; the K/V cache {costs['cache_bytes'] / 1e9:.3f} GB "
+          f"(CUDA events)  [{gpu}]", flush=True)
+    print(f"[sched] {cfg.name} dense, first 12 requests: profiled rounds 2-11 "
+          f"of the untraced run: idle "
+          + (f"{prof['idle']:.1%}, {prof['h2d_per_round']:.1f} host-to-device "
+             f"copies a round over {prof['window_rounds']} rounds "
+             f"({prof['window_ms']:.1f} ms profiled; the same rounds of the "
+             f"traced run, not profiled: {unprof_ms:.1f} ms)"
+             if prof.get("idle") is not None
+             else "not measured (the profiler saw no device events)")
+          + f"; traced {st_on}, untraced {st_off} dispatches/host syncs; "
+          f"{n_ev} trace events exported, valid (held)  [{gpu}]", flush=True)
+    soft = {"generate (first 8)": diff_g, "traced == untraced": diff_on,
+            "unfused == fused": diff_unf}
+    check(st_on == st_off, f"{cfg.name}: tracing moved dispatches/host syncs "
+          f"{st_on} against {st_off}")
+    print(f"[sched] bit-for-bit comparisons, dense (requests that differ): "
+          f"{soft}", flush=True)
+    del s_on, s_unf, off, on, unf, log_off, log_on, log_unf
+
+    # ---- stablelm-3b, paged: prefix sharing, host swap, chunked prefill ----
+    lap("splice costs done")
+    rs = np.random.RandomState(21)
+    follow, used = {}, set()
+    for i in range(16, 24):
+        j = next(j for j in range(16) if j not in used and
+                 len(work[j]["prompt"]) + work[j]["budget"] + 64
+                 + work[i]["budget"] <= SCHED_MAX_LEN)
+        used.add(j)
+        follow[i] = (j, rs.randint(1, cfg.vocab_size, 64).astype(np.int32))
+    obs_p = Obs(tracer=Tracer())
+    eng_p, sched_p, res_p, log_p, st_p, counts, caps = sched_leg(
+        cfg, model, work, gpu, "paged", keep=True, follow=follow,
+        engine_kw=None, page_size=PAGE_SIZE, host_swap_pages=SCHED_SWAP_PAGES,
+        prefill_chunk=256, obs=obs_p)
+    launches["stablelm_3b paged"] = counts
+    ev = _events_by_rid(obs_p)
+    lap("stablelm-3b paged leg done")
+    rid_of = log_p["rid_of"]
+    hit, chunked = set(), set()
+    for i, rid in rid_of.items():
+        for nm, args in ev[rid]:
+            if nm == "admitted" and (args.get("shared_pages")
+                                     or args.get("swapped_pages")):
+                hit.add(i)
+            if nm == "prefill_start":
+                chunked.add(i)
+    fam = get_model(cfg)
+
+    @torch.inference_mode()
+    def replay(prompt, size=256):
+        """``prompt`` prefilled on a fresh one-lane cache in the chunks a
+        partial takes (``size`` tokens, each padded to a power of two)."""
+        cache, start, n = eng_p.make_cache(1, SCHED_MAX_LEN), 0, len(prompt)
+        while start < n:
+            m = min(size, n - start)
+            width = min(1 << (m - 1).bit_length(), SCHED_MAX_LEN - start)
+            toks = torch.zeros((1, width), dtype=torch.int32, device="cuda")
+            toks[0, :m] = torch.from_numpy(prompt[start:start + m])
+            logits, cache = fam.prefill(
+                model, cfg, {"tokens": toks,
+                             "lens": torch.tensor([m], device="cuda"),
+                             "pos0": torch.tensor([start], device="cuda")},
+                cache)
+            start += m
+        return logits[0].float()
+
+    # requests with no prefix hit and no chunk: tokens held to the dense
+    # leg's where both legs decoded them only in full-width bursts (a
+    # narrower burst runs the projections' GEMMs at another M)
+    plain_idx = [i for i in range(SCHED_REQ)
+                 if i not in follow and i not in hit and i not in chunked]
+    shapes = {i: (eng_p.model.first_logits(work[i]["prompt"])[1],
+                  dense_eng.model.first_logits(work[i]["prompt"])[1])
+              for i in plain_idx}
+    full = [i for i in plain_idx
+            if i not in log_p["narrowed"] and i not in dense_log["narrowed"]]
+    diff_p = same_tokens(res_p, dense_res, plain_idx)
+    # chunked requests with no hit: first-token logits held bit for bit to
+    # the same chunks replayed through the family's prefill
+    replay_bad = [i for i in sorted(chunked - hit) if not torch.equal(
+        eng_p.model.first_logits(work[i]["prompt"])[0],
+        replay(work[i]["prompt"]))]
+    # every other request: first-token logits against the dense leg's (a
+    # whole-prompt prefill alone for a second turn)
+    rels, ratios = {}, {}
+    for i in sorted(hit | chunked | set(plain_idx)):
+        prompt = log_p["prompts"][i]
+        got = eng_p.model.first_logits(prompt)[0]
+        want = (dense_eng.model.first_logits(prompt)[0] if i not in follow
+                else None)
+        if want is None:
+            with torch.inference_mode():
+                want, _ = fam.prefill(
+                    model, cfg, {"tokens": torch.from_numpy(prompt)[None].cuda(),
+                                 "lens": torch.tensor([len(prompt)],
+                                                      device="cuda")},
+                    eng_p.make_cache(1, SCHED_MAX_LEN))
+            want = want[0].float()
+        rels[i] = rel_err(got, want)
+        ratios[i] = tol_ratio(got, want, *SCHED_LOGIT_TOL)
+    sched_report(cfg, "paged", work, res_p, log_p, sched_p, caps, gpu,
+                 f"; prefix hits on requests {sorted(hit)}, chunked "
+                 f"{sorted(chunked)}; swap out {st_p['swap_out_pages']} / in "
+                 f"{st_p['swap_in_pages']} pages; no page leaked, checksum "
+                 f"failures 0 (held)")
+    print(f"[sched] {cfg.name} paged against dense: requests {plain_idx} (no "
+          f"prefix hit, no chunk; admission call shapes paged/dense "
+          f"{shapes}; in a narrowed burst {sorted(set(plain_idx) - set(full))}"
+          f") differ in {diff_p}; the chunked requests' first-token "
+          f"logits against the same chunks replayed: {replay_bad} differ; "
+          f"first-token logits against the dense leg, relative error "
+          f"{ {i: float(f'{r:.3e}') for i, r in rels.items()} }, ratio to "
+          f"one bf16 rounding step (atol 1e-5, rtol 2^-7) "
+          f"{ {i: round(r, 1) for i, r in ratios.items()} }  [{gpu}]",
+          flush=True)
+    check(st_p["session_hits"] > 0 and st_p["swap_checksum_failures"] == 0,
+          f"{cfg.name} paged: session hits {st_p['session_hits']}, checksum "
+          f"failures {st_p['swap_checksum_failures']}")
+    soft["paged == dense (full-width plain requests)"] = [
+        i for i in diff_p if i in full]
+    soft["chunked == replayed chunks"] = replay_bad
+    soft[f"paged logits rel > {LIMIT_BF16}"] = [
+        i for i, r in rels.items() if r > LIMIT_BF16]
+    del eng_p, sched_p, eng, sched, dense_eng, model
+    torch.cuda.empty_cache()
+    print(f"[sched] held comparisons (requests that differ, none may): "
+          f"{soft}", flush=True)
+    bad = {k: v for k, v in soft.items() if v}
+    check(not bad, f"stablelm-3b scheduler comparisons failed: {bad}")
+
+    # ---- zamba2-1.2b, paged int8, chunked prefill on the SSD grid ----
+    cfg = get_config("zamba2_1_2b")
+    model = get_model(cfg).init(cfg, seed0(), "cuda")
+    work = sched_workload(cfg.vocab_size)
+    eng, sched, res, log, st, counts, caps = sched_leg(
+        cfg, model, work, gpu, "paged int8", engine_kw=dict(page_dtype="int8"),
+        page_size=PAGE_SIZE, prefill_chunk=256)
+    launches["zamba2_1_2b paged int8"] = counts
+    lap("zamba2-1.2b leg done")
+    sched_report(cfg, "paged int8", work, res, log, sched, caps, gpu)
+    del eng, sched, model
+    torch.cuda.empty_cache()
+
+    # ---- olmoe-1b-7b, dense cache (full-width bursts) ----
+    cfg = get_config("olmoe_1b_7b")
+    model = get_model(cfg).init(cfg, seed0(), "cuda")
+    work = sched_workload(cfg.vocab_size)
+    eng, sched, res, log, st, counts, caps = sched_leg(cfg, model, work, gpu,
+                                                       "dense")
+    launches["olmoe_1b_7b dense"] = counts
+    lap("olmoe-1b-7b leg done")
+    check(all(w == SCHED_CAP for (_, w), _ in caps),
+          f"{cfg.name}: MoE bursts never narrow ({caps})")
+    sched_report(cfg, "dense", work, res, log, sched, caps, gpu)
+    del eng, sched, model
+    torch.cuda.empty_cache()
+    return launches, soft
+
+
+@torch.inference_mode()
+def chunk_probe(gpu) -> None:
+    """Chunked prefill on the card against whole-prompt prefill, stablelm-3b:
+    the scheduler's chunks of 256 with a short last chunk (the paged leg's
+    requests 5, 6 and 30: 521, 532 and 781 tokens), each chunk through the
+    kernels and through the plain attention (``PLAIN``), and the dense
+    kernel alone at the last chunk's shapes against its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import get_model
+
+    cfg = get_config("stablelm_3b")
+    fam = get_model(cfg)
+    model = fam.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    work = sched_workload(cfg.vocab_size)
+    for i in (5, 6, 30, 0):
+        prompt = torch.from_numpy(work[i]["prompt"]).cuda()
+        n = len(prompt)
+
+        def whole(c):
+            cache = fam.make_cache(c, 1, SCHED_MAX_LEN, device="cuda")
+            return fam.prefill(model, c, {"tokens": prompt[None],
+                                          "lens": torch.tensor([n], device="cuda")},
+                               cache)[0][0].float()
+
+        def chunked(c, size=256):
+            cache = fam.make_cache(c, 1, SCHED_MAX_LEN, device="cuda")
+            start = 0
+            while start < n:
+                m = min(size, n - start)
+                width = min(1 << (m - 1).bit_length(), SCHED_MAX_LEN - start)
+                toks = torch.zeros((1, width), dtype=torch.int64, device="cuda")
+                toks[0, :m] = prompt[start:start + m]
+                logits, cache = fam.prefill(
+                    model, c, {"tokens": toks,
+                               "lens": torch.tensor([m], device="cuda"),
+                               "pos0": torch.tensor([start], device="cuda")},
+                    cache)
+                start += m
+            return logits[0].float()
+
+        plain = cfg.replace(**PLAIN)
+        w_k, w_p, c_k, c_p = whole(cfg), whole(plain), chunked(cfg), chunked(plain)
+        r = lambda a, b: tol_ratio(a, b, *SCHED_LOGIT_TOL)
+        print(f"[probe] request {i} ({n} tokens, last chunk {n % 256 or 256}): "
+              f"chunked/whole kernel {r(c_k, w_k):.3f}, plain {r(c_p, w_p):.3f}; "
+              f"kernel/plain whole {r(w_k, w_p):.3f}, chunked {r(c_k, c_p):.3f}; "
+              f"argmax whole {int(w_k.argmax())} chunked {int(c_k.argmax())}  "
+              f"[{gpu}]", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for sq, m, off in ((16, 9, 512), (16, 13, 768), (32, 20, 512),
+                       (16, 16, 512), (64, 40, 512), (256, 256, 256)):
+        q = torch.randn(1, 32, sq, 80, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(1, 32, SCHED_MAX_LEN, 80, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        kw = dict(kv_lens=torch.tensor([off + m], dtype=torch.int32,
+                                       device="cuda"),
+                  q_offset=torch.tensor([off], dtype=torch.int32, device="cuda"),
+                  causal=True)
+        got = flash_attention(q, k, v, impl="kernel", **kw)[:, :, :m].float()
+        want = flash_attention(q, k, v, impl="naive", **kw)[:, :, :m].float()
+        print(f"[probe] dense kernel sq {sq} ({m} live rows) at q_offset {off}"
+              f" over {SCHED_MAX_LEN} keys: ratio {tol_ratio(got, want, *TOL['split_kv']):.3f}"
+              f", max abs err {float((got - want).abs().max()):.3e}", flush=True)
+
+
 def run_quickstart() -> dict:
     """The port's quickstart (``repro_torch.launch.quickstart``) on the card:
     Fig. 2's daxpy at three VLs and §2.4's fadda, each held against its
@@ -3293,6 +4057,12 @@ def main() -> int:
     if "--ssd-probes" in args:
         phase("ssd probes", ssd_probes, gpu)
         return 0
+    if "--chunk-probe" in args:
+        phase("chunk probe", chunk_probe, gpu)
+        return 0
+    if "--scheduler" in args:
+        phase("serve scheduler", serve_scheduler, gpu)
+        return 0
     if "--fadda-probes" in args:
         parent = args[args.index("--parent") + 1] if "--parent" in args else None
         phase("fadda probes", fadda_probes, gpu, parent)
@@ -3310,6 +4080,7 @@ def main() -> int:
     phase("check threefry", check_prng)
     served = {arch: phase(f"serve {arch}", serve_model, arch, gpu)
               for arch in WIDTHS}
+    sched_launches, _ = phase("serve scheduler", serve_scheduler, gpu)
     cfg, lens, max_len, _ = served["stablelm_3b"]
     rows = phase("time flash", time_kernels, cfg, lens, max_len, gpu)
     ssd_rows = phase("time ssd", time_ssd, lens, gpu)
@@ -3323,12 +4094,14 @@ def main() -> int:
 
     launches = {k: sum(r["counts"][k] for *_, runs in served.values()
                        for r in runs.values()) + quick[k]
+                + sum(c[k] for c in sched_launches.values())
                 for k in kernel_wrappers()}
     bodies = {k: {body: sum(r["bodies"][k][body] for *_, runs in served.values()
                             for r in runs.values()) for body in v}
               for k, v in read_bodies().items()}
-    print(f"[full] launches over every generate and the quickstart: {launches}; "
-          f"the flash kernels by body: {bodies}", flush=True)
+    print(f"[full] launches over every generate, the scheduler legs' warm runs "
+          f"and the quickstart: {launches}; "
+          f"the flash kernels by body over every generate: {bodies}", flush=True)
     entries = []
     for name, row, source, replaces in (
             ("flash_attention_dense", rows["dense_prefill"], SRC_CU,

@@ -1,26 +1,33 @@
-"""Serving launcher of the port: bring up a ServeEngine for an arch and run
-one static batch through ``ServeEngine.generate``.
+"""Serving launcher of the port: bring up a ServeEngine for an arch and push
+a stream of ragged requests through the continuous-batching scheduler (the
+default), or one static batch through ``ServeEngine.generate`` with
+``--static``.
 
-    python -m repro_torch.launch.serve --arch stablelm_3b --static
+    python -m repro_torch.launch.serve --arch stablelm_3b
+    python -m repro_torch.launch.serve --arch stablelm_3b --page-size 16 \
+        --host-swap-pages 64 --prefill-chunk 8
+    python -m repro_torch.launch.serve --arch zamba2_1_2b --page-size 16 \
+        --page-dtype int8 --prefill-chunk 16
     python -m repro_torch.launch.serve --arch stablelm_3b --static --no-reduce
-    python -m repro_torch.launch.serve --arch zamba2_1_2b --static --page-size 16
-    python -m repro_torch.launch.serve --arch olmoe_1b_7b --static \
-        --page-size 16 --page-dtype int8
-    python -m repro_torch.launch.serve --arch stablelm_3b --static \
-        --temperature 0.8 --top-p 0.9 --device cpu
+    python -m repro_torch.launch.serve --arch stablelm_3b --device cpu \
+        --temperature 0.8 --top-p 0.9 --trace-out trace.json --metrics
 
 Dims are reduced by default, as in ``repro.launch.serve``; ``--no-reduce``
-runs the published widths.  ``--page-dtype int8|fp8`` stores the paged
-cache's pools narrow and needs ``--page-size``.  ``--temperature`` turns on
-stochastic sampling for every request (request i uses seed
-``--sample-seed`` + i); without it decoding is greedy.  The continuous-batching
-scheduler (the JAX launcher's default mode) and ``--mesh`` are not ported
-yet and exit naming the ROADMAP item that ports them.
+runs the published widths.  ``--batch`` is the scheduler's lane capacity
+(the batch size with ``--static``).  ``--page-dtype int8|fp8`` stores the
+paged cache's pools narrow and needs ``--page-size``.  ``--temperature``
+turns on stochastic sampling for every request (request i uses seed
+``--sample-seed`` + i); without it decoding is greedy.  The JAX launcher's
+options that are not ported yet exit naming the ROADMAP item that ports
+them: ``--overlap`` (Queue 1 item 7(d)); ``--max-queue``,
+``--deadline-steps``, ``--priority-every`` and ``--chaos-*`` (item 7(e));
+``--mesh`` (item 14); the encdec and VLM archs (item 12).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import numpy as np
@@ -29,8 +36,9 @@ import torch
 from repro_torch.configs import all_arch_names, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models import get_model
+from repro_torch.obs import Obs, Tracer
 from repro_torch.sample import SamplingParams
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import ContinuousBatchingScheduler, ServeEngine
 
 # the reduced dims of repro.launch.train (training is not ported)
 REDUCE = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=256, n_heads=4,
@@ -54,6 +62,24 @@ PENDING_ARCHS = {
     "seamless_m4t_large_v2": "Queue 1 item 12 (encdec)",
 }
 
+# the JAX launcher's options that are not ported yet -> (flag, ROADMAP item)
+PENDING_OPTIONS = (
+    ("overlap", "--overlap", "Queue 1 item 7(d) (the async overlap loop)"),
+    ("max_queue", "--max-queue", "Queue 1 item 7(e) (the control plane)"),
+    ("deadline_steps", "--deadline-steps",
+     "Queue 1 item 7(e) (the control plane)"),
+    ("priority_every", "--priority-every",
+     "Queue 1 item 7(e) (the control plane)"),
+    ("chaos_seed", "--chaos-seed", "Queue 1 item 7(e) (serve/chaos.py)"),
+    ("chaos_alloc_fail_rate", "--chaos-alloc-fail-rate",
+     "Queue 1 item 7(e) (serve/chaos.py)"),
+    ("chaos_cancel_rate", "--chaos-cancel-rate",
+     "Queue 1 item 7(e) (serve/chaos.py)"),
+    ("chaos_swap_corrupt_rate", "--chaos-swap-corrupt-rate",
+     "Queue 1 item 7(e) (serve/chaos.py)"),
+    ("mesh", "--mesh", "Queue 1 item 14 (mesh-sharded serving)"),
+)
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -61,15 +87,56 @@ def main(argv=None):
     ap.add_argument("--reduce", action=argparse.BooleanOptionalAction,
                     default=True, help="shrink dims (default); --no-reduce "
                     "runs the published widths")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lane capacity (scheduler) / batch size (--static)")
+    ap.add_argument("--requests", type=int, default=10,
+                    help="number of streamed requests (scheduler mode)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--chunk", type=int, default=4,
+                    help="decode steps between admission opportunities")
+    ap.add_argument("--compact-threshold", type=float, default=0.5)
     ap.add_argument("--page-size", type=int, default=None,
-                    help="tokens per KV page: decode reads a paged cache")
+                    help="tokens per KV page; enables the paged cache "
+                         "(admission gated on page availability)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="physical pages in the pool (default: the dense "
+                         "footprint, capacity * pages-per-lane)")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable prompt-prefix page sharing under --page-size")
+    ap.add_argument("--host-swap-pages", type=int, default=None,
+                    help="host-side LRU swap store capacity in pages: shared-"
+                         "prefix pages spill to host on eviction and page "
+                         "back in on a later prompt hit (requires "
+                         "--page-size)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="split admission prefill into chunks of this many "
+                         "tokens interleaved with decode rounds (ssm/hybrid: "
+                         "a multiple of ssm_chunk)")
     ap.add_argument("--paged-attn", choices=["native", "gather"],
                     default="native")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="run the unfused host loop (separate prefill and "
+                         "burst calls) instead of the fused step")
     ap.add_argument("--static", action="store_true",
-                    help="one-shot ServeEngine.generate (the only mode so far)")
+                    help="one-shot ServeEngine.generate instead of the "
+                         "scheduler")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="record the serve run's round/request timeline and "
+                         "export Chrome/Perfetto trace_event JSON to FILE; "
+                         "served tokens and dispatch/sync counts are "
+                         "unchanged by tracing")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the obs registry snapshot after the run")
+    # the JAX launcher's options still to port (PENDING_OPTIONS): each exits
+    ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--max-queue", type=int, default=None)
+    ap.add_argument("--deadline-steps", type=float, default=None)
+    ap.add_argument("--priority-every", type=int, default=None)
+    ap.add_argument("--chaos-seed", type=int, default=None)
+    ap.add_argument("--chaos-alloc-fail-rate", type=float, default=None)
+    ap.add_argument("--chaos-cancel-rate", type=float, default=None)
+    ap.add_argument("--chaos-swap-corrupt-rate", type=float, default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to opt out)")
     ap.add_argument("--seed", type=int, default=0)
@@ -95,14 +162,15 @@ def main(argv=None):
                  f"{PENDING_ARCHS[args.arch]}")
     if args.arch not in all_arch_names():
         ap.error(f"unknown arch {args.arch!r}")
-    if not args.static:
-        sys.exit("the continuous-batching scheduler is not ported yet "
-                 "(ROADMAP Queue 1 item 7); run with --static")
-    if args.mesh is not None:
-        sys.exit("mesh-sharded serving is not ported yet (ROADMAP Queue 1 item 14)")
+    for dest, flag, item in PENDING_OPTIONS:
+        if getattr(args, dest) not in (None, False):
+            sys.exit(f"{flag} is not ported yet: ROADMAP {item}")
     if args.page_dtype is not None and args.page_size is None:
         ap.error("--page-dtype requires --page-size (quantization lives in "
                  "the page pools)")
+    if args.host_swap_pages is not None and args.page_size is None:
+        ap.error("--host-swap-pages requires --page-size (the swap tier "
+                 "moves pages)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -114,22 +182,85 @@ def main(argv=None):
     batch = {"tokens": rng.randint(1, cfg.vocab_size,
                                    (args.batch, args.prompt_len)),
              "lens": rng.randint(4, args.prompt_len + 1, args.batch)}
+    obs = Obs(tracer=Tracer() if args.trace_out else None)
     eng = ServeEngine(cfg, params, max_new_tokens=args.max_new, stop_token=7,
                       paged_attn=args.paged_attn, page_dtype=args.page_dtype,
-                      device=device)
-    sampling = None
-    if args.temperature is not None:
-        sampling = [SamplingParams(temperature=args.temperature,
-                                   top_k=args.top_k, top_p=args.top_p,
-                                   min_p=args.min_p,
-                                   repetition_penalty=args.repetition_penalty,
-                                   seed=args.sample_seed + i, greedy=False)
-                    for i in range(args.batch)]
-    res = eng.generate(batch, sampling=sampling, page_size=args.page_size)
-    for i in range(args.batch):
-        n = int(res["n_generated"][i])
-        print(f"req{i} len={int(batch['lens'][i]):2d} -> "
-              f"{res['tokens'][i, :n].tolist()}")
+                      device=device, obs=obs)
+
+    def _sampling(i: int):
+        """Per-request SamplingParams (None = greedy) for request index i."""
+        if args.temperature is None:
+            return None
+        return SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p, min_p=args.min_p,
+                              repetition_penalty=args.repetition_penalty,
+                              seed=args.sample_seed + i, greedy=False)
+
+    if args.static:
+        sampling = ([_sampling(i) for i in range(args.batch)]
+                    if args.temperature is not None else None)
+        res = eng.generate(batch, sampling=sampling, page_size=args.page_size)
+        for i in range(args.batch):
+            n = int(res["n_generated"][i])
+            print(f"req{i} len={int(batch['lens'][i]):2d} -> "
+                  f"{res['tokens'][i, :n].tolist()}")
+        _finish_obs(args, obs)
+        return
+
+    # ---- continuous batching: stream requests through the lane vector ----
+    sched = ContinuousBatchingScheduler(
+        eng, capacity=args.batch, max_len=args.prompt_len + args.max_new,
+        chunk=args.chunk, compact_threshold=args.compact_threshold,
+        page_size=args.page_size, pool_pages=args.pool_pages,
+        prefix_sharing=not args.no_prefix_sharing,
+        host_swap_pages=args.host_swap_pages,
+        prefill_chunk=args.prefill_chunk, fused=not args.no_fused, obs=obs)
+    rid_len = {}
+    for i in range(args.requests):
+        plen = int(rng.randint(4, args.prompt_len + 1))
+        rid = sched.submit(rng.randint(1, cfg.vocab_size, plen),
+                           sampling=_sampling(i))
+        rid_len[rid] = plen
+    results = sched.run()
+    for rid in sorted(results):
+        r = results[rid]
+        print(f"req{rid} len={rid_len[rid]:2d} "
+              f"[{r['finish_reason'].value}] -> {r['tokens'].tolist()}")
+    st = sched.stats
+    occ = st["occupancy_trace"]
+    print(f"[scheduler] rounds={st['steps']} dispatches={st['dispatches']} "
+          f"host syncs={st['host_syncs']} compactions={st['compactions']} "
+          f"mean occupancy={sum(occ) / max(len(occ), 1):.2f}"
+          + (f"  prefill chunks={st['prefill_chunks']}"
+             if args.prefill_chunk else ""))
+    if args.page_size is not None:
+        pocc = st["page_occupancy_trace"]
+        print(f"[paged] pool={sched.pool_pages} pages "
+              f"(page_size={args.page_size})  "
+              f"mean pool occupancy={sum(pocc) / max(len(pocc), 1):.2f}  "
+              f"prefix hits={st['prefix_hits']} "
+              f"({st['prefix_hit_tokens']} tokens skipped)  "
+              f"page waits={st['page_waits']}"
+              + (f"  page_dtype={args.page_dtype}" if args.page_dtype
+                 else ""))
+        if args.host_swap_pages:
+            print(f"[swap] session hits={st['session_hits']} "
+                  f"({st['session_hit_tokens']} tokens skipped)  "
+                  f"out={st['swap_out_pages']} in={st['swap_in_pages']} pages  "
+                  f"store={len(sched.host_swap)}/{args.host_swap_pages}  "
+                  f"checksum failures={st['swap_checksum_failures']}")
+    _finish_obs(args, obs)
+
+
+def _finish_obs(args, obs):
+    """Export the trace / print the metrics snapshot per the CLI flags."""
+    if args.trace_out:
+        n = obs.export(args.trace_out)
+        print(f"[obs] wrote {n} trace events to {args.trace_out} "
+              "(open in ui.perfetto.dev or chrome://tracing)")
+    if args.metrics:
+        print("[obs] " + json.dumps(obs.metrics.snapshot(), indent=2,
+                                    sort_keys=True))
 
 
 if __name__ == "__main__":

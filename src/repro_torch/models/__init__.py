@@ -109,6 +109,34 @@ def paged_decode_ok(cfg) -> bool:
     return bool(fn and fn(cfg))
 
 
+def chunked_prefill_ok(cfg) -> bool:
+    """True when cfg's family prefill() supports per-row ``pos0`` start
+    offsets with all cross-chunk state carried in the cache — the property
+    that makes splitting one prompt's prefill into chunks equal to
+    prefilling it whole (dense/moe keep everything in the KV cache,
+    ssm/hybrid resume the conv taps + SSM state)."""
+    return bool(getattr(get_model(cfg), "CHUNKED_PREFILL_OK", False))
+
+
+def lane_independent_decode(cfg) -> bool:
+    """True when cfg's family decode() treats request lanes independently —
+    no cross-lane coupling anywhere in the step — so a decode burst over any
+    lane PREFIX gives the same per-lane results.  This lets the scheduler
+    narrow its burst to the occupied pow2 lane bucket.  MoE does not
+    qualify: expert capacity is shared across the batch, so dropping (dead)
+    lanes changes which tokens overflow an expert buffer."""
+    return bool(getattr(get_model(cfg), "LANE_INDEPENDENT_DECODE", False))
+
+
+def chunked_prefill_granularity(cfg) -> int:
+    """Alignment (in tokens) chunk boundaries must respect for chunked
+    prefill to equal whole-prompt prefill: 1 for attention families,
+    ``ssm_chunk`` for ssm/hybrid (the resumed SSD scan replays the same
+    chunk sequence as the unchunked scan)."""
+    fn = getattr(get_model(cfg), "chunked_prefill_granularity", None)
+    return int(fn(cfg)) if fn else 1
+
+
 def to_paged(cfg, cache, *, page_size: int, pool_pages=None, page_dtype=None):
     """Convert a DENSE cache to the paged layout with identity page tables
     (lane b's logical block j lives in physical page ``b * n_pages + j``).

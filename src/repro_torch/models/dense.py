@@ -90,6 +90,15 @@ def cache_batch_axes(cfg):
     return {"k": 1, "v": 1, "pos": 0}
 
 
+# full prefix state lives in paged KV + pos, so prefix sharing is sound
+PAGED_PREFIX_OK = True
+# prefill() takes per-row pos0 start offsets with all state in the KV cache,
+# so one prompt's prefill can be split into chunks (scheduler chunked prefill)
+CHUNKED_PREFILL_OK = True
+# decode has no cross-lane coupling: bursts may narrow to a lane prefix
+LANE_INDEPENDENT_DECODE = True
+
+
 def paged_decode_ok(cfg):
     """decode() reads a paged cache directly through the page table."""
     return True

@@ -98,6 +98,23 @@ def cache_batch_axes(cfg):
             "shared_k": 1, "shared_v": 1, "pos": 0}
 
 
+# conv/ssm state is NOT paged, so a prompt prefix is not fully captured by
+# resident pages — prefix sharing would silently drop the SSM carry
+PAGED_PREFIX_OK = False
+# prefill() resumes the mamba stacks from the cached conv taps + SSM state
+# (zero for a fresh cache — the same as no carry) and the shared attention
+# block writes each chunk's K/V at its pos0 offset, so chunked prefill is
+# exact at ssm_chunk-aligned boundaries
+CHUNKED_PREFILL_OK = True
+# decode has no cross-lane coupling: bursts may narrow to a lane prefix
+LANE_INDEPENDENT_DECODE = True
+
+
+def chunked_prefill_granularity(cfg) -> int:
+    """Chunk boundaries must align with the SSD scan chunk (see ssm.py)."""
+    return int(cfg.ssm_chunk)
+
+
 def paged_decode_ok(cfg):
     """decode() reads the shared block's K/V through the page table; the
     conv/SSM state stays per-lane dense (it is O(1) in sequence length)."""

@@ -253,6 +253,22 @@ def cache_batch_axes(cfg):
     return {"conv": 1, "state": 1, "pos": 0}
 
 
+# prefill() resumes the scan from the cached conv taps + SSM state (a fresh
+# cache is all-zero, which is the same as no carry), so chunked prefill is
+# exact — provided chunk boundaries land on multiples of ssm_chunk so the
+# chunk sequence matches the unchunked scan
+CHUNKED_PREFILL_OK = True
+# decode has no cross-lane coupling: bursts may narrow to a lane prefix
+LANE_INDEPENDENT_DECODE = True
+
+
+def chunked_prefill_granularity(cfg) -> int:
+    """Chunk boundaries must be multiples of the SSD scan chunk for the
+    resumed scan to equal the whole-prompt scan (the same chunk sequence;
+    the dt=0 padded tail steps are exact identities)."""
+    return int(cfg.ssm_chunk)
+
+
 def paged_cache_spec(cfg):
     """SSM caches are length-independent: nothing to page."""
     return {}

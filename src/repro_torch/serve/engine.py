@@ -1,7 +1,7 @@
 """Batched serving engine: prefill, a gated decode burst over request lanes,
 the scheduler's page and lane movers and the fused serve step, mirroring
-``ServeEngine`` of ``repro.serve.engine`` (its mesh variants and ``obs``
-spans belong to later slices).
+``ServeEngine`` of ``repro.serve.engine`` (its mesh variants belong to a
+later slice).
 
 A batch of requests is a VECTOR (paper §2.3.4): each lane is one request.
 The JAX engine runs a decode burst as one XLA while loop.  Here a burst is
@@ -41,6 +41,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import (gather_lanes, get_model, is_paged,
                                 merge_lanes, paged_decode_ok, paged_view,
                                 paged_writeback, slot_update, to_paged)
+from repro_torch.obs import Obs
 from repro_torch.sample.processors import ban_pred, mask_logits
 
 #: steps per decode burst of ``generate``: the JAX scheduler's default chunk
@@ -120,8 +121,15 @@ class ServeEngine:
     # to every paged cache this engine allocates or converts
     page_dtype: Optional[str] = None
     device: object = None
+    # observability handle (repro_torch.obs.Obs): ``generate`` records its
+    # prefill/decode seams here.  The scheduler does NOT inherit it — it
+    # defaults to its own registry; pass the same handle to both for one
+    # combined timeline (the launcher's --trace-out does)
+    obs: Optional[object] = None
 
     def __post_init__(self):
+        if self.obs is None:
+            self.obs = Obs()
         self.device = resolve_device(self.device)
         if self.paged_attn not in ("native", "gather"):
             raise ValueError(f"paged_attn must be 'native' or 'gather', "
@@ -168,6 +176,13 @@ class ServeEngine:
         if isinstance(x, dict):
             return {k: self._on_device(v) for k, v in x.items()}
         return torch.as_tensor(x, device=self.device)
+
+    @torch.inference_mode()
+    def _prefill(self, params, batch, cache):
+        """One prefill call (the scheduler's unfused loop): ``batch`` may
+        hold host arrays.  Returns (last-token logits, cache)."""
+        return self.model.prefill(params, self.cfg, self._on_device(batch),
+                                  cache)
 
     # ------------------------------------------------------------------
     # the decode burst
@@ -636,12 +651,14 @@ class ServeEngine:
             batch, max_len=max_len, sampling=sampling, page_size=page_size,
             pool_pages=pool_pages)
         # the budgets end every lane within max_new - 1 steps
-        for _ in range(-(-self.max_new_tokens // BURST)):
-            if not bool(p.any()):
-                break
-            cache, out, tok, p, n_gen, sstate, _ = self._decode_chunk(
-                cache, out, tok, p, n_gen, budget, sstate, n_steps=BURST,
-                stochastic=stochastic)
+        with self.obs.span("decode", dispatch=True, b=out.shape[0],
+                           n_steps=self.max_new_tokens):
+            for _ in range(-(-self.max_new_tokens // BURST)):
+                if not bool(p.any()):
+                    break
+                cache, out, tok, p, n_gen, sstate, _ = self._decode_chunk(
+                    cache, out, tok, p, n_gen, budget, sstate, n_steps=BURST,
+                    stochastic=stochastic)
         if self.device.type == "cuda":
             # the engine's carry, which its next burst overwrites
             cache = {k: v.clone() for k, v in cache.items()}
@@ -666,8 +683,9 @@ class ServeEngine:
         max_len = max_len or (s + self.max_new_tokens)
         cache = self.make_cache(b, max_len)
         sstate = self.make_state(b, sampling)
-        logits, cache = self.model.prefill(
-            self.params, self.cfg, {"tokens": tokens, "lens": lens}, cache)
+        with self.obs.span("prefill", dispatch=True, b=b, s=s):
+            logits, cache = self.model.prefill(
+                self.params, self.cfg, {"tokens": tokens, "lens": lens}, cache)
         if page_size is not None:
             cache = to_paged(self.cfg, cache, page_size=page_size,
                              pool_pages=pool_pages, page_dtype=self.page_dtype)

@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import json
 import os
 import re
 import subprocess
@@ -188,6 +189,58 @@ def test_launcher_serves_moe_and_quantized_pages(argv, capsys):
     assert capsys.readouterr().out.count("req") == 2
 
 
+def _scheduler_lines(out):
+    return {line.split("]")[0] + "]": line for line in out.splitlines()
+            if line.startswith("[")}
+
+
+@pytest.mark.parametrize("extra,tags", [
+    ([], ["[scheduler]"]),
+    (["--page-size", "4", "--host-swap-pages", "8", "--prefill-chunk", "4"],
+     ["[scheduler]", "[paged]", "[swap]"]),
+])
+def test_launcher_runs_the_scheduler_by_default(extra, tags, capsys):
+    """Without ``--static`` the launcher streams its requests through the
+    continuous-batching scheduler, fused and unfused with the same tokens,
+    and prints the reference launcher's summary lines."""
+    from repro_torch.launch import serve
+    base = ["--device", "cpu", "--batch", "3", "--requests", "6",
+            "--max-new", "4"] + extra
+    outs = []
+    for fused in ([], ["--no-fused"]):
+        serve.main(base + fused)
+        outs.append(capsys.readouterr().out)
+    reqs = [[ln for ln in out.splitlines() if ln.startswith("req")]
+            for out in outs]
+    assert len(reqs[0]) == 6 and reqs[0] == reqs[1]
+    assert all("[done]" in ln for ln in reqs[0])
+    lines = _scheduler_lines(outs[0])
+    for tag in tags:
+        assert tag in lines, (tag, outs[0])
+    assert "rounds=" in lines["[scheduler]"]
+    if "--prefill-chunk" in extra:
+        assert "prefill chunks=" in lines["[scheduler]"]
+
+
+def test_launcher_trace_out_and_metrics(tmp_path, capsys):
+    """``--trace-out`` writes a trace that validates, ``--metrics`` prints
+    the registry snapshot, and neither changes the served tokens."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import validate_trace
+    base = ["--device", "cpu", "--batch", "2", "--requests", "4",
+            "--max-new", "3", "--temperature", "0.8"]
+    serve.main(base)
+    plain = capsys.readouterr().out
+    path = tmp_path / "t.json"
+    serve.main(base + ["--trace-out", str(path), "--metrics"])
+    out = capsys.readouterr().out
+    strip = lambda o: [ln for ln in o.splitlines() if ln.startswith("req")]
+    assert strip(out) == strip(plain) and len(strip(plain)) == 4
+    assert validate_trace(json.loads(path.read_text())["traceEvents"]) == []
+    snap = json.loads(out.split("[obs] ", 2)[2])
+    assert snap["rounds"] > 0 and snap["dispatches"] > 0
+
+
 def test_launcher_page_dtype_needs_page_size(capsys):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
@@ -196,8 +249,14 @@ def test_launcher_page_dtype_needs_page_size(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    ([], "Queue 1 item 7"),
+    (["--overlap"], "Queue 1 item 7\\(d\\)"),
+    (["--chaos-seed", "1"], "Queue 1 item 7\\(e\\)"),
+    (["--max-queue", "4"], "Queue 1 item 7\\(e\\)"),
+    (["--deadline-steps", "8"], "Queue 1 item 7\\(e\\)"),
+    (["--priority-every", "3"], "Queue 1 item 7\\(e\\)"),
+    (["--chaos-cancel-rate", "0.1"], "Queue 1 item 7\\(e\\)"),
     (["--static", "--mesh", "1x1"], "Queue 1 item 14"),
+    (["--mesh", "1x1"], "Queue 1 item 14"),
     (["--static", "--arch", "llama_3_2_vision_11b"], "Queue 1 item 12"),
     (["--static", "--arch", "seamless_m4t_large_v2"], "Queue 1 item 12"),
 ])

@@ -11,6 +11,11 @@ reduced SSM sizes, and of the moe twins: the moe config of
 ``test_paged_cache._family_cfg`` (one dense layer, 4 experts top-2,
 capacity factor 4.0 so nothing drops) with olmoe's rmsnorm and qk-norm, and
 a ``moe_shared`` variant with one shared expert.
+
+The scheduler's parity tests run the JAX side on its plain XLA path
+(``plain_models``: the model config's default ``attn_impl``/``ssd_impl``,
+as the JAX package's own scheduler tests run it) and serve one ragged trace
+(``sched_trace``) through both schedulers (``serve_trace``).
 """
 
 import functools
@@ -68,3 +73,59 @@ def np_(x):
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@functools.lru_cache(maxsize=None)
+def plain_models(seed=0, **over):
+    """``models`` with the JAX side on its plain XLA path (the config's
+    default ``attn_impl``/``ssd_impl``), for the scheduler's long traces."""
+    kw = dict(BASE, **over)
+    cfg_j, cfg_t = JaxConfig(**kw), TorchConfig(**kw)
+    params, _ = jax_get_model(cfg_j).init(jax.random.PRNGKey(seed), cfg_j)
+    params_np = jax.tree.map(np.asarray, params)
+    return cfg_j, params, cfg_t, from_jax_params(cfg_t, params_np, device="cpu")
+
+
+def sched_trace(rng, n, *, shared_prefix=None, vocab=64):
+    """A ragged trace of ``(arrival, prompt, max_new_tokens)``: staggered
+    arrivals, ragged prompts (3-13 tokens, or a shared prefix + suffix cut
+    to 16 on about half of them when ``shared_prefix`` is given) and
+    ragged budgets (3-7)."""
+    out, t = [], 0.0
+    for _ in range(n):
+        t += rng.exponential(1.5)
+        prompt = rng.randint(1, vocab, rng.randint(3, 14))
+        if shared_prefix is not None and rng.rand() < 0.5:
+            prompt = np.concatenate([shared_prefix, prompt])[:16]
+        out.append((t, prompt, int(rng.randint(3, 8))))
+    return out
+
+
+def serve_trace(sched_cls, sampling_cls, engine, trace, *, capacity=4,
+                max_len=24, chunk=4, compact_threshold=0.5, **kw):
+    """Serve ``trace`` through one package's scheduler, every third request
+    sampling at T=0.8 (its own seed), the rest greedy: (results, a copy of
+    the stats, the scheduler)."""
+    sched = sched_cls(engine, capacity=capacity, max_len=max_len, chunk=chunk,
+                      compact_threshold=compact_threshold, **kw)
+    for rid, (arrival, prompt, max_new) in enumerate(trace):
+        sp = (sampling_cls(temperature=0.8, top_p=0.9, seed=rid, greedy=False)
+              if rid % 3 == 0 else None)
+        sched.submit(prompt, arrival=arrival, max_new_tokens=max_new,
+                     sampling=sp)
+    results = sched.run()
+    stats = {k: (list(v) if isinstance(v, list) else v)
+             for k, v in sched.stats.items()}
+    return results, stats, sched
+
+
+def assert_same_results(got, want, tag=""):
+    """Byte-for-byte tokens, equal ``n_generated`` and finish reasons."""
+    assert sorted(got) == sorted(want), tag
+    for rid in want:
+        g, w = got[rid], want[rid]
+        assert g["n_generated"] == w["n_generated"], (tag, rid)
+        assert g["tokens"].dtype == w["tokens"].dtype, (tag, rid)
+        assert g["tokens"].tobytes() == w["tokens"].tobytes(), \
+            (tag, rid, g["tokens"], w["tokens"])
+        assert g["finish_reason"].value == w["finish_reason"].value, (tag, rid)
