@@ -62,13 +62,19 @@
    at full width: stablelm-3b with the dense cache (the first 8 requests
    held to ``generate`` of their 8 prompts bit for bit, the first 12 held
    fused == unfused and traced == untraced bit for bit with equal
-   dispatches and host syncs, the trace exported and validated) and paged
-   (prefix sharing, the host-swap tier, chunked prefill of 256, requests
-   16–23 second turns of earlier requests: session hits held, no page
-   leaked, the requests with no prefix hit and no chunk held to the dense
-   leg bit for bit and the others' first-token logits to one bf16 rounding
-   step), zamba2-1.2b paged int8 with chunked prefill and olmoe-1b-7b
-   dense.  Each leg runs twice (the first run captures its graphs), both
+   dispatches and host syncs, the trace exported and validated), the same
+   with ``overlap=True`` (every request's tokens held to the dense leg's,
+   one host sync a round), paged (prefix sharing, the host-swap tier,
+   chunked prefill of 256, requests 16–23 second turns of earlier
+   requests: session hits held, no page leaked, the requests with no
+   prefix hit and no chunk held to the dense leg bit for bit, narrowed
+   bursts included, and every request's first-token logits to the dense
+   leg's or the whole prompt's bit for bit), the control plane (the first
+   16 requests and 4 second turns on a 192-page pool with overlap,
+   priorities, a bounded queue, deadlines and a seeded chaos schedule, run
+   twice: every mechanism fired, no page leaked, every finished request's
+   tokens held to the dense leg's, the two runs equal), zamba2-1.2b paged
+   int8 with chunked prefill and olmoe-1b-7b dense.  Each leg runs twice (the first run captures its graphs), both
    runs held to every budget in vocab ids and to the same tokens, the warm
    run's launches per kernel and body held; it prints tokens per second,
    TTFT, the decode step, a round's anatomy (admission and compaction
@@ -92,6 +98,14 @@ builds the kernels and holds chunked against whole-prompt prefill of
 stablelm-3b on the card (``chunk_probe``), through the kernels and the
 plain attention, and the dense kernel alone at a short last chunk's
 shapes: a bf16 prefill's logits move with its GEMMs' row count.
+
+    python3 chip_smoke.py --gemm-probe
+
+builds the kernels and shows which row counts give a row the same bits
+(``gemm_probe``): every projection shape of stablelm-3b, zamba2-1.2b and
+mamba2-130m and their row reductions with 16 probe rows inside calls of 1
+to 8192 rows, and at model level one decode step at widths 1/2/4/8 and one
+prompt prefilled alone, in a batch and in chunks, at several row floors.
 
     python3 chip_smoke.py --ssd-probes
 
@@ -429,7 +443,7 @@ def check_kernels(flash_attention):
                                        dtype=torch.int32, device="cuda")
                 q_off = (kv_lens - sq).clamp_min(0) if causal else kv_lens * 0
                 kw = dict(kv_lens=kv_lens, causal=causal, window=window,
-                          q_offset=q_off)
+                          q_offset=q_off, decode=body == "split_kv")
                 K.reset_flash_counts()
                 got = flash_attention(q, k, v, impl="kernel", **kw)
                 want = flash_attention(q, k, v, impl="naive", **kw)
@@ -447,7 +461,7 @@ def check_kernels(flash_attention):
                       f"{K.flash_dense_cuda.body_launches}")
                 if want_body == "split_kv":
                     splits.add(K.plan_dense(dtype, b, hkv * group, hkv, sq,
-                                            skv, d).splits)
+                                            skv, d, decode=True).splits)
                 r = tol_ratio(got, want, atol, rtol)
                 if kind == "tensor_core":
                     tc_ratio[(b, hkv, group, sq, skv, d)] = r
@@ -464,7 +478,8 @@ def check_kernels(flash_attention):
                 atol, rtol = TOL[kind]
                 for causal, window in PAGED_MASKS:
                     kw = dict(kv_lens=kv_lens, causal=causal, window=window,
-                              q_offset=q_off, page_table=table)
+                              q_offset=q_off, page_table=table,
+                              decode=body == "split_kv")
                     K.reset_flash_counts()
                     got = flash_attention(q, kp, vp, impl="kernel", **kw)
                     want = flash_attention(q, kp, vp, impl="naive", **kw)
@@ -557,7 +572,7 @@ def check_quant_kernel(flash_attention):
                 table[1, (skv // 2 + 1 + ps - 1) // ps:] = 10 ** 6   # stale ids
                 kw = dict(kv_lens=kv_lens, causal=True, window=window,
                           q_offset=(kv_lens - sq).clamp_min(0), page_table=table,
-                          k_scale=ks, v_scale=vs)
+                          k_scale=ks, v_scale=vs, decode=body == "split_kv")
                 K.reset_flash_counts()
                 got = flash_attention(q, kp, vp, impl="kernel", **kw)
                 want = flash_attention(q, kp, vp, impl="naive", **kw)
@@ -640,7 +655,7 @@ def check_paged_equals_dense(flash_attention):
             kp, vp, table = _pages_of(k, v, ps, gen)
             for window in (None, 200):
                 kw = dict(kv_lens=lens, causal=True, window=window,
-                          q_offset=(lens - sq).clamp_min(0))
+                          q_offset=(lens - sq).clamp_min(0), decode=True)
                 K.reset_flash_counts()
                 dense = flash_attention(q, k, v, impl="kernel", **kw)
                 paged = flash_attention(q, kp, vp, impl="kernel", page_table=table,
@@ -659,6 +674,57 @@ def check_paged_equals_dense(flash_attention):
           f"rows per KV head; window none and 200)", flush=True)
 
 
+def check_prefill_rows(flash_attention):
+    """A bf16 prefill row takes the tensor-core body at any row count and
+    its bits do not depend on the call (held, ``torch.equal``): the rows of
+    a 521-row causal prefill at stablelm's heads equal the same rows
+    computed as chunks of 256, 256 and 9 rows (each at its ``q_offset``),
+    as one row alone, and inside a batch of 3 lanes padded to 1024 rows;
+    head dims 64 and 80, GQA group 1 and 4."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    n, skv, n_cases = 521, SCHED_MAX_LEN, 0
+    for d, hkv, group in ((80, 32, 1), (64, 8, 4)):
+        q = torch.randn(1, hkv * group, n, d, generator=gen,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn(1, hkv, skv, d, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        call = lambda qq, off, kv, **kw: flash_attention(
+            qq, kv[0], kv[1], impl="kernel", causal=True,
+            kv_lens=torch.tensor([off + qq.shape[2]] * qq.shape[0],
+                                 dtype=torch.int32, device="cuda"),
+            q_offset=torch.tensor([off] * qq.shape[0], dtype=torch.int32,
+                                  device="cuda"), **kw)
+        K.reset_flash_counts()
+        whole = call(q, 0, (k, v))
+        parts = [(0, 256), (256, 512), (512, n), (n - 1, n)]
+        for lo, hi in parts:
+            got = call(q[:, :, lo:hi].contiguous(), lo, (k, v))
+            check(torch.equal(got, whole[:, :, lo:hi]),
+                  f"prefill rows {lo}:{hi} (d={d}, group {group}) alone equal "
+                  f"the whole call's")
+        qb = torch.randn(3, hkv * group, 1024, d, generator=gen,
+                         device="cuda").bfloat16()
+        qb[1, :, :n] = q[0]
+        kb, vb = (torch.randn(3, hkv, skv, d, generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        kb[1], vb[1] = k[0], v[0]
+        lens = torch.tensor([1024, n, 700], dtype=torch.int32, device="cuda")
+        got = flash_attention(qb, kb, vb, impl="kernel", causal=True,
+                              kv_lens=lens, q_offset=torch.zeros_like(lens))
+        torch.cuda.synchronize()
+        check(torch.equal(got[1, :, :n], whole[0]),
+              f"prefill rows in a batch of 3 (d={d}) equal the prompt's alone")
+        check(K.flash_dense_cuda.body_launches["tensor_core"] == len(parts) + 2
+              and K.flash_dense_cuda.launches == len(parts) + 2,
+              f"every prefill call on the tensor-core body: "
+              f"{K.flash_dense_cuda.body_launches}")
+        n_cases += len(parts) + 1
+    print(f"[kernels] bf16 prefill rows on the tensor-core body equal bit for "
+          f"bit alone, in chunks of 256 / 256 / 9 rows, as one row and in a "
+          f"batch ({n_cases} cases, d 64 and 80, group 1 and 4)", flush=True)
+
+
 def check_batch_independence(flash_attention):
     """Each lane's bf16 decode output, dense and paged, is bit for bit the
     same alone in a short cache (its own keys, rounded up to a page) as
@@ -672,7 +738,7 @@ def check_batch_independence(flash_attention):
     k, v = (torch.randn(8, hkv, 1027, d, generator=gen, device="cuda").to(
         torch.bfloat16) for _ in range(2))
     kp, vp, table = _pages_of(k, v, ps, gen)
-    kw = lambda ln: dict(kv_lens=ln, causal=True, q_offset=ln - 1)
+    kw = lambda ln: dict(kv_lens=ln, causal=True, q_offset=ln - 1, decode=True)
     batch = {"dense": flash_attention(q, k, v, impl="kernel", **kw(lens)),
              "paged": flash_attention(q, kp, vp, impl="kernel", page_table=table,
                                       **kw(lens))}
@@ -1039,7 +1105,7 @@ def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
     pairs = int(mask.sum())
     rows[f"dense_prefill{name}"] = dict(
         shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
-        body=K.plan_dense(bf, b, h, hkv, s, max_len, d).body,
+        body=K.plan_dense(bf, b, h, hkv, s, max_len, d, decode=False).body,
         ms=time_ms(kern, 20), plain_ms=time_ms(plain, 5), library_ms=time_ms(lib, 20),
         flops=4 * h * d * pairs,
         bytes=item * (2 * q.numel() + 2 * hkv * d * int(lens_t.sum())),
@@ -1050,7 +1116,7 @@ def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
     kv1 = lens_t + 1
     q1 = q[:, :, :1].contiguous()
     kern = lambda: K.flash_dense_cuda(q1, k, v, kv1, lens_t, win, causal=False,
-                                      scale=scale)
+                                      scale=scale, decode=True)
     plain = lambda: R.mha_ref(q1, k, v, kv_lens=kv1, q_offset=lens_t)
     mask1 = R.attention_mask(1, max_len, kv_lens=kv1, q_offset=lens_t)
     lib = lambda: F.scaled_dot_product_attention(q1, k, v, attn_mask=mask1[:, None],
@@ -1060,7 +1126,7 @@ def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
     torch.testing.assert_close(out_k, out_p, atol=TOL["split_kv"][0],
                                rtol=TOL["split_kv"][1])
     live = int(kv1.sum())
-    plan = K.plan_dense(bf, b, h, hkv, 1, max_len, d)
+    plan = K.plan_dense(bf, b, h, hkv, 1, max_len, d, decode=True)
     rows[f"dense_decode{name}"] = dict(
         shape=f"q {tuple(q1.shape)} k/v {tuple(k.shape)} bf16, {plan.splits} splits",
         body=plan.body, ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20),
@@ -1136,7 +1202,7 @@ def time_kernels(cfg, lens, max_len, gpu):
                 .transpose(1, 2))
     tab_c = torch.where(PG.page_whilelt(kv1, n_pages, PAGE_SIZE), tab, 0)
     kern = lambda: K.flash_paged_cuda(q1, kp, vp, tab_c, kv1, lens_t, win,
-                                      causal=False, scale=scale)
+                                      causal=False, scale=scale, decode=True)
     plain = lambda: R.mha_ref(q1, PG.gather_pages(kp, tab_c),
                               PG.gather_pages(vp, tab_c), kv_lens=kv1,
                               q_offset=lens_t)
@@ -1145,12 +1211,13 @@ def time_kernels(cfg, lens, max_len, gpu):
     torch.testing.assert_close(out_k, out_p, atol=TOL["split_kv"][0],
                                rtol=TOL["split_kv"][1])
     dense_out = K.flash_dense_cuda(q1, k, v, kv1, lens_t, win, causal=False,
-                                   scale=scale)
+                                   scale=scale, decode=True)
     torch.cuda.synchronize()
     check(torch.equal(out_k, dense_out), "paged decode at stablelm's shape "
           "equals the dense call bit for bit")
     sweep = {"dense": lambda: K.flash_dense_cuda(q1, k, v, kv1, lens_t, win,
-                                                 causal=False, scale=scale),
+                                                 causal=False, scale=scale,
+                                                 decode=True),
              "paged bf16": kern}
     rows["paged_decode"] = dict(
         shape=f"q {tuple(q1.shape)} pools {tuple(kp.shape)} ps {PAGE_SIZE} bf16",
@@ -1167,7 +1234,7 @@ def time_kernels(cfg, lens, max_len, gpu):
         (kq, ksc), (vq, vsc) = PG.quantize_block(kp, qdt), PG.quantize_block(vp, qdt)
         kern = lambda kq=kq, vq=vq, ksc=ksc, vsc=vsc: K.flash_paged_quant_cuda(
             q1, kq, vq, ksc, vsc, tab_c, kv1, lens_t, win, causal=False,
-            scale=scale)
+            scale=scale, decode=True)
         plain = lambda: R.mha_ref(q1, PG.gather_pages(kq, tab_c, scale=ksc),
                                   PG.gather_pages(vq, tab_c, scale=vsc),
                                   kv_lens=kv1, q_offset=lens_t)
@@ -2172,6 +2239,8 @@ def serve_model(arch, gpu):
     eng_warm = ServeEngine(cfg, model, max_new_tokens=2, stop_token=-1)
     eng_warm.generate({"tokens": batch["tokens"][:2, :16]})    # cuBLAS warm-up
     torch.cuda.synchronize()
+    if cfg.family != "moe":
+        check_rows(fam, model, cfg, gpu)
 
     runs = {}
     steps = MAX_NEW - 1
@@ -2430,25 +2499,26 @@ def split_kv_held(record):
         record["ratio"][name] = max(record["ratio"].get(name, 0.0),
                                     tol_ratio(out, want, *TOL["split_kv"]))
 
-    def dense(q, k, v, kv_lens, q_offset, window, *, causal, scale):
+    def dense(q, k, v, kv_lens, q_offset, window, *, causal, scale, decode):
         out = K.flash_dense_cuda(q, k, v, kv_lens, q_offset, window,
-                                 causal=causal, scale=scale)
+                                 causal=causal, scale=scale, decode=decode)
         b, hq, sq, d = q.shape
         if K.plan_dense(q.dtype, b, hq, k.shape[1], sq, k.shape[2],
-                        d).body == K.SPLIT_KV:
+                        d, decode=decode).body == K.SPLIT_KV:
             hold("flash_attention_dense", out, q, k, v, kv_lens, q_offset,
                  window, causal, scale)
         return out
 
-    def paged(q, kp, vp, *rest, causal, scale):
+    def paged(q, kp, vp, *rest, causal, scale, decode):
         quant = len(rest) == 6
         ks, vs = rest[:2] if quant else (None, None)
         table, kv_lens, q_offset, window = rest[-4:]
         fn = K.flash_paged_quant_cuda if quant else K.flash_paged_cuda
-        out = fn(q, kp, vp, *rest, causal=causal, scale=scale)
+        out = fn(q, kp, vp, *rest, causal=causal, scale=scale, decode=decode)
         b, hq, sq, d = q.shape
         if K.plan_paged(q.dtype, kp.dtype, b, hq, kp.shape[1], sq,
-                        table.shape[1], kp.shape[2], d).body == K.SPLIT_KV:
+                        table.shape[1], kp.shape[2], d,
+                        decode=decode).body == K.SPLIT_KV:
             hold("flash_attention_paged_quant" if quant else
                  "flash_attention_paged", out, q, PG.gather_pages(kp, table, scale=ks),
                  PG.gather_pages(vp, table, scale=vs), kv_lens, q_offset,
@@ -2738,16 +2808,20 @@ _ROUND_KEYS = ("decode_steps", "prefill_chunks", "compactions",
                "prefill_tokens", "dispatches", "host_syncs")
 
 
-def drive(sched, work, follow=None, window=None):
+def drive(sched, work, follow=None, window=None, monkey=None):
     """Serve ``work`` through ``sched`` until drained.  Every request is
-    submitted at the start with its arrival, except each ``follow`` entry
+    submitted at the start with its arrival (and its ``priority`` and
+    ``deadline`` where the entry has them), except each ``follow`` entry
     ``i: (j, extra)``: request i, the second turn of request j (j's prompt,
     its output and ``extra``), submitted once j's result is in, arriving
-    then.  Each round is timed on the host clock (a round ends with its
+    then.  With ``monkey`` (a ``ChaosMonkey`` installed on ``sched``) its
+    between-round faults run after every round; an overlap stash is flushed
+    at the end.  Each round is timed on the host clock (a round ends with its
     harvest's read of the device) with its stats' deltas.  A request
     arrives at the end of the round after which the scheduler's clock has
     passed its arrival, and its first token is stamped at the end of the
-    round that committed it (after that round's sync): TTFT is the
+    round that committed it (after that round's sync) — under overlap at
+    the end of the next round, whose sync waits for it: TTFT is the
     difference.  ``window`` (first, last) rounds run under torch.profiler
     (device events).  Returns the results by request index and the log."""
     from torch.profiler import ProfilerActivity, profile
@@ -2758,7 +2832,9 @@ def drive(sched, work, follow=None, window=None):
         w = work[i]
         prompts[i] = prompt
         rid_of[i] = sched.submit(prompt, max_new_tokens=w["budget"],
-                                 arrival=arrival, sampling=w["sampling"])
+                                 arrival=arrival, sampling=w["sampling"],
+                                 priority=w.get("priority", 0),
+                                 deadline=w.get("deadline"))
 
     for i, w in enumerate(work):
         if i not in follow:
@@ -2770,8 +2846,8 @@ def drive(sched, work, follow=None, window=None):
     for rid, req in sched._live_req.items():
         if req.arrival <= sched.now:
             arrived[rid] = t0
-    prof, k = None, 0
-    while sched.queue or (sched.lane_rid >= 0).any():
+    prof, k, late, late_seen = None, 0, [], set()
+    while sched.queue or sched._preempted or (sched.lane_rid >= 0).any():
         if window is not None and k == window[0]:
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.__enter__()
@@ -2781,6 +2857,8 @@ def drive(sched, work, follow=None, window=None):
         nb = len(sched.engine.widths)
         ts = time.perf_counter()
         sched.step()
+        if monkey is not None:
+            monkey.on_round(sched)
         te = time.perf_counter()
         d = {q: st[q] - b for q, b in zip(_ROUND_KEYS, before)}
         resident |= set(sched.lane_rid[sched.lane_rid >= 0].tolist())
@@ -2790,9 +2868,17 @@ def drive(sched, work, follow=None, window=None):
                  or d["prefill_chunks"] > 0, resident=resident,
                  narrow=any(w < SCHED_CAP for w in sched.engine.widths[nb:]))
         log["rounds"].append(d)
+        for rid in late:                        # overlap: synced this round
+            log["first"][rid] = te
+        late = []
         for rid, t in sched.req_times.items():
-            if "first_token" in t and rid not in log["first"]:
-                log["first"][rid] = te
+            if "first_token" in t and rid not in log["first"] \
+                    and rid not in late_seen:
+                if sched.overlap:
+                    late.append(rid)
+                    late_seen.add(rid)
+                else:
+                    log["first"][rid] = te
         for i, (j, extra) in follow.items():
             if i not in rid_of and rid_of.get(j) in sched.results:
                 prev = sched.results[rid_of[j]]["tokens"]
@@ -2808,10 +2894,15 @@ def drive(sched, work, follow=None, window=None):
             log["window_ms"] = (time.perf_counter() - tp) * 1e3
             prof.__exit__(None, None, None)
             log["prof"], log["window_rounds"], prof = prof, k - window[0], None
-    log["wall_s"] = time.perf_counter() - t0
+    sched._flush_stash()
+    te = time.perf_counter()
+    for rid in late:
+        log["first"][rid] = te
+    log["wall_s"] = te - t0
     res = {i: sched.results[rid] for i, rid in rid_of.items()}
     log["ttft_ms"] = sorted((log["first"][rid] - arrived[rid]) * 1e3
-                            for rid in rid_of.values())
+                            for rid in rid_of.values()
+                            if rid in log["first"] and rid in arrived)
     log["rid_of"] = rid_of
     narrowed = set().union(*(r["resident"] for r in log["rounds"]
                              if r["narrow"]))
@@ -2929,14 +3020,13 @@ def _want_sched(cfg, eng) -> tuple:
     """Each kernel's launches in a bf16 scheduler run, and the bodies that
     can be stated: every prefill call (an admission or a chunk, counted by
     ``_PrefillRecorder``) launches the dense flash kernel once per attention
-    layer, on its tensor-core body, or on the split-KV body when the call
-    has few query rows (a short suffix or last chunk: ``plan_dense``), and
-    the SSD scan once per Mamba layer on its tensor-core body; every burst
-    (counted by ``sched_engine``) runs ``SCHED_CHUNK`` steps, each
-    launching the decode kernel's split-KV body once per attention layer;
-    MoE layers rank once per prefill call and decode step; no call runs a
-    CUDA-core body.  ``fadda`` depends on the sampled steps and is not
-    stated.  Returns (launches, decode kernel, its decode launches)."""
+    layer on its tensor-core body, whatever its row count, and the SSD scan
+    once per Mamba layer on its tensor-core body; every burst (counted by
+    ``sched_engine``) runs ``SCHED_CHUNK`` steps, each launching the decode
+    kernel's split-KV body once per attention layer; MoE layers rank once
+    per prefill call and decode step; no call runs a CUDA-core body.
+    ``fadda`` depends on the sampled steps and is not stated.  Returns
+    (launches, decode kernel, its decode launches)."""
     attn, calls = _attn_layers(cfg), eng.model.calls
     steps = SCHED_CHUNK * eng.bursts
     decode = ("flash_attention_dense" if eng.paged is None else
@@ -2954,21 +3044,16 @@ def _want_sched(cfg, eng) -> tuple:
 
 
 def _held_bodies(bodies, want, decode, decode_launches) -> bool:
-    """The bodies ``_want_sched`` states: no CUDA-core body; the decode
-    kernel's split-KV launches those of the bursts plus, on the dense
-    kernel, those of short prefill calls; the SSD scan all on its
+    """The bodies ``_want_sched`` states: no CUDA-core body; every prefill
+    call of the dense kernel on the tensor-core body; the decode kernel's
+    split-KV launches those of the bursts; the SSD scan all on its
     tensor-core body."""
     if any(b.get("cuda_core", 0) for b in bodies.values()):
         return False
-    prefill_split = (bodies["flash_attention_dense"]["split_kv"]
-                     - (decode_launches if decode == "flash_attention_dense"
-                        else 0))
-    return (prefill_split >= 0
-            and bodies["flash_attention_dense"]["tensor_core"] + prefill_split
-            == want["flash_attention_dense"] - (
-                decode_launches if decode == "flash_attention_dense" else 0)
-            and (decode == "flash_attention_dense"
-                 or bodies[decode]["split_kv"] == decode_launches)
+    dense = bodies["flash_attention_dense"]
+    return (dense["tensor_core"] == want["flash_attention_dense"]
+            - (decode_launches if decode == "flash_attention_dense" else 0)
+            and bodies[decode]["split_kv"] == decode_launches
             and bodies["ssd_scan"]["tensor_core"] == want["ssd_scan"])
 
 
@@ -3044,6 +3129,165 @@ def sched_leg(cfg, model, work, gpu, name, *, keep=False, follow=None,
               and (sched.allocator.refcount == 0).all(),
               f"{cfg.name} {name}: no page leaked")
     return eng, sched, res, log, st, counts, captures
+
+
+# the control-plane leg: the phase's first 16 requests and 4 second turns
+# (the paged leg's 16-19) on a pool of 192 pages of 16 tokens, a fifth of
+# what 8 lanes of 1088 tokens hold, so pages run short; every 3rd request
+# at priority 5, every 4th from 1 with a finish deadline of its arrival
+# plus half its budget, a queue of at most 14 (the last 2 of the 16 are
+# shed at submit) and a seeded chaos schedule
+CP_REQ, CP_POOL, CP_MAX_QUEUE = 16, 192, 14
+CP_CHAOS = dict(seed=21, alloc_fail_rate=0.05, cancel_rate=0.004,
+                swap_corrupt_rate=0.5)
+
+
+def overlap_leg(cfg, eng, work, dense_res, dense_log, dense_a, gpu) -> dict:
+    """The dense leg's traffic with ``overlap=True`` on the dense leg's
+    engine (its graphs warm): a first run (a width the dense leg never ran
+    captures its graph), then a warm run, traced as the dense leg's was,
+    counted and timed.  Held: both runs' tokens equal the non-overlap dense
+    leg's for every request, bit for bit; one counted host sync a round
+    (the harvest of the round before) plus the final flush; the launches
+    per kernel and body.  Prints its numbers beside the dense leg's.
+    Returns the warm run's launches."""
+    from repro_torch.obs import Obs, Tracer
+    before = set(eng.graphs)
+    res1, _ = drive(new_sched(eng, overlap=True), work)
+    captures = [((g.kw["stochastic"], g.kw["width"] or SCHED_CAP),
+                 round(g.capture_s, 3)) for k, g in eng.graphs.items()
+                if k not in before]
+    eng.model.calls = eng.bursts = 0
+    sched = new_sched(eng, overlap=True, obs=Obs(tracer=Tracer()))
+    reset_counts()
+    res, log = drive(sched, work)
+    counts, bodies = read_counts(), read_bodies()
+    sched_served(cfg, work, res, "dense overlap")
+    bad1, bad = same_tokens(res1, dense_res), same_tokens(res, dense_res)
+    check(not bad1 and not bad, f"{cfg.name} overlap == non-overlap, bit for "
+          f"bit (first run: requests {bad1} differ; warm run: {bad})")
+    st = sched.stats
+    check(st["host_syncs"] == st["dispatches"] <= st["steps"] + 1,
+          f"{cfg.name} overlap: one host sync a round plus the flush "
+          f"({st['host_syncs']} syncs, {st['dispatches']} dispatches, "
+          f"{st['steps']} rounds)")
+    want, decode, decode_launches = _want_sched(cfg, eng)
+    check({k: v for k, v in counts.items() if k != "fadda"}
+          == {k: v for k, v in want.items() if k != "fadda"}
+          and _held_bodies(bodies, want, decode, decode_launches),
+          f"{cfg.name} overlap: launches {counts} bodies {_nonzero(bodies)}, "
+          f"expected {want}")
+    a = sched_report(cfg, "dense overlap", work, res, log, sched, captures,
+                     gpu)
+    toks = sum(r["n_generated"] for r in res.values())
+    toks_d = sum(r["n_generated"] for r in dense_res.values())
+    print(f"[sched] {cfg.name} overlap against the dense leg (same call, "
+          f"host clock): {toks / log['wall_s']:.1f} against "
+          f"{toks_d / dense_log['wall_s']:.1f} tokens/s; TTFT p50 "
+          f"{_pct(log['ttft_ms'], 50):.1f} / p90 {_pct(log['ttft_ms'], 90):.1f}"
+          f" against {_pct(dense_log['ttft_ms'], 50):.1f} / "
+          f"{_pct(dense_log['ttft_ms'], 90):.1f} ms; decode "
+          f"{a['step_ms']:.3f} against {dense_a['step_ms']:.3f} ms a step; "
+          f"{st['host_syncs']} host syncs in {st['steps']} rounds; every "
+          f"request's tokens equal the dense leg's (held)  [{gpu}]",
+          flush=True)
+    return counts
+
+
+def control_plane_work(work, follow):
+    """The control-plane leg's requests and second turns (``CP_REQ``)."""
+    out = []
+    for i, w in enumerate(work[:CP_REQ + 4]):
+        w = dict(w)
+        if i % 3 == 0:
+            w["priority"] = 5
+        if i % 4 == 1:
+            w["deadline"] = w["arrival"] + w["budget"] // 2
+        out.append(w)
+    return out, {i: follow[i] for i in range(CP_REQ, CP_REQ + 4)}
+
+
+def control_plane_leg(cfg, model, work, follow, dense_res, paged_res,
+                      paged_log, gpu) -> dict:
+    """The request control plane on the card: stablelm-3b paged (pages of
+    16, prefix sharing, host swap, prefill chunks of 256), ``overlap=True``,
+    the ``control_plane_work`` traffic under ``CP_CHAOS``, run twice from
+    the same seed.  Held: preemptions, sheds, cancels, deadline misses and
+    swap checksum failures all > 0; no page leaked; every request has a
+    finish reason; every request that finished done or preempted_resumed
+    has the dense leg's tokens bit for bit (a second turn the paged leg's,
+    where its prompt is that leg's), and a cancelled or deadline request a
+    prefix of them; the two runs' results, stats and faults equal; the
+    launches per kernel and body.  Returns the second run's launches."""
+    from repro_torch.obs import Obs, Tracer
+    from repro_torch.serve.chaos import ChaosConfig, ChaosMonkey
+    work_c, follow_c = control_plane_work(work, follow)
+    eng = sched_engine(cfg, model)
+    eng.paged = PAGE_SIZE
+    kw = dict(page_size=PAGE_SIZE, pool_pages=CP_POOL,
+              host_swap_pages=SCHED_SWAP_PAGES, prefill_chunk=256,
+              overlap=True, max_queue=CP_MAX_QUEUE)
+    runs = []
+    for k in range(2):
+        eng.model.calls = eng.bursts = 0
+        sched = new_sched(eng, obs=Obs(tracer=Tracer()), **kw)
+        monkey = ChaosMonkey(ChaosConfig(**CP_CHAOS)).install(sched)
+        reset_counts()
+        res, log = drive(sched, work_c, follow_c, monkey=monkey)
+        runs.append((sched, monkey, res, log, read_counts(), read_bodies()))
+    (s1, m1, r1, _, _, _), (sched, monkey, res, log, counts, bodies) = runs
+    st = dict(sched.stats)
+    fired = {k: st[k] for k in ("preemptions", "shed", "cancelled",
+                                "deadline_misses", "swap_checksum_failures")}
+    check(all(fired.values()), f"{cfg.name} control plane: every mechanism "
+          f"fired ({fired})")
+    check(sched.allocator.live_pages == 0
+          and (sched.allocator.refcount == 0).all(),
+          f"{cfg.name} control plane: no page leaked")
+    reasons = {i: r["finish_reason"].value for i, r in res.items()}
+    check(sorted(res) == sorted(range(len(work_c))),
+          f"{cfg.name} control plane: every request has a result ({reasons})")
+    ref = {i: dense_res[i] for i in res if i < CP_REQ}
+    ref.update({i: paged_res[i] for i in res if i >= CP_REQ and np.array_equal(
+        log["prompts"][i], paged_log["prompts"][i])})
+    whole = [i for i in ref if reasons[i] in ("done", "preempted_resumed")]
+    bad = [i for i in whole if res[i]["tokens"].tobytes()
+           != ref[i]["tokens"].tobytes()]
+    cut = [i for i in ref if reasons[i] in ("cancelled", "deadline")]
+    bad_cut = [i for i in cut if res[i]["tokens"].tobytes()
+               != ref[i]["tokens"][:res[i]["n_generated"]].tobytes()]
+    check(not bad and not bad_cut, f"{cfg.name} control plane: requests "
+          f"{bad} (whole) and {bad_cut} (partial) left the reference tokens")
+    check(not same_tokens(res, r1)
+          and {i: r["finish_reason"] for i, r in r1.items()}
+          == {i: r["finish_reason"] for i, r in res.items()}
+          and dict(s1.stats) == st
+          and (m1.alloc_failures, m1.cancels, m1.corruptions)
+          == (monkey.alloc_failures, monkey.cancels, monkey.corruptions),
+          f"{cfg.name} control plane: two runs from one seed agree")
+    want, decode, decode_launches = _want_sched(cfg, eng)
+    check({k: v for k, v in counts.items() if k != "fadda"}
+          == {k: v for k, v in want.items() if k != "fadda"}
+          and _held_bodies(bodies, want, decode, decode_launches),
+          f"{cfg.name} control plane: launches {counts} bodies "
+          f"{_nonzero(bodies)}, expected {want}")
+    resumed = [i for i in whole if reasons[i] == "preempted_resumed"]
+    print(f"[sched] {cfg.name} control plane: {len(work_c)} requests "
+          f"({CP_REQ} + 4 second turns) on a pool of {CP_POOL} pages, overlap, "
+          f"max_queue {CP_MAX_QUEUE}, chaos {CP_CHAOS}: {fired}, "
+          f"{st['resume_page_ins']} pages resumed, {st['page_waits']} page "
+          f"waits; faults injected: {monkey.alloc_failures} alloc failures, "
+          f"{monkey.cancels} cancels, {monkey.corruptions} corruptions; "
+          f"finish reasons {reasons}; {len(whole)} whole requests ({resumed} "
+          f"resumed) equal their reference tokens and {len(cut)} cut ones a "
+          f"prefix of them, bit for bit; {len(res) - len(ref)} second turns "
+          f"without a reference prompt; no page leaked; two runs from one "
+          f"seed agree (all held); {len(log['rounds'])} rounds in "
+          f"{log['wall_s']:.3f} s, {st['host_syncs']} host syncs  [{gpu}]",
+          flush=True)
+    del eng, runs
+    torch.cuda.empty_cache()
+    return counts
 
 
 def span_ms(obs) -> dict:
@@ -3160,6 +3404,10 @@ def serve_scheduler(gpu) -> dict:
           f"{n_ev} trace events exported, valid (held)  [{gpu}]", flush=True)
     soft = {"generate (first 8)": diff_g, "traced == untraced": diff_on,
             "unfused == fused": diff_unf}
+    lap("the dense leg's checks done")
+    launches["stablelm_3b dense overlap"] = overlap_leg(
+        cfg, eng, work, dense_res, dense_log, a, gpu)
+    lap("stablelm-3b overlap leg done")
     check(st_on == st_off, f"{cfg.name}: tracing moved dispatches/host syncs "
           f"{st_on} against {st_off}")
     print(f"[sched] bit-for-bit comparisons, dense (requests that differ): "
@@ -3214,24 +3462,24 @@ def serve_scheduler(gpu) -> dict:
         return logits[0].float()
 
     # requests with no prefix hit and no chunk: tokens held to the dense
-    # leg's where both legs decoded them only in full-width bursts (a
-    # narrower burst runs the projections' GEMMs at another M)
+    # leg's, narrowed bursts included (a row's bits do not depend on the
+    # burst's width: ``layers.ROW_FLOOR``)
     plain_idx = [i for i in range(SCHED_REQ)
                  if i not in follow and i not in hit and i not in chunked]
     shapes = {i: (eng_p.model.first_logits(work[i]["prompt"])[1],
                   dense_eng.model.first_logits(work[i]["prompt"])[1])
               for i in plain_idx}
-    full = [i for i in plain_idx
-            if i not in log_p["narrowed"] and i not in dense_log["narrowed"]]
+    narrowed = sorted((set(log_p["narrowed"]) | set(dense_log["narrowed"]))
+                      & set(plain_idx))
     diff_p = same_tokens(res_p, dense_res, plain_idx)
     # chunked requests with no hit: first-token logits held bit for bit to
     # the same chunks replayed through the family's prefill
     replay_bad = [i for i in sorted(chunked - hit) if not torch.equal(
         eng_p.model.first_logits(work[i]["prompt"])[0],
         replay(work[i]["prompt"]))]
-    # every other request: first-token logits against the dense leg's (a
-    # whole-prompt prefill alone for a second turn)
-    rels, ratios = {}, {}
+    # every request: first-token logits against the dense leg's (a
+    # whole-prompt prefill alone for a second turn), bit for bit
+    rels, logit_bad = {}, []
     for i in sorted(hit | chunked | set(plain_idx)):
         prompt = log_p["prompts"][i]
         got = eng_p.model.first_logits(prompt)[0]
@@ -3246,7 +3494,8 @@ def serve_scheduler(gpu) -> dict:
                     eng_p.make_cache(1, SCHED_MAX_LEN))
             want = want[0].float()
         rels[i] = rel_err(got, want)
-        ratios[i] = tol_ratio(got, want, *SCHED_LOGIT_TOL)
+        if not torch.equal(got, want):
+            logit_bad.append(i)
     sched_report(cfg, "paged", work, res_p, log_p, sched_p, caps, gpu,
                  f"; prefix hits on requests {sorted(hit)}, chunked "
                  f"{sorted(chunked)}; swap out {st_p['swap_out_pages']} / in "
@@ -3254,22 +3503,23 @@ def serve_scheduler(gpu) -> dict:
                  f"failures 0 (held)")
     print(f"[sched] {cfg.name} paged against dense: requests {plain_idx} (no "
           f"prefix hit, no chunk; admission call shapes paged/dense "
-          f"{shapes}; in a narrowed burst {sorted(set(plain_idx) - set(full))}"
-          f") differ in {diff_p}; the chunked requests' first-token "
-          f"logits against the same chunks replayed: {replay_bad} differ; "
-          f"first-token logits against the dense leg, relative error "
-          f"{ {i: float(f'{r:.3e}') for i, r in rels.items()} }, ratio to "
-          f"one bf16 rounding step (atol 1e-5, rtol 2^-7) "
-          f"{ {i: round(r, 1) for i, r in ratios.items()} }  [{gpu}]",
-          flush=True)
+          f"{shapes}; in a narrowed burst {narrowed}) differ in {diff_p}; the "
+          f"chunked requests' first-token logits against the same chunks "
+          f"replayed: {replay_bad} differ; first-token logits of "
+          f"{len(rels)} requests (prefix hits, chunked, second turns, plain) "
+          f"against the dense leg's or the whole prompt's: {logit_bad} "
+          f"differ (relative error "
+          f"{ {i: float(f'{r:.3e}') for i, r in rels.items() if r} })  "
+          f"[{gpu}]", flush=True)
     check(st_p["session_hits"] > 0 and st_p["swap_checksum_failures"] == 0,
           f"{cfg.name} paged: session hits {st_p['session_hits']}, checksum "
           f"failures {st_p['swap_checksum_failures']}")
-    soft["paged == dense (full-width plain requests)"] = [
-        i for i in diff_p if i in full]
+    soft["paged == dense (plain requests, narrowed or not)"] = diff_p
     soft["chunked == replayed chunks"] = replay_bad
-    soft[f"paged logits rel > {LIMIT_BF16}"] = [
-        i for i, r in rels.items() if r > LIMIT_BF16]
+    soft["paged first-token logits == dense / whole prompt"] = logit_bad
+    launches["stablelm_3b control plane"] = control_plane_leg(
+        cfg, model, work, follow, dense_res, res_p, log_p, gpu)
+    lap("stablelm-3b control-plane leg done")
     del eng_p, sched_p, eng, sched, dense_eng, model
     torch.cuda.empty_cache()
     print(f"[sched] held comparisons (requests that differ, none may): "
@@ -3370,6 +3620,369 @@ def chunk_probe(gpu) -> None:
         print(f"[probe] dense kernel sq {sq} ({m} live rows) at q_offset {off}"
               f" over {SCHED_MAX_LEN} keys: ratio {tol_ratio(got, want, *TOL['split_kv']):.3f}"
               f", max abs err {float((got - want).abs().max()):.3e}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# ``--gemm-probe``: which row counts give a row the same bits
+# ---------------------------------------------------------------------------
+
+# row counts of the probe's calls: a burst's widths, a short last chunk's
+# padded widths, whole prompts and a batch of 8 of them
+PROBE_MS = (1, 2, 3, 4, 5, 8, 9, 13, 16, 20, 32, 64, 128, 227, 256, 300, 512,
+            963, 1024, 2048, 4096, 8192)
+PROBE_ARCHS = ("stablelm_3b", "zamba2_1_2b", "mamba2_130m")
+# (projection floor, norm floor) pairs: none, the shipped pair, and the
+# projections' floor for both
+PROBE_FLOORS = ((1, 1), (256, 16), (256, 256))
+
+
+def rows_in(rnd, probe):
+    """``make`` for ``_row_classes``: a call of M random rows shaped like
+    ``probe``'s, its first k probe rows at ``at``."""
+    def make(m, at, k):
+        x = rnd(m, *probe.shape[1:], dt=probe.dtype)
+        x[at:at + k] = probe[:k]
+        return x
+    return make
+
+
+def _row_classes(make, fn, ms=PROBE_MS):
+    """16 probe rows inside calls of each row count M of ``ms`` (at the
+    call's start, middle and end; the first M of them below 16 rows), the
+    rest of the call filler: ``make(m, at, k)`` builds the call's inputs
+    with the probe rows at ``at:at + k``, ``fn`` maps them to a tuple of
+    outputs with rows first.  Returns ``(classes, floor)``: the row counts
+    grouped by row 0's bits, and the least M from which every call of the
+    list gives every probe row the bits of M = ``ms[-1]``, at every place."""
+    out = {}
+    for m in ms:
+        k = min(16, m)
+        for pos, at in (("start", 0), ("middle", (m - k) // 2), ("end", m - k)):
+            res = fn(make(m, at, k))
+            out[(m, pos)] = tuple(r[at:at + k].clone() for r in res)
+    ref = out[(ms[-1], "start")]
+    same = {m: all(all(torch.equal(a, b[:a.shape[0]])
+                       for a, b in zip(out[(m, pos)], ref))
+                   for pos in ("start", "middle", "end")) for m in ms}
+    floor = None
+    for m in reversed(ms):
+        if not same[m]:
+            break
+        floor = m
+    classes = collections.OrderedDict()
+    for m in ms:
+        key = b"".join(_bits(r[:1]).cpu().numpy().tobytes()
+                       for r in out[(m, "start")])
+        classes.setdefault(key, []).append(m)
+    return list(classes.values()), floor
+
+
+def _probe_weights(cfg, model) -> list:
+    """The projections of a model as (name, in, out, transposed): each
+    distinct shape of its matmul weights, and the tied unembedding (the
+    embedding table read transposed)."""
+    seen, out = set(), []
+    for name, p in model.named_parameters():
+        if p.dim() != 2 or name.endswith(("embed.tok", "conv_w")):
+            continue
+        if tuple(p.shape) not in seen:
+            seen.add(tuple(p.shape))
+            out.append((name, p.shape[0], p.shape[1], False))
+    if cfg.tie_embeddings:
+        out.append(("embed.tok (tied unembed)", cfg.d_model, cfg.padded_vocab,
+                    True))
+    return out
+
+
+@torch.inference_mode()
+def gemm_probe(gpu) -> dict:
+    """Which row counts give a row the same bits, at the full width of
+    stablelm-3b, zamba2-1.2b and mamba2-130m.
+
+    1. Every projection shape (``x @ w``, bf16, ``(in, out)`` weights; the
+       tied unembedding through the transposed table) and the f32 row
+       reductions (the block norm, the gated out norm) and the SSM decode
+       step's conv and recurrence, with 16 probe rows inside calls of each
+       of ``PROBE_MS`` rows: the classes of row counts by a row's bits and
+       the least M from which all agree (``_row_classes``).
+    2. The models: one bf16 decode step at widths 1, 2, 4 and 8, lane 0's
+       logits compared, and (stablelm-3b) one prompt's first-token logits
+       prefilled alone, inside a batch of 8 and in chunks of 256 ending in
+       a short chunk, each with ``layers.ROW_FLOOR`` and
+       ``NORM_ROW_FLOOR`` at each pair of ``PROBE_FLOORS`` (1: no floor),
+       the sampler's draw at those widths too; and what the shipped floors
+       cost stablelm-3b (``floor_cost``).  Prints what it finds; holds
+       nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.ops import ssd_decode_step
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rnd = lambda *shape, dt=torch.bfloat16: torch.randn(
+        *shape, generator=gen, device="cuda").to(dt)
+    shipped = L.ROW_FLOOR, L.NORM_ROW_FLOOR
+    found = {}
+    for arch in PROBE_ARCHS:
+        cfg = get_config(arch)
+        fam = get_model(cfg)
+        model = fam.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+        # ---- 1. the ops, by row count ----
+        for name, k_in, n_out, tied in _probe_weights(cfg, model):
+            w = rnd(n_out, k_in).t() if tied else rnd(k_in, n_out)
+            classes, floor = _row_classes(rows_in(rnd, rnd(16, k_in)),
+                                          lambda x, w=w: (x @ w,))
+            found[(arch, name)] = floor
+            print(f"[gemm] {arch} {name} ({k_in}, {n_out}){' tied' if tied else ''}"
+                  f": row counts by a row's bits {classes}; every call from "
+                  f"M = {floor} on gives M = {PROBE_MS[-1]}'s bits  [{gpu}]",
+                  flush=True)
+        d = cfg.d_model
+        rms = lambda x: (x * torch.rsqrt(x.square().mean(-1, keepdim=True)
+                                         + 1e-5),)
+        classes, floor = _row_classes(
+            rows_in(rnd, rnd(16, d, dt=torch.float32)), rms)
+        found[(arch, "norm")] = floor
+        print(f"[gemm] {arch} f32 rms norm over {d}: {classes}; from M = "
+              f"{floor} on  [{gpu}]", flush=True)
+        layer = lambda x: ((x - x.mean(-1, keepdim=True)) * torch.rsqrt(
+            x.var(-1, keepdim=True, unbiased=False) + 1e-5),)
+        classes, floor = _row_classes(
+            rows_in(rnd, rnd(16, d, dt=torch.float32)), layer)
+        found[(arch, "layernorm")] = floor
+        print(f"[gemm] {arch} f32 layer norm over {d}: {classes}; from M = "
+              f"{floor} on  [{gpu}]", flush=True)
+        if cfg.family in ("ssm", "hybrid"):
+            from repro_torch.models.ssm import conv_dim
+            di, n, h, pd = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                            cfg.ssm_headdim)
+            classes, floor = _row_classes(
+                rows_in(rnd, rnd(16, di, dt=torch.float32)), rms)
+            found[(arch, "gated norm")] = floor
+            print(f"[gemm] {arch} f32 rms norm over d_inner {di}: {classes}; "
+                  f"from M = {floor} on  [{gpu}]", flush=True)
+            c, wd = conv_dim(cfg), cfg.ssm_conv_width
+            cw = rnd(wd, c)
+            classes, floor = _row_classes(
+                rows_in(rnd, rnd(16, wd, c)),
+                lambda win: (torch.einsum("bwc,wc->bc", win, cw),),
+                ms=PROBE_MS[:15])
+            found[(arch, "conv einsum")] = floor
+            print(f"[gemm] {arch} decode conv einsum (W={wd}, C={c}): "
+                  f"{classes}; from M = {floor} on  [{gpu}]", flush=True)
+            A = -torch.rand(h, generator=gen, device="cuda")
+            Dv = rnd(h, dt=torch.float32)
+            st = [rnd(16, h, pd), torch.rand(16, h, generator=gen, device="cuda"),
+                  rnd(16, n), rnd(16, n), rnd(16, h, pd, n, dt=torch.float32)]
+
+            def make_ssd(m, at, k):
+                ins = [rnd(m, h, pd), torch.rand(m, h, generator=gen,
+                                                 device="cuda"),
+                       rnd(m, n), rnd(m, n), rnd(m, h, pd, n, dt=torch.float32)]
+                for a, b in zip(ins, st):
+                    a[at:at + k] = b[:k]
+                return ins
+            classes, floor = _row_classes(
+                make_ssd, lambda ins: ssd_decode_step(*ins[:2], A, *ins[2:4],
+                                                      ins[4], D=Dv),
+                ms=PROBE_MS[:15])
+            found[(arch, "ssd decode step")] = floor
+            print(f"[gemm] {arch} ssd_decode_step (H={h}, P={pd}, N={n}): "
+                  f"{classes}; from M = {floor} on  [{gpu}]", flush=True)
+        # ---- 2. the model, by burst width and prefill layout ----
+        rs = np.random.RandomState(7)
+        for floor in PROBE_FLOORS:
+            L.ROW_FLOOR, L.NORM_ROW_FLOOR = floor
+            same, diff = lane_widths(fam, model, cfg)
+            msg = (f"[gemm] {arch} floors {floor}: one decode step, lane 0's "
+                   f"logits at widths 1/2/4/8 equal width 1's: {same} (max "
+                   f"|diff| {diff:.3e})")
+            if arch != "mamba2_130m":
+                lay = prefill_layouts(fam, model, cfg, rs)
+                msg += (f"; prefill of {lay['n']} tokens: in a batch of 8 == "
+                        f"alone {lay['batch']}, chunks of 256 (last "
+                        f"{lay['n'] % 256}) == alone {lay['chunks']} (max "
+                        f"|diff| {lay['diff']:.3e})")
+            if arch == "stablelm_3b":
+                msg += (f"; the sampler's lane-0 draw and state equal at "
+                        f"widths 1/2/4/8: {sampler_widths(fam, model, cfg)}")
+            print(msg + f"  [{gpu}]", flush=True)
+        L.ROW_FLOOR, L.NORM_ROW_FLOOR = shipped
+        if arch == "stablelm_3b":
+            floor_cost(fam, model, cfg, L, gpu)
+        del model
+        torch.cuda.empty_cache()
+    return found
+
+
+def _probe_cache(fam, model, cfg):
+    """8 lanes prefilled with 64 random tokens each (seed 7) and their
+    first tokens."""
+    rs = np.random.RandomState(7)
+    prompts = torch.from_numpy(rs.randint(1, cfg.vocab_size, (8, 64))
+                               .astype(np.int32)).cuda()
+    cache = fam.make_cache(cfg, 8, 128, device="cuda")
+    logits, cache = fam.prefill(model, cfg, {"tokens": prompts}, cache)
+    return cache, logits
+
+
+def lane_widths(fam, model, cfg):
+    """One bf16 decode step of the same 8 lanes at widths 1, 2, 4 and 8 (the
+    first w lanes, as a narrowed burst takes them): whether lane 0's logits
+    equal width 1's at each width, and the largest difference."""
+    from repro_torch.models import gather_lanes
+    cache, logits = _probe_cache(fam, model, cfg)
+    tok = logits.argmax(-1).to(torch.int32)
+    lane0 = []
+    for w in (1, 2, 4, 8):
+        idx = torch.arange(w, device="cuda")
+        sub = {k: v.clone() for k, v in gather_lanes(cfg, cache, idx).items()}
+        lg, _ = fam.decode(model, cfg, {"token": tok[:w, None]}, sub)
+        lane0.append(lg[0].float())
+    return ([torch.equal(lane0[0], x) for x in lane0],
+            max(float((x - lane0[0]).abs().max()) for x in lane0))
+
+
+def sampler_widths(fam, model, cfg):
+    """The sampler's lane-0 draw and new state at widths 1, 2, 4 and 8 of
+    one stochastic spec: whether each equals width 1's."""
+    from repro_torch import sample as S
+    _, logits = _probe_cache(fam, model, cfg)
+    state = S.lane_state([mixed_specs()[4]] * 8, 8, device="cuda")
+    draws = []
+    for w in (1, 2, 4, 8):
+        t, st = S.sample(logits[:w], S.gather_lanes(
+            state, torch.arange(w, device="cuda")))
+        draws.append((t[0].clone(), {k: v[0].clone() for k, v in st.items()}))
+    return [torch.equal(t, draws[0][0]) and all(
+        torch.equal(v, draws[0][1][k]) for k, v in st.items())
+        for t, st in draws]
+
+
+def prefill_layouts(fam, model, cfg, rs) -> dict:
+    """One 521-token prompt's first-token logits prefilled alone, inside a
+    batch of 8 and in chunks of 256 ending in a 9-token chunk (each padded
+    to a power of two, as the scheduler pads them): whether the batch's and
+    the chunks' equal the prompt's alone, and the chunks' largest
+    difference."""
+    n = 521
+    prompt = torch.from_numpy(rs.randint(1, cfg.vocab_size, n).astype(
+        np.int32)).cuda()
+    alone = fam.prefill(model, cfg, {"tokens": prompt[None]},
+                        fam.make_cache(cfg, 1, SCHED_MAX_LEN, device="cuda"))[0][0]
+    toks = torch.from_numpy(rs.randint(1, cfg.vocab_size, (8, 1024)).astype(
+        np.int32)).cuda()
+    lens = torch.from_numpy(rs.randint(128, 1025, 8).astype(np.int32)).cuda()
+    toks[3, :n] = prompt
+    lens[3] = n
+    batch = fam.prefill(model, cfg, {"tokens": toks, "lens": lens},
+                        fam.make_cache(cfg, 8, SCHED_MAX_LEN, device="cuda"))[0][3]
+    cache, start = fam.make_cache(cfg, 1, SCHED_MAX_LEN, device="cuda"), 0
+    while start < n:
+        m = min(256, n - start)
+        width = 1 << (m - 1).bit_length()
+        t = torch.zeros((1, width), dtype=torch.int32, device="cuda")
+        t[0, :m] = prompt[start:start + m]
+        lg, cache = fam.prefill(model, cfg, {
+            "tokens": t, "lens": torch.tensor([m], device="cuda"),
+            "pos0": torch.tensor([start], device="cuda")}, cache)
+        start += m
+    return {"n": n, "batch": torch.equal(batch, alone),
+            "chunks": torch.equal(lg[0], alone),
+            "diff": float((lg[0].float() - alone.float()).abs().max())}
+
+
+@torch.inference_mode()
+def check_rows(fam, model, cfg, gpu) -> None:
+    """A row's bits do not depend on the call's row count, at model level
+    (held): one bf16 decode step gives lane 0 the same logits at widths 1,
+    2, 4 and 8; the sampler draws lane 0's token and state alike at those
+    widths; and (families that prefill in chunks on the attention path) one
+    prompt's first-token logits are the same prefilled alone, inside a batch
+    of 8 and in chunks of 256 ending in a short chunk."""
+    from repro_torch.models import layers as L
+    same, diff = lane_widths(fam, model, cfg)
+    check(all(same), f"{cfg.name}: lane 0's decode logits at widths 1/2/4/8 "
+          f"equal bit for bit ({same}, max |diff| {diff:.3e})")
+    msg = "lane 0's decode logits equal at widths 1/2/4/8"
+    if cfg.family == "dense":
+        eq = sampler_widths(fam, model, cfg)
+        check(all(eq), f"{cfg.name}: the sampler's lane-0 draw at widths "
+              f"1/2/4/8 ({eq})")
+        msg += ", the sampler's lane-0 draw and state too"
+    if cfg.family in ("dense", "hybrid"):
+        lay = prefill_layouts(fam, model, cfg, np.random.RandomState(7))
+        check(lay["batch"] and lay["chunks"],
+              f"{cfg.name}: first-token logits alone == in a batch of 8 "
+              f"({lay['batch']}) == in chunks of 256 ({lay['chunks']}, max "
+              f"|diff| {lay['diff']:.3e})")
+        msg += (f"; a {lay['n']}-token prompt's first-token logits equal "
+                f"alone, in a batch of 8 and in chunks of 256 ending in a "
+                f"{lay['n'] % 256}-token chunk")
+    print(f"[rows] {cfg.name}: {msg}, bit for bit (held; layers.ROW_FLOOR "
+          f"= {L.ROW_FLOOR}, NORM_ROW_FLOOR = {L.NORM_ROW_FLOOR})  [{gpu}]",
+          flush=True)
+
+
+def floor_cost(fam, model, cfg, L, gpu) -> None:
+    """What the row floors cost stablelm-3b, in turns within this call
+    (no floors, the shipped floors, the shipped floors, no floors): one decode
+    step of 8 lanes over a 1088-key cache captured as a CUDA graph and
+    replayed (the floor adds a pad kernel to each projection and norm) and
+    one eager prefill of 8 prompts of 1024 tokens, each by CUDA events
+    around several runs in a row."""
+    rs = np.random.RandomState(8)
+    toks = torch.from_numpy(rs.randint(1, cfg.vocab_size, (8, 1024)).astype(
+        np.int32)).cuda()
+    cache = fam.make_cache(cfg, 8, SCHED_MAX_LEN, device="cuda")
+    logits, cache = fam.prefill(model, cfg, {"tokens": toks}, cache)
+    step = {"token": logits.argmax(-1).to(torch.int32)[:, None]}
+
+    def decode():
+        fam.decode(model, cfg, step, {k: v for k, v in cache.items()})
+
+    def prefill():
+        fam.prefill(model, cfg, {"tokens": toks},
+                    fam.make_cache(cfg, 8, SCHED_MAX_LEN, device="cuda"))
+    def event_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return round(start.elapsed_time(end) / reps, 3)
+
+    def graphed_ms(fn, reps):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        ms = event_ms(graph.replay, reps)
+        del graph
+        return ms
+
+    shipped, out = (L.ROW_FLOOR, L.NORM_ROW_FLOOR), collections.defaultdict(list)
+    for floor in ((1, 1), shipped, shipped, (1, 1)):
+        L.ROW_FLOOR, L.NORM_ROW_FLOOR = floor
+        out[("decode", floor)].append(graphed_ms(decode, 50))
+        out[("prefill", floor)].append(event_ms(prefill, 3))
+    L.ROW_FLOOR, L.NORM_ROW_FLOOR = shipped
+    none = (1, 1)
+    print(f"[gemm] stablelm_3b cost of the row floors, in turns (CUDA events): "
+          f"graphed decode step of 8 lanes "
+          f"{out[('decode', none)]} ms without, {out[('decode', shipped)]} ms "
+          f"with (ROW_FLOOR, NORM_ROW_FLOOR) = {shipped}; prefill of 8 x 1024 "
+          f"tokens {out[('prefill', none)]} ms without, "
+          f"{out[('prefill', shipped)]} ms with  [{gpu}]", flush=True)
 
 
 def run_quickstart() -> dict:
@@ -4060,6 +4673,9 @@ def main() -> int:
     if "--chunk-probe" in args:
         phase("chunk probe", chunk_probe, gpu)
         return 0
+    if "--gemm-probe" in args:
+        phase("gemm probe", gemm_probe, gpu)
+        return 0
     if "--scheduler" in args:
         phase("serve scheduler", serve_scheduler, gpu)
         return 0
@@ -4071,6 +4687,7 @@ def main() -> int:
     phase("check flash quant", check_quant_kernel, flash_attention)
     phase("check paged == dense", check_paged_equals_dense, flash_attention)
     phase("check batch independence", check_batch_independence, flash_attention)
+    phase("check prefill rows", check_prefill_rows, flash_attention)
     phase("check ssd", check_ssd)
     phase("check moe_positions", check_moe_positions)
     phase("check fadda", check_fadda)

@@ -7,11 +7,16 @@ into ``build/`` at the repo root, named by the hash of the source so an
 edited source rebuilds, and loads it with ``ctypes``.
 
 Each kernel has several bodies, chosen per call by ``plan_dense`` and
-``plan_paged`` (plain Python, so the CPU tests see the route):
+``plan_paged`` (plain Python, so the CPU tests see the route) from the
+dtypes, the head shapes and the call's role, never from its row count: a
+prefill row (a whole prompt or any chunk of it, one row included) takes
+the same body whatever the call's length, so its bits do not depend on how
+the prompt was cut.
 
-- ``tensor_core``, dense bf16 prefill (more than 16 rows per KV head): 64
-  query rows per CTA, Q in registers, bf16 K/V tiles through a cp.async
-  ring, ``mma.sync`` products with f32 accumulators.  Bound by operations.
+- ``tensor_core``, dense bf16 prefill at any row count: 64 query rows per
+  CTA, Q in registers, bf16 K/V tiles through a cp.async ring,
+  ``mma.sync`` products with f32 accumulators; a row's bits depend only on
+  its own position and keys.  Bound by operations.
 - ``split_kv``, bf16 decode (at most 16 rows per KV head), dense K/V or
   paged pools (bf16, int8 or fp8): one body for both, split over the keys
   on a grid that only the lane's own keys decide (``lane_splits``), f32
@@ -19,8 +24,8 @@ Each kernel has several bodies, chosen per call by ``plan_dense`` and
   a second launch.  Bound by bytes.  Dense and paged calls over the same
   bf16 keys give the same bits, and a lane's bits do not depend on the
   other lanes of the call or on the cache's allocated length.
-- ``cuda_core``, f32 (and bf16 paged calls with more than 16 rows per KV
-  head): the first design, f32 products on the CUDA cores (tensor cores
+- ``cuda_core``, f32, and bf16 paged prefill (or paged decode of more than
+  16 rows per KV head): the first design, f32 products on the CUDA cores (tensor cores
   would round f32 to TF32).
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
@@ -162,33 +167,36 @@ def _split_plan(b, hq, hkv, sq, skv, d) -> Plan:
 
 
 def plan_dense(dtype, b: int, hq: int, hkv: int, sq: int, skv: int,
-               d: int) -> Plan:
+               d: int, *, decode: bool) -> Plan:
     """The dense kernel's plan for q (b, hq, sq, d) over k/v (b, hkv, skv, d).
 
     f32 takes the CUDA-core body (the tensor cores would run it as TF32).
-    bf16 with at most ``SPLIT_ROWS`` rows per KV head (group * Sq: decode)
-    takes the split-KV body; other bf16 calls (prefill) the tensor-core
-    body, 64 query rows of one head per CTA."""
+    A bf16 decode call with at most ``SPLIT_ROWS`` rows per KV head
+    (group * Sq) takes the split-KV body; every other bf16 call, and every
+    prefill at any row count, the tensor-core body, 64 query rows of one
+    head per CTA.  ``decode`` is the caller's: a one-row last chunk of a
+    prompt has a decode step's shapes."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype {dtype} not in {_DTYPES}")
     if d > MAX_HEAD_DIM or hq % hkv:
         raise ValueError(f"unsupported shape: Hq={hq}, Hkv={hkv}, D={d}")
     if dtype == torch.float32:
         return Plan(CUDA_CORE, 1, None)
-    if (hq // hkv) * sq <= SPLIT_ROWS:
+    if decode and (hq // hkv) * sq <= SPLIT_ROWS:
         return _split_plan(b, hq, hkv, sq, skv, d)
     return Plan(TENSOR_CORE, 1, None)
 
 
 def plan_paged(dtype, pool_dtype, b: int, hq: int, hkv: int, sq: int,
-               n_pages: int, page_size: int, d: int) -> Plan:
+               n_pages: int, page_size: int, d: int, *, decode: bool) -> Plan:
     """The paged kernel's plan for q (b, hq, sq, d) over (P, hkv, ps, d)
     pools of ``pool_dtype`` read through a (b, n_pages) table.
 
-    bf16 q with at most ``SPLIT_ROWS`` rows per KV head takes the split-KV
-    body, the dense decode body itself walking the page table, over bf16,
-    int8 and fp8 pools alike; f32 q and longer bf16 chunks the CUDA-core
-    body (f32 paged decode stays on the template of f32 dense decode).
+    A bf16 decode call with at most ``SPLIT_ROWS`` rows per KV head takes
+    the split-KV body, the dense decode body itself walking the page table,
+    over bf16, int8 and fp8 pools alike; f32 q and a bf16 prefill at any
+    row count the CUDA-core body (f32 paged decode stays on the template of
+    f32 dense decode).
     A narrow pool needs a head dim that is a multiple of 16."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype {dtype} not in {_DTYPES}")
@@ -201,13 +209,13 @@ def plan_paged(dtype, pool_dtype, b: int, hq: int, hkv: int, sq: int,
         # narrow K/V are read 16 elements (16 bytes) at a time
         raise ValueError(f"head dim {d} of a quantized pool is not a "
                          "multiple of 16")
-    if dtype == torch.bfloat16 and (hq // hkv) * sq <= SPLIT_ROWS:
+    if dtype == torch.bfloat16 and decode and (hq // hkv) * sq <= SPLIT_ROWS:
         return _split_plan(b, hq, hkv, sq, n_pages * page_size, d)
     return Plan(CUDA_CORE, 1, None)
 
 
 def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
-                     scale: float):
+                     scale: float, decode: bool = False):
     """Dense kernel: q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) -> (B,Hq,Sq,D) in q's
     dtype.  ``kv_lens``/``q_offset`` (B,) and ``window`` (1,) int32.  The
     body is ``plan_dense``'s; each call adds one to ``launches`` and to its
@@ -219,7 +227,7 @@ def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
     _check(k.shape[0] == b and k.shape[3] == d, "k/v batch or head dim != q's")
     hkv, skv = k.shape[1], k.shape[2]
     _check(hq % hkv == 0, f"Hq={hq} is not a multiple of Hkv={hkv}")
-    plan = plan_dense(q.dtype, b, hq, hkv, sq, skv, d)
+    plan = plan_dense(q.dtype, b, hq, hkv, sq, skv, d, decode=decode)
     out = torch.empty_like(q)
     lib = LIBRARY.get()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
@@ -289,7 +297,7 @@ def _paged_split(q, k_pool, v_pool, k_scale, v_scale, page_table, kv_lens,
 
 
 def flash_paged_cuda(q, k_pool, v_pool, page_table, kv_lens, q_offset, window,
-                     *, causal: bool, scale: float):
+                     *, causal: bool, scale: float, decode: bool = False):
     """Paged kernel: q (B,Hq,Sq,D), pools (P,Hkv,ps,D) of q's dtype,
     page_table (B,n_pages) int32 -> (B,Hq,Sq,D) in q's dtype.  The body is
     ``plan_paged``'s; each call adds one to ``launches`` and to its body's
@@ -301,7 +309,8 @@ def flash_paged_cuda(q, k_pool, v_pool, page_table, kv_lens, q_offset, window,
     _check_pools(q, k_pool, v_pool, page_table)
     n_pool, hkv, ps = k_pool.shape[:3]
     n_pages = page_table.shape[1]
-    plan = plan_paged(q.dtype, k_pool.dtype, b, hq, hkv, sq, n_pages, ps, d)
+    plan = plan_paged(q.dtype, k_pool.dtype, b, hq, hkv, sq, n_pages, ps, d,
+                      decode=decode)
     if plan.body == SPLIT_KV:
         out = _paged_split(q, k_pool, v_pool, None, None, page_table, kv_lens,
                            q_offset, window, plan, causal, scale)
@@ -321,7 +330,7 @@ def flash_paged_cuda(q, k_pool, v_pool, page_table, kv_lens, q_offset, window,
 
 def flash_paged_quant_cuda(q, k_pool, v_pool, k_scale, v_scale, page_table,
                            kv_lens, q_offset, window, *, causal: bool,
-                           scale: float):
+                           scale: float, decode: bool = False):
     """Paged kernel over QUANTIZED pools: q (B,Hq,Sq,D) f32/bf16; pools
     (P,Hkv,ps,D) int8 or float8_e4m3fn; scales (P,Hkv,ps) f32; page_table
     (B,n_pages) int32 -> (B,Hq,Sq,D) in q's dtype.  Each K/V element widens
@@ -350,7 +359,8 @@ def flash_paged_quant_cuda(q, k_pool, v_pool, k_scale, v_scale, page_table,
            "quantized pools must start on a 16-byte boundary")
     n_pool, hkv, ps = k_pool.shape[:3]
     n_pages = page_table.shape[1]
-    plan = plan_paged(q.dtype, k_pool.dtype, b, hq, hkv, sq, n_pages, ps, d)
+    plan = plan_paged(q.dtype, k_pool.dtype, b, hq, hkv, sq, n_pages, ps, d,
+                      decode=decode)
     if plan.body == SPLIT_KV:
         out = _paged_split(q, k_pool, v_pool, k_scale, v_scale, page_table,
                            kv_lens, q_offset, window, plan, causal, scale)

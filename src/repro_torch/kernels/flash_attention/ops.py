@@ -54,7 +54,7 @@ def _use_plain(q, impl):
 def flash_attention(q, k, v, *, kv_lens=None, causal: bool = False,
                     window=None, q_offset=None, scale: float | None = None,
                     impl: str = "kernel", page_table=None, k_scale=None,
-                    v_scale=None):
+                    v_scale=None, decode: bool = False):
     """Predicated attention.  q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).
 
     - ``kv_lens``: (B,) valid KV lengths (default Skv).
@@ -67,12 +67,15 @@ def flash_attention(q, k, v, *, kv_lens=None, causal: bool = False,
     - ``k_scale`` / ``v_scale``: (P, Hkv, page_size) f32 scale pools of a
       QUANTIZED paged cache (int8 or float8_e4m3fn pools): K/V widen to
       ``q8 * scale`` at the point of use.  Paged mode only.
+    - ``decode``: the call is a decode step (one new token per lane), not a
+      prefill or a chunk of one; the kernels pick their body by it
+      (``kernel.plan_dense`` / ``plan_paged``), never by the row count.
     """
     if page_table is not None:
         return _flash_paged(q, k, v, page_table, kv_lens=kv_lens,
                             causal=causal, window=window, q_offset=q_offset,
                             scale=scale, impl=impl, k_scale=k_scale,
-                            v_scale=v_scale)
+                            v_scale=v_scale, decode=decode)
     if k_scale is not None or v_scale is not None:
         raise ValueError("quantized K/V scales require page_table (paged mode)")
     b, hq, sq, d = q.shape
@@ -85,11 +88,13 @@ def flash_attention(q, k, v, *, kv_lens=None, causal: bool = False,
     return _kernel.flash_dense_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(), kv_lens, q_offset,
         _window_vec(window, q.device), causal=causal,
-        scale=float(d ** -0.5) if scale is None else float(scale))
+        scale=float(d ** -0.5) if scale is None else float(scale),
+        decode=decode)
 
 
 def _flash_paged(q, k_pool, v_pool, page_table, *, kv_lens, causal, window,
-                 q_offset, scale, impl, k_scale=None, v_scale=None):
+                 q_offset, scale, impl, k_scale=None, v_scale=None,
+                 decode=False):
     """Paged dispatch: pools + page table instead of dense K/V; narrow pools
     with their scale pools when quantized."""
     if (k_scale is None) != (v_scale is None):
@@ -113,7 +118,8 @@ def _flash_paged(q, k_pool, v_pool, page_table, *, kv_lens, causal, window,
                             window=window, q_offset=q_offset, scale=scale)
     args = (q.contiguous(), k_pool.contiguous(), v_pool.contiguous())
     kw = dict(causal=causal,
-              scale=float(d ** -0.5) if scale is None else float(scale))
+              scale=float(d ** -0.5) if scale is None else float(scale),
+              decode=decode)
     rest = (page_table.contiguous(), kv_lens, q_offset,
             _window_vec(window, q.device))
     if k_scale is not None:

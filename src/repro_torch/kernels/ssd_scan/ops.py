@@ -87,7 +87,9 @@ def ssd_decode_step(x_t, dt_t, A, B_t, C_t, h, D=None):
     upd = (dt_t.float()[..., None, None] * x_t.float()[..., :, None]
            * B_t.float()[:, None, None, :])
     h_new = decay[..., None, None] * h.float() + upd
-    y = torch.einsum("bhpn,bn->bhp", h_new, C_t.float())
+    # a sum over the last dim, not a batched product: a batched product's
+    # algorithm (and so a lane's bits) changes with the batch on the card
+    y = (h_new * C_t.float()[:, None, None, :]).sum(-1)
     if D is not None:
         y = y + D.float()[None, :, None] * x_t.float()
     return y.to(x_t.dtype), h_new

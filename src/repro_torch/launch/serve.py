@@ -11,17 +11,23 @@ default), or one static batch through ``ServeEngine.generate`` with
     python -m repro_torch.launch.serve --arch stablelm_3b --static --no-reduce
     python -m repro_torch.launch.serve --arch stablelm_3b --device cpu \
         --temperature 0.8 --top-p 0.9 --trace-out trace.json --metrics
+    python -m repro_torch.launch.serve --arch stablelm_3b --device cpu \
+        --page-size 4 --pool-pages 12 --overlap --priority-every 3 \
+        --max-queue 6 --deadline-steps 40 --chaos-seed 1 \
+        --chaos-alloc-fail-rate 0.2 --chaos-cancel-rate 0.05
 
 Dims are reduced by default, as in ``repro.launch.serve``; ``--no-reduce``
 runs the published widths.  ``--batch`` is the scheduler's lane capacity
 (the batch size with ``--static``).  ``--page-dtype int8|fp8`` stores the
 paged cache's pools narrow and needs ``--page-size``.  ``--temperature``
 turns on stochastic sampling for every request (request i uses seed
-``--sample-seed`` + i); without it decoding is greedy.  The JAX launcher's
-options that are not ported yet exit naming the ROADMAP item that ports
-them: ``--overlap`` (Queue 1 item 7(d)); ``--max-queue``,
-``--deadline-steps``, ``--priority-every`` and ``--chaos-*`` (item 7(e));
-``--mesh`` (item 14); the encdec and VLM archs (item 12).
+``--sample-seed`` + i); without it decoding is greedy.  ``--overlap`` runs
+the async host loop; ``--max-queue``, ``--deadline-steps``,
+``--priority-every`` and ``--chaos-*`` drive the request control plane and
+the chaos harness (``serve.chaos``), with the JAX launcher's meaning, and a
+``[robustness]`` line reports them.  What is not ported yet exits naming
+the ROADMAP item that ports it: ``--mesh`` (Queue 1 item 14); the encdec
+and VLM archs (item 12).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from repro_torch.models import get_model
 from repro_torch.obs import Obs, Tracer
 from repro_torch.sample import SamplingParams
 from repro_torch.serve import ContinuousBatchingScheduler, ServeEngine
+from repro_torch.serve.chaos import ChaosConfig, ChaosMonkey
 
 # the reduced dims of repro.launch.train (training is not ported)
 REDUCE = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=256, n_heads=4,
@@ -64,19 +71,6 @@ PENDING_ARCHS = {
 
 # the JAX launcher's options that are not ported yet -> (flag, ROADMAP item)
 PENDING_OPTIONS = (
-    ("overlap", "--overlap", "Queue 1 item 7(d) (the async overlap loop)"),
-    ("max_queue", "--max-queue", "Queue 1 item 7(e) (the control plane)"),
-    ("deadline_steps", "--deadline-steps",
-     "Queue 1 item 7(e) (the control plane)"),
-    ("priority_every", "--priority-every",
-     "Queue 1 item 7(e) (the control plane)"),
-    ("chaos_seed", "--chaos-seed", "Queue 1 item 7(e) (serve/chaos.py)"),
-    ("chaos_alloc_fail_rate", "--chaos-alloc-fail-rate",
-     "Queue 1 item 7(e) (serve/chaos.py)"),
-    ("chaos_cancel_rate", "--chaos-cancel-rate",
-     "Queue 1 item 7(e) (serve/chaos.py)"),
-    ("chaos_swap_corrupt_rate", "--chaos-swap-corrupt-rate",
-     "Queue 1 item 7(e) (serve/chaos.py)"),
     ("mesh", "--mesh", "Queue 1 item 14 (mesh-sharded serving)"),
 )
 
@@ -128,15 +122,38 @@ def main(argv=None):
                          "unchanged by tracing")
     ap.add_argument("--metrics", action="store_true",
                     help="print the obs registry snapshot after the run")
+    ap.add_argument("--overlap", action="store_true",
+                    help="async host loop: dispatch round N+1 before reading "
+                         "round N (one blocking sync per round)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission queue: submits past this many "
+                         "queued requests are SHED (typed partial result) "
+                         "instead of queueing unboundedly")
+    ap.add_argument("--deadline-steps", type=float, default=None,
+                    help="per-request completion deadline, in decode steps "
+                         "after arrival: a request still decoding past it "
+                         "retires with its partial output "
+                         "(finish_reason='deadline')")
+    ap.add_argument("--priority-every", type=int, default=0,
+                    help="mark every Nth request priority 5 (0 disables): "
+                         "under page/lane starvation high-priority arrivals "
+                         "preempt a lower-priority lane and the victim later "
+                         "resumes bit for bit")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="install a deterministic ChaosMonkey with this "
+                         "seed (requires --chaos-* rates below to do "
+                         "anything)")
+    ap.add_argument("--chaos-alloc-fail-rate", type=float, default=0.0,
+                    help="probability each page allocation spuriously fails "
+                         "(models transient pool pressure)")
+    ap.add_argument("--chaos-cancel-rate", type=float, default=0.0,
+                    help="per-round probability each live request is "
+                         "cancelled (exercises every cancel branch)")
+    ap.add_argument("--chaos-swap-corrupt-rate", type=float, default=0.0,
+                    help="probability a host-swap insert is byte-flipped "
+                         "after its CRC — the next hit must degrade to a "
+                         "cold prefill, never serve corrupt K/V")
     # the JAX launcher's options still to port (PENDING_OPTIONS): each exits
-    ap.add_argument("--overlap", action="store_true")
-    ap.add_argument("--max-queue", type=int, default=None)
-    ap.add_argument("--deadline-steps", type=float, default=None)
-    ap.add_argument("--priority-every", type=int, default=None)
-    ap.add_argument("--chaos-seed", type=int, default=None)
-    ap.add_argument("--chaos-alloc-fail-rate", type=float, default=None)
-    ap.add_argument("--chaos-cancel-rate", type=float, default=None)
-    ap.add_argument("--chaos-swap-corrupt-rate", type=float, default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to opt out)")
     ap.add_argument("--seed", type=int, default=0)
@@ -214,14 +231,26 @@ def main(argv=None):
         page_size=args.page_size, pool_pages=args.pool_pages,
         prefix_sharing=not args.no_prefix_sharing,
         host_swap_pages=args.host_swap_pages,
-        prefill_chunk=args.prefill_chunk, fused=not args.no_fused, obs=obs)
+        prefill_chunk=args.prefill_chunk, fused=not args.no_fused,
+        overlap=args.overlap, max_queue=args.max_queue, obs=obs)
+    monkey = None
+    if args.chaos_seed is not None:
+        monkey = ChaosMonkey(ChaosConfig(
+            seed=args.chaos_seed,
+            alloc_fail_rate=args.chaos_alloc_fail_rate,
+            cancel_rate=args.chaos_cancel_rate,
+            swap_corrupt_rate=args.chaos_swap_corrupt_rate)).install(sched)
     rid_len = {}
     for i in range(args.requests):
         plen = int(rng.randint(4, args.prompt_len + 1))
+        prio = (5 if args.priority_every and i % args.priority_every == 0
+                else 0)
         rid = sched.submit(rng.randint(1, cfg.vocab_size, plen),
-                           sampling=_sampling(i))
+                           sampling=_sampling(i), priority=prio,
+                           deadline=(args.deadline_steps
+                                     if args.deadline_steps else None))
         rid_len[rid] = plen
-    results = sched.run()
+    results = monkey.run(sched) if monkey else sched.run()
     for rid in sorted(results):
         r = results[rid]
         print(f"req{rid} len={rid_len[rid]:2d} "
@@ -233,6 +262,16 @@ def main(argv=None):
           f"mean occupancy={sum(occ) / max(len(occ), 1):.2f}"
           + (f"  prefill chunks={st['prefill_chunks']}"
              if args.prefill_chunk else ""))
+    if (st["preemptions"] or st["cancelled"] or st["shed"]
+            or st["deadline_misses"] or monkey):
+        print(f"[robustness] preemptions={st['preemptions']} "
+              f"(pages back in={st['resume_page_ins']})  "
+              f"cancelled={st['cancelled']}  shed={st['shed']}  "
+              f"deadline misses={st['deadline_misses']}"
+              + (f"  [chaos seed={args.chaos_seed}: "
+                 f"alloc fails={monkey.alloc_failures} "
+                 f"cancels={monkey.cancels} "
+                 f"corruptions={monkey.corruptions}]" if monkey else ""))
     if args.page_size is not None:
         pocc = st["page_occupancy_trace"]
         print(f"[paged] pool={sched.pool_pages} pages "

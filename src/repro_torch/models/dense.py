@@ -32,7 +32,7 @@ class DenseLM(nn.Module):
                 f"only the dense family without cross-attention is ported "
                 f"(got family={cfg.family!r}, "
                 f"cross_attn_group={cfg.cross_attn_group}); "
-                "see ROADMAP Queue 1 items 10-12")
+                "see ROADMAP Queue 1 item 12")
         self.cfg = cfg
         self.embed = L.Embed(cfg, device)
         self.blocks = nn.ModuleList(L.Block(cfg, device)
@@ -180,7 +180,8 @@ def decode(model: DenseLM, cfg, batch, cache):
     for li, blk in enumerate(model.blocks):
         h, _ = L.block_apply(blk, h, positions, cfg, causal=False,
                              window=wins[li], kv_lens=pos + 1, q_offset=pos,
-                             cache=L.layer_cache(cache, "", li), cache_pos=pos)
+                             cache=L.layer_cache(cache, "", li), cache_pos=pos,
+                             decode=True)
     cache = dict(cache)
     cache["pos"] = pos + 1
     h = L.apply_norm(model.final_norm, h, cfg)

@@ -158,7 +158,7 @@ def _run(model: HybridLM, cfg, x, positions, cache, *, lens, q_offset,
         h, _ = L.block_apply(model.shared, h, positions, cfg, causal=causal,
                              kv_lens=kv_lens, q_offset=q_offset,
                              cache=L.layer_cache(cache, "shared_", gi),
-                             cache_pos=cache_pos)
+                             cache_pos=cache_pos, decode=decode_step)
     for li, blk in enumerate(model.tail):
         h = S.run_block(blk, h, cfg, cache["tail_conv"][li],
                         cache["tail_state"][li], lens=lens,

@@ -11,6 +11,13 @@ Conventions
 * Norms and rope run in f32; matmul inputs in the compute dtype.
 * Caches are updated IN PLACE (``scatter_`` / slice assignment) where the JAX
   functions return fresh arrays; each function says so.
+* A row's bits do not depend on how many rows share its call.  The
+  projections and the norms run through ``per_row``, which gives them at
+  least ``ROW_FLOOR`` and ``NORM_ROW_FLOOR`` rows: below those the card's
+  GEMM and reduction kernels pick other algorithms (split-K, a row split
+  over more threads) and round a row otherwise.  So a lane decodes the same bits in a burst of any width,
+  and a prompt prefills the same bits whole, in a batch or in chunks — the
+  contract ``LANE_INDEPENDENT_DECODE`` and chunked prefill rest on.
 """
 
 from __future__ import annotations
@@ -23,8 +30,41 @@ from repro_torch.core import paging as PG
 from repro_torch.kernels.flash_attention import flash_attention
 
 
+#: the fewest rows a projection runs on (``linear``).  On an H100, every
+#: call of 227 rows or more gives a row of each serving shape the same bits,
+#: and fewer rows may not (zamba2's 8192 -> 2048 MLP down projection splits
+#: three ways below 227 rows; ``chip_smoke.py --gemm-probe`` shows it per
+#: shape)
+ROW_FLOOR = 256
+#: the fewest rows a norm runs on: from 16 rows on, the row reductions of
+#: the serving widths give a row the same bits (a norm of fewer rows splits
+#: a row over more threads), and a norm of 256 rows costs ~4x a norm of 16
+#: (``--gemm-probe``)
+NORM_ROW_FLOOR = 16
+
+
 def cdt(cfg) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
+
+
+def per_row(fn, x, floor: int):
+    """``fn(x)`` for a function that maps each row of ``x`` (its last dim)
+    on its own, run on at least ``floor`` rows: the rows are flattened, zero
+    rows appended up to the floor, and the extra rows' results dropped.  A
+    row's result then does not depend on how many rows the call had."""
+    lead = x.shape[:-1]
+    rows = x.reshape(-1, x.shape[-1])
+    m = rows.shape[0]
+    if m < floor:
+        rows = F.pad(rows, (0, 0, 0, floor - m))      # one kernel
+    out = fn(rows)[:m]
+    return out.reshape(lead + out.shape[-1:])
+
+
+def linear(x, w):
+    """The projection ``x @ w`` (``w`` is ``(in, out)``) on at least
+    ``ROW_FLOOR`` rows."""
+    return per_row(lambda r: r @ w, x, ROW_FLOOR)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -54,16 +94,16 @@ class Norm(nn.Module):
 
 
 def apply_norm(p: Norm, x, cfg):
-    xf = x.float()
-    if cfg.norm == "layernorm":
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        out = out * p.scale.float() + p.bias.float()
-    else:
+    """The block's norm in f32, on at least ``NORM_ROW_FLOOR`` rows."""
+    def norm(xf):
+        if cfg.norm == "layernorm":
+            mu = xf.mean(dim=-1, keepdim=True)
+            var = xf.var(dim=-1, keepdim=True, unbiased=False)
+            out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+            return out * p.scale.float() + p.bias.float()
         ms = xf.square().mean(dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(ms + cfg.norm_eps) * p.scale.float()
-    return out.to(x.dtype)
+        return xf * torch.rsqrt(ms + cfg.norm_eps) * p.scale.float()
+    return per_row(norm, x.float(), NORM_ROW_FLOOR).to(x.dtype)
 
 
 def _rms_headdim(x, eps=1e-6):
@@ -127,7 +167,7 @@ def embed(p: Embed, ids, cfg):
 
 def unembed(p: Embed, x, cfg):
     w = p.tok.t() if cfg.tie_embeddings else p.unembed
-    logits = x.to(cdt(cfg)) @ w
+    logits = linear(x.to(cdt(cfg)), w)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = (torch.tanh(logits.float() / c) * c).to(cdt(cfg))
@@ -167,16 +207,16 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x, cfg):
     xc = x.to(cdt(cfg))
-    up = xc @ p.w_up
+    up = linear(xc, p.w_up)
     if cfg.use_bias:
         up = up + p.b_up
     if cfg.activation == "swiglu":
-        up = F.silu(xc @ p.w_gate) * up
+        up = F.silu(linear(xc, p.w_gate)) * up
     elif cfg.activation == "geglu":
-        up = F.gelu(xc @ p.w_gate, approximate="tanh") * up
+        up = F.gelu(linear(xc, p.w_gate), approximate="tanh") * up
     else:
         up = F.gelu(up, approximate="tanh")
-    out = up @ p.w_down
+    out = linear(up, p.w_down)
     if cfg.use_bias:
         out = out + p.b_down
     return out.to(x.dtype)
@@ -254,7 +294,7 @@ def layer_cache(cache: dict, prefix: str, i: int):
 
 def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
               kv_lens=None, q_offset=None, cache=None, cache_pos=None,
-              use_rope=True):
+              use_rope=True, decode=False):
     """Returns (out, new_cache_kv_or_None).
 
     - ``cache``: dense ``(k_cache, v_cache)`` of shape (B, Hkv, Smax, Dh), or
@@ -266,10 +306,12 @@ def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
       the narrow type first, so the token attends to its own quantized K/V)
       — and attention runs over the cache.
     - ``window``: None | int | 0-d tensor (sliding window; 2**30 = global).
+    - ``decode``: a decode step rather than a prefill or a chunk of one (the
+      flash kernels pick their body by it).
     """
     hd = cfg.resolved_head_dim
     xc = x.to(cdt(cfg))
-    q, k, v = xc @ p.wq, xc @ p.wk, xc @ p.wv
+    q, k, v = linear(xc, p.wq), linear(xc, p.wk), linear(xc, p.wv)
     if cfg.use_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = _split_heads(q, cfg.n_heads, hd)
@@ -316,8 +358,8 @@ def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
     out = flash_attention(q, k, v, kv_lens=kv_lens, causal=causal,
                           window=window, q_offset=q_offset,
                           impl=cfg.attn_impl, page_table=page_table,
-                          k_scale=k_sc, v_scale=v_sc)
-    out = _merge_heads(out).to(cdt(cfg)) @ p.wo
+                          k_scale=k_sc, v_scale=v_sc, decode=decode)
+    out = linear(_merge_heads(out).to(cdt(cfg)), p.wo)
     if cfg.use_bias:
         out = out + p.bo
     return out.to(x.dtype), new_cache
@@ -342,12 +384,12 @@ class Block(nn.Module):
 
 def block_apply(p: Block, x, positions, cfg, *, causal=True, window=None,
                 kv_lens=None, q_offset=None, cache=None, cache_pos=None,
-                use_rope=True):
+                use_rope=True, decode=False):
     h = apply_norm(p.ln1, x, cfg)
     attn_out, new_cache = attention(
         p.attn, h, positions, cfg, causal=causal, window=window,
         kv_lens=kv_lens, q_offset=q_offset, cache=cache, cache_pos=cache_pos,
-        use_rope=use_rope)
+        use_rope=use_rope, decode=decode)
     if cfg.parallel_block:                      # cohere: one norm, two branches
         out = x + attn_out + mlp(p.mlp, h, cfg)
     else:

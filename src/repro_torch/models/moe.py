@@ -175,11 +175,12 @@ def moe_ffn(p: MoEFFN, x, cfg):
 
 
 def moe_block_apply(p: MoEBlock, x, positions, cfg, *, kv_lens=None,
-                    q_offset=None, cache=None, cache_pos=None, causal=True):
+                    q_offset=None, cache=None, cache_pos=None, causal=True,
+                    decode=False):
     h = L.apply_norm(p.ln1, x, cfg)
     attn_out, new_cache = L.attention(
         p.attn, h, positions, cfg, causal=causal, kv_lens=kv_lens,
-        q_offset=q_offset, cache=cache, cache_pos=cache_pos)
+        q_offset=q_offset, cache=cache, cache_pos=cache_pos, decode=decode)
     h2 = x + attn_out
     return h2 + moe_ffn(p.moe, L.apply_norm(p.ln2, h2, cfg), cfg), new_cache
 
@@ -237,18 +238,19 @@ def make_paged_cache(cfg, batch_size: int, max_len: int, *, page_size: int,
 
 
 def _run(model: MoELM, cfg, x, positions, cache, *, kv_lens, q_offset,
-         cache_pos, causal):
+         cache_pos, causal, decode):
     h = x
     for li, blk in enumerate(model.dense_blocks):
         h, _ = L.block_apply(blk, h, positions, cfg, causal=causal,
                              kv_lens=kv_lens, q_offset=q_offset,
                              cache=L.layer_cache(cache, "dense_", li),
-                             cache_pos=cache_pos)
+                             cache_pos=cache_pos, decode=decode)
     for li, blk in enumerate(model.blocks):
         h, _ = moe_block_apply(blk, h, positions, cfg, kv_lens=kv_lens,
                                q_offset=q_offset,
                                cache=L.layer_cache(cache, "", li),
-                               cache_pos=cache_pos, causal=causal)
+                               cache_pos=cache_pos, causal=causal,
+                               decode=decode)
     return h
 
 
@@ -271,7 +273,7 @@ def prefill(model: MoELM, cfg, batch, cache):
     positions = pos0[:, None] + torch.arange(s, dtype=torch.int32, device=dev)[None]
     x = L.embed(model.embed, tokens, cfg)
     h = _run(model, cfg, x, positions, cache, kv_lens=pos0 + lens,
-             q_offset=pos0, cache_pos=pos0, causal=True)
+             q_offset=pos0, cache_pos=pos0, causal=True, decode=False)
     cache = dict(cache)
     cache["pos"] = pos0 + lens
     h = L.apply_norm(model.final_norm, h, cfg)
@@ -287,7 +289,7 @@ def decode(model: MoELM, cfg, batch, cache):
     pos = cache["pos"]
     x = L.embed(model.embed, batch["token"], cfg)
     h = _run(model, cfg, x, pos[:, None], cache, kv_lens=pos + 1,
-             q_offset=pos, cache_pos=pos, causal=False)
+             q_offset=pos, cache_pos=pos, causal=False, decode=True)
     cache = dict(cache)
     cache["pos"] = pos + 1
     h = L.apply_norm(model.final_norm, h, cfg)

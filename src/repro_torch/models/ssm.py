@@ -106,10 +106,13 @@ def _causal_conv(xbc, w, b, tail=None):
 
 
 def _gated_out_norm(p: GatedNorm, y, z, cfg):
-    """Mamba2 RMSNormGated: rmsnorm(y * silu(z)) * scale, in f32."""
-    yf = y.float() * F.silu(z.float())
-    ms = yf.square().mean(dim=-1, keepdim=True)
-    return (yf * torch.rsqrt(ms + cfg.norm_eps) * p.scale.float()).to(y.dtype)
+    """Mamba2 RMSNormGated: rmsnorm(y * silu(z)) * scale, in f32, on at
+    least ``layers.NORM_ROW_FLOOR`` rows."""
+    def norm(yf):
+        ms = yf.square().mean(dim=-1, keepdim=True)
+        return yf * torch.rsqrt(ms + cfg.norm_eps) * p.scale.float()
+    return L.per_row(norm, y.float() * F.silu(z.float()),
+                     L.NORM_ROW_FLOOR).to(y.dtype)
 
 
 def mamba_block(p: MambaBlock, x, cfg, *, seq_lens=None, conv_init=None,
@@ -126,7 +129,7 @@ def mamba_block(p: MambaBlock, x, cfg, *, seq_lens=None, conv_init=None,
     width = cfg.ssm_conv_width
 
     hin = L.apply_norm(p.norm, x, cfg)
-    proj = hin.to(cd) @ p.in_proj
+    proj = L.linear(hin.to(cd), p.in_proj)
     z, xbc, dt = _split_proj(cfg, proj)
     conv_out, pre_taps = _causal_conv(xbc, p.conv_w, p.conv_b, tail=conv_init)
     xbc = F.silu(conv_out)
@@ -139,7 +142,7 @@ def mamba_block(p: MambaBlock, x, cfg, *, seq_lens=None, conv_init=None,
     y, hT = ssd_scan(x_in, dt, A, bmat, cmat, D=p.D, seq_lens=seq_lens,
                      h0=state_init, chunk=cfg.ssm_chunk, impl=cfg.ssd_impl)
     y = _gated_out_norm(p.out_norm, y.reshape(b, s, di), z, cfg)
-    out = x + (y.to(cd) @ p.out_proj).to(x.dtype)
+    out = x + L.linear(y.to(cd), p.out_proj).to(x.dtype)
 
     # pre_taps = [init | pre-conv xBC]: a row of valid length l ends at index
     # (W-1)+l, so its last W-1 taps start at index l
@@ -161,7 +164,7 @@ def mamba_block_decode(p: MambaBlock, x_t, cfg, conv_cache, state):
     cd = L.cdt(cfg)
 
     hin = L.apply_norm(p.norm, x_t, cfg)
-    proj = hin.to(cd) @ p.in_proj
+    proj = L.linear(hin.to(cd), p.in_proj)
     z, xbc, dt = _split_proj(cfg, proj)                       # (B, 1, *)
     window = torch.cat([conv_cache, xbc.to(conv_cache.dtype)], dim=1)
     conv_out = torch.einsum("bwc,wc->bc", window.to(cd), p.conv_w) + p.conv_b
@@ -173,7 +176,7 @@ def mamba_block_decode(p: MambaBlock, x_t, cfg, conv_cache, state):
 
     y, state = ssd_decode_step(x_in, dt_t, A, bmat, cmat, state, D=p.D)
     y = _gated_out_norm(p.out_norm, y.reshape(b, 1, di), z, cfg)
-    out = x_t + (y.to(cd) @ p.out_proj).to(x_t.dtype)
+    out = x_t + L.linear(y.to(cd), p.out_proj).to(x_t.dtype)
     return out, (window[:, 1:, :], state)
 
 

@@ -36,21 +36,36 @@ The default serve path is the FUSED step (``fused=True``): one round's
 prefill chunk(s), admission tail and decode burst go through one
 ``ServeEngine._fused_step`` call, so the host's per-round work is pure
 bookkeeping, and the round's one wait for the device is its harvest
-(``_block_on``).
+(``_block_on``).  With ``overlap=True`` the host loop goes ASYNC on top:
+round N+1 is dispatched before round N's results are read back, and the
+one blocking sync per round harvests the PREVIOUS round from host copies
+queued right after its dispatch — admission plans against a one-round-stale
+lane view, which only under-reports free lanes (a lane's tokens do not
+depend on its burst's width or company, ``LANE_INDEPENDENT_DECODE``, so
+results are unchanged).
+
+The request control plane: ``cancel`` at any stage, priorities (a
+page-starved higher-priority request preempts a strictly lower one: the
+victim's whole state spills to the host and resumes bit for bit later),
+finish and first-token deadlines (an infeasible request is shed at
+admission, a resident one past its deadline retires with its partial
+output), and a bounded queue (``max_queue``) that sheds on overload.
+``serve.chaos`` injects faults into it.
 
 On the card the engine's ``_decode_chunk`` returns its graphs' static carry,
 which the next replay overwrites in place: the scheduler's ``cache``,
 ``out_buf``, ``tok``, ``p`` and ``n_gen`` ARE those tensors between rounds.
-The harvest copies what it needs to the host before the next dispatch, and
-every host-side update (harvest's page-table repoint, compaction's gathers,
-the admission splices) builds new tensors, which the next burst copies into
-the carry.  Only the page pools are written in place (page installs,
-page-in), as the captured decode writes them.
+The harvest copies what it needs to the host before the next dispatch (the
+overlap stash queues its copies into pinned host buffers right after its
+own dispatch, so it owns its bytes), and every host-side update (harvest's
+page-table repoint, compaction's gathers, the admission splices, cancel's
+and preemption's lane retirement, resume) builds new tensors, which the
+next burst copies into the carry.  Only the page pools are written in place
+(page installs, page-in, resume's page scatter), as the captured decode
+writes them.
 
-Not ported yet, each raising where it is asked for: the async overlap loop
-(ROADMAP Queue 1 item 7(d)), the request control plane — ``cancel``,
-priorities, deadlines, a bounded queue, preemption (item 7(e)), encdec
-serving (item 12) and mesh sharding (item 14).
+Not ported yet, each raising where it is asked for: encdec serving
+(ROADMAP Queue 1 item 12) and mesh sharding (item 14).
 """
 
 from __future__ import annotations
@@ -87,15 +102,12 @@ _STAT_COUNTERS = (
     ("dispatches", None), ("host_syncs", None), ("swap_out_pages", None),
     ("swap_in_pages", None), ("session_hits", None),
     ("session_hit_tokens", None),
-    # request-lifecycle counters of the control plane (item 7(e)); kept so
-    # the snapshot has the reference's keys
+    # request-lifecycle robustness counters (deadlines / cancellation /
+    # preemption / shedding / swap integrity)
     ("preemptions", None), ("shed", None), ("cancelled", None),
     ("deadline_misses", None), ("resume_page_ins", None),
     ("swap_checksum_failures", None),
 )
-
-_ITEM_OVERLAP = "ROADMAP Queue 1 item 7(d)"
-_ITEM_CONTROL = "ROADMAP Queue 1 item 7(e)"
 
 
 def _not_ported(what: str, item: str):
@@ -105,8 +117,9 @@ def _not_ported(what: str, item: str):
 class FinishReason(str, enum.Enum):
     """Why a request's result is what it is.  Every entry in ``run()``'s
     results carries one under ``"finish_reason"``; the str values are what
-    lands in logs.  ``PREEMPTED_RESUMED`` and ``DEADLINE`` / ``SHED`` come
-    with the control plane (item 7(e))."""
+    lands in logs.  ``PREEMPTED_RESUMED`` marks a request that finished
+    normally but was preempted (and resumed bit for bit) at least once
+    along the way: its tokens equal an uninterrupted run's."""
     DONE = "done"
     CANCELLED = "cancelled"
     DEADLINE = "deadline"
@@ -140,7 +153,7 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 def _to_device(a: np.ndarray, dtype, device) -> torch.Tensor:
     """The inverse of ``_to_host``: host bits as a tensor of ``dtype``."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    t = torch.from_numpy(np.ascontiguousarray(a).reshape(np.shape(a)))
     if dtype in _BITS:
         t = t.view(dtype)
     return t.to(device)
@@ -385,9 +398,13 @@ class _PartStep:
 class Request:
     """One generation request.  ``arrival`` is in scheduler decode-step units
     (0 = available immediately); the scheduler never admits a request before
-    its arrival time.  ``priority``, ``deadline`` and ``ttft_deadline`` are
-    the control plane's (item 7(e)): ``submit`` refuses any but their
-    defaults."""
+    its arrival time.  ``priority`` orders admission (higher first; FIFO
+    within a level) and arms preemption: a page-starved higher-priority
+    request may evict a strictly-lower-priority resident lane.
+    ``deadline`` / ``ttft_deadline`` are absolute decode-step timestamps
+    (the clock of ``arrival``) by which the request must finish / produce
+    its first token: infeasible requests are SHED at admission, resident
+    ones past ``deadline`` retire with their partial output."""
     rid: int
     tokens: np.ndarray                      # (S,) prompt token ids
     max_new_tokens: Optional[int] = None    # default: engine budget
@@ -397,6 +414,26 @@ class Request:
     priority: int = 0
     deadline: Optional[float] = None        # absolute finish deadline (steps)
     ttft_deadline: Optional[float] = None   # absolute first-token deadline
+
+
+@dataclasses.dataclass
+class PreemptedState:
+    """Complete host-side state of a preempted mid-decode request: its page
+    blocks (spilled through the host-swap tier's batched gather), dense lane
+    carries, decode rows and sampler-state row, as host bits (``_to_host``)
+    with each tensor's dtype in ``dtypes``.  Resuming splices everything
+    back bit for bit — the lane's PRNG chain position is its committed
+    token count, so the resumed stream continues as if the preemption never
+    happened."""
+    req: Request
+    dense: dict                             # per-lane cache carries (host)
+    blocks: Optional[dict]                  # page-chain pool blocks (host)
+    n_pages: int                            # pages to re-allocate at resume
+    row: dict                               # out/tok/ngen/budget rows (host)
+    srow: dict                              # sampler-state row (host)
+    dtypes: dict                            # "dense.k"/"row.k"/"srow.k" -> dtype
+    stoch: bool                             # lane sampled stochastically
+    order: int                              # preemption sequence number
 
 
 class ContinuousBatchingScheduler:
@@ -428,9 +465,16 @@ class ContinuousBatchingScheduler:
     fused: run each round's prefill chunk(s) + admission + decode burst
         through one ``ServeEngine._fused_step`` call (the default) instead
         of separate prefill and decode calls.  Both give the same tokens.
-    overlap: the async host loop (item 7(d)): raises.
+    overlap: async host loop — dispatch round N+1 before reading round N's
+        results, then harvest round N from the host copies queued after its
+        dispatch: ONE blocking sync per round.  Admission sees a
+        one-round-stale lane view (under-reports free lanes only);
+        ``finished_at`` timestamps shift by the harvest delay.  Requires
+        ``fused``.
     src_len: encdec serving (item 12): raises.
-    max_queue: the bounded queue (item 7(e)): raises.
+    max_queue: bounded admission queue — a ``submit`` past this many queued
+        requests is SHED immediately (recorded result with
+        ``finish_reason="shed"``).  None = unbounded (the default).
     obs: a ``repro_torch.obs.Obs`` handle — its metrics registry backs
         ``stats`` and, when it carries a tracer, the round/request timeline
         is recorded at host-side seams (never adding a device sync).
@@ -448,11 +492,11 @@ class ContinuousBatchingScheduler:
                  src_len: Optional[int] = None,
                  max_queue: Optional[int] = None,
                  obs: Optional[Obs] = None):
-        if overlap:
-            raise _not_ported("the async overlap loop (overlap=True)",
-                              _ITEM_OVERLAP)
-        if max_queue is not None:
-            raise _not_ported("the bounded queue (max_queue)", _ITEM_CONTROL)
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if overlap and not fused:
+            raise ValueError("overlap=True requires fused=True (the async "
+                             "harvest hangs off the fused dispatch)")
         if src_len is not None or engine.cfg.family == "encdec":
             raise _not_ported("encdec serving (src_len)",
                               "ROADMAP Queue 1 item 12")
@@ -476,6 +520,7 @@ class ContinuousBatchingScheduler:
         self.engine = engine
         self.device = dev = engine.device
         self.fused = fused
+        self.overlap = overlap
         self.capacity = capacity
         self.chunk = chunk
         self.compact_threshold = compact_threshold
@@ -487,7 +532,15 @@ class ContinuousBatchingScheduler:
         self.results: dict[int, dict] = {}
         self._next_rid = 0
         self.now = 0.0                       # decode-step clock
+        self.max_queue = max_queue
+        # request-lifecycle control plane: live requests by rid (queued,
+        # pending, resident or preempted), spilled preempted state awaiting
+        # re-admission, and how often each rid was preempted (a finished
+        # request with a nonzero count reports PREEMPTED_RESUMED)
         self._live_req: dict[int, Request] = {}
+        self._preempted: list[PreemptedState] = []
+        self._rid_preempts: dict[int, int] = {}
+        self._preempt_seq = 0
 
         b = capacity
         self.lane_rid = np.full((b,), -1, np.int64)   # -1 = free lane
@@ -554,6 +607,10 @@ class ContinuousBatchingScheduler:
         self._ttft_hist = reg.histogram("ttft_steps", unit="steps",
                                         percentiles=(50,))
         self.stats = reg.stats_view()
+        # async-overlap state: the in-flight round's host copies (queued
+        # behind its dispatch) plus the lane view they were dispatched
+        # under; harvested one round late at the single blocking sync
+        self._stash: Optional[dict] = None
         # host mirror of the device n_gen at the last harvest point (stale
         # rows of free lanes included), so active_lane_steps accounting
         # never needs an extra device sync
@@ -613,21 +670,19 @@ class ContinuousBatchingScheduler:
         (0.0 = immediately).  ``max_new_tokens`` caps this request's decode
         budget below the engine default; ``sampling`` carries the request's
         own decoding distribution (None: engine default/greedy) — lanes with
-        different distributions coexist in one burst.  Submission never
-        touches the device; planning happens at admission.
+        different distributions coexist in one burst.  ``priority`` orders
+        admission and arms preemption (see ``Request``); ``deadline`` /
+        ``ttft_deadline`` are absolute decode-step timestamps the request
+        must finish / first-token by — infeasible ones are shed.
+        Submission never touches the device; planning happens at admission.
 
-        ``priority != 0``, ``deadline`` and ``ttft_deadline`` (the control
-        plane, item 7(e)) and ``extras`` (item 12) raise
-        ``NotImplementedError``: the reference would preempt or shed on
-        them.  Raises :class:`RequestRejected` for a request that could
-        NEVER be admitted (over-long prompt, or a worst-case page demand
-        above the whole pool).
+        ``extras`` (item 12) raises ``NotImplementedError``.  Raises
+        :class:`RequestRejected` for a request that could NEVER be admitted
+        (over-long prompt, or a worst-case page demand above the whole
+        pool).  A request past a full ``max_queue`` bound is not an error:
+        it is recorded immediately as a ``shed`` result and its rid
+        returned.
         """
-        if priority != 0:
-            raise _not_ported("request priorities (priority != 0)",
-                              _ITEM_CONTROL)
-        if deadline is not None or ttft_deadline is not None:
-            raise _not_ported("request deadlines", _ITEM_CONTROL)
         if extras:
             raise _not_ported("per-request extras", "ROADMAP Queue 1 item 12")
         tokens = np.asarray(tokens, np.int32)
@@ -653,21 +708,90 @@ class ContinuousBatchingScheduler:
                     f"worst-case but the pool has only {self.pool_pages}")
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid, tokens, max_new_tokens, arrival, None, sampling)
+        req = Request(rid, tokens, max_new_tokens, arrival, None, sampling,
+                      priority, deadline, ttft_deadline)
         self.req_times[rid] = {"submitted": time.perf_counter()}
         self.obs.request_begin(rid, prompt_len=len(tokens),
                                arrival=float(arrival))
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            self._shed(req)                 # bounded queue: overload -> shed
+            return rid
         self._live_req[rid] = req
         self.queue.append(req)
         return rid
 
     def cancel(self, rid: int) -> bool:
-        """Cancel a live request: the control plane (item 7(e))."""
-        raise _not_ported("cancel", _ITEM_CONTROL)
+        """Cancel a live request wherever it is in its lifecycle; returns
+        True when it was cancelled, False when it had already finished (its
+        result stands) or was never submitted.
+
+        A queued / preempted / chunk-prefilling request is dropped host-side
+        (lane + page reservations released); a RESIDENT request retires
+        mid-flight through the same trash-page path harvest uses — its
+        partial output is recorded with ``finish_reason="cancelled"``.  The
+        overlap stash is flushed first so an in-flight round that actually
+        finished the request wins over the cancel."""
+        if rid in self.results:
+            return False
+        if any(r.rid == rid for r in self.queue):
+            self.queue = collections.deque(
+                r for r in self.queue if r.rid != rid)
+            self._finish_cancel(rid, np.zeros((0,), np.int32), 0)
+            return True
+        for i, ps in enumerate(self._preempted):
+            if ps.req.rid == rid:
+                del self._preempted[i]
+                n = int(ps.row["ngen"])
+                self._finish_cancel(rid, ps.row["out"][:n].copy(), n)
+                return True
+        for i, part in enumerate(self._partials):
+            if part.req.rid == rid:
+                del self._partials[i]
+                self._drop_partial(part)
+                self._finish_cancel(rid, np.zeros((0,), np.int32), 0)
+                return True
+        if (self.lane_rid == rid).any():
+            self._flush_stash()
+            if rid in self.results:         # finished in the flushed round
+                return False
+            lanes = np.flatnonzero(self.lane_rid == rid)
+            if lanes.size == 0:
+                return False
+            self.stats["cancelled"] += 1
+            self.obs.request_event(rid, "cancelled")
+            self._retire_lane(int(lanes[0]), FinishReason.CANCELLED)
+            return True
+        return False
+
+    def _drop_partial(self, part: _Partial):
+        """Release a chunk-prefilling request's reserved lane and pages."""
+        self.lane_rid[part.lane] = -1
+        self._lane_pending[part.lane] = False
+        if part.plan is not None:
+            freed = [pid for pid in (part.plan.shared + part.plan.swapped
+                                     + part.plan.new)
+                     if self.allocator.release(pid)]
+            if freed:
+                self._spill_pages(freed)
+
+    def _finish_cancel(self, rid: int, tokens, n: int):
+        self.stats["cancelled"] += 1
+        self.obs.request_event(rid, "cancelled")
+        self._record_result(rid, tokens, n, FinishReason.CANCELLED)
+
+    def _shed(self, req: Request):
+        """Refuse a request the system cannot serve (full queue or an
+        infeasible deadline): record an immediate empty ``shed`` result so
+        the caller learns NOW instead of after a futile wait."""
+        self.stats["shed"] += 1
+        self.obs.request_event(req.rid, "shed")
+        self._record_result(req.rid, np.zeros((0,), np.int32), 0,
+                            FinishReason.SHED)
 
     def _record_result(self, rid: int, tokens, n: int,
                        reason: "FinishReason"):
-        """Single exit point for every non-harvest finish (the drain):
+        """Single exit point for every non-harvest finish (cancel, deadline,
+        shed, drain):
         records the typed result, closes the request's trace track and drops
         it from the live set."""
         self.results[rid] = {"tokens": np.asarray(tokens, np.int32),
@@ -689,12 +813,16 @@ class ContinuousBatchingScheduler:
         chunk per round, so resident lanes decode between a long prompt's
         chunks.  ``fused=True`` (the default) issues the round's device work
         through one ``_fused_step`` call; the unfused loop below is the
-        reference it is held against."""
+        reference it is held against.  ``overlap=True`` additionally
+        harvests one round late (a single blocking sync per round)."""
         self._round_admitted = []
         if self.fused:
             return self._step_fused()
         with self.obs.span("round", round=self.stats["steps"]):
             self._maybe_compact()
+            self._sweep_deadlines()
+            self._maybe_preempt()
+            self._try_resume()
             self._advance_partials()
             self._admit()
             occupied = self.lane_rid >= 0
@@ -735,11 +863,16 @@ class ContinuousBatchingScheduler:
     def _step_fused(self):
         """One round through the fused step: all host work is
         planning/bookkeeping, all device work is one ``_fused_step`` (or a
-        bare burst) call, and the round waits once, at its harvest."""
+        bare burst) call.  Non-overlap mode waits once, at this round's
+        harvest; overlap mode stashes this round's host copies and harvests
+        the PREVIOUS round instead."""
         eng = self.engine
         obs = self.obs
         with obs.span("round", round=self.stats["steps"]):
             self._maybe_compact()
+            self._sweep_deadlines()
+            self._maybe_preempt()
+            self._try_resume()
             with obs.span("plan"):
                 part_steps = self._plan_partial_steps()
                 plan = self._plan_admission()
@@ -753,6 +886,7 @@ class ContinuousBatchingScheduler:
                 obs.counter("pool_occupancy", pocc)
             self.stats["steps"] += 1
             if plan is None and not part_steps and not occupied.any():
+                self._flush_stash()             # can only be a no-op stash
                 self._idle_tick()
                 return
             self.stats["dispatches"] += 1
@@ -798,6 +932,9 @@ class ContinuousBatchingScheduler:
                 nonfinal = [s.part for s in part_steps if not s.final]
                 for part, new_cache in zip(nonfinal, parts_out):
                     part.sub_cache = new_cache
+            if self.overlap:
+                self._push_stash(steps_h, width)
+                return
             steps = int(self._block_on(steps_h, "steps"))
             self.stats["decode_steps"] += steps
             self.stats["lane_steps"] += steps * (width or self.capacity)
@@ -813,7 +950,9 @@ class ContinuousBatchingScheduler:
         """Pow2 lane bucket the burst may narrow to, or None for full width.
         Compaction packs live lanes low and whole-prefill admissions fill
         low free lanes first, so the highest occupied non-pending lane
-        bounds every lane the burst can commit to.  Only lane-independent
+        bounds every lane the burst can commit to; in overlap mode the host
+        view lags one harvest and is a SUPERSET of the live lanes
+        (conservative).  Only lane-independent
         families qualify — dropping (dead) lanes under MoE changes
         expert-capacity overflow."""
         if not self._lane_independent:
@@ -835,6 +974,72 @@ class ContinuousBatchingScheduler:
             self.now += self.chunk
         self.obs.event("idle", now=self.now)
 
+    # ------------------------------------------------------------------
+    # async overlap: one-round-delayed harvest from host copies
+    # ------------------------------------------------------------------
+
+    def _push_stash(self, steps_h, width=None):
+        """Queue this round's host copies (``p``, ``out_buf``, ``n_gen`` and
+        the steps run, into pinned buffers on the card, behind this round's
+        dispatch on the stream, with one event after them), harvest the
+        PREVIOUS round, then snapshot the post-harvest lane view the new
+        stash must be read under (lanes freed just now must not be
+        harvested twice next round).  The stash owns its bytes: on the card
+        the next burst overwrites ``p``/``out_buf``/``n_gen`` in place (the
+        graphs' static carry)."""
+        cuda = self.device.type == "cuda"
+        host = {}
+        for k, t in (("p", self.p), ("out", self.out_buf),
+                     ("ngen", self.n_gen), ("steps", steps_h)):
+            buf = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                              pin_memory=cuda)
+            host[k] = buf.copy_(t, non_blocking=cuda)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        prev = self._stash
+        self._stash = dict(host, event=event, width=width,
+                           admitted=list(self._round_admitted))
+        if prev is not None:
+            self._harvest_stash(prev)
+        self._stash["lane_rid"] = self.lane_rid.copy()
+        self._stash["pending"] = self._lane_pending.copy()
+
+    def _flush_stash(self):
+        if self._stash is not None:
+            st, self._stash = self._stash, None
+            self._harvest_stash(st)
+
+    def _harvest_stash(self, st):
+        """The round's SINGLE blocking sync: wait for the stash's event (its
+        host copies have landed), account the decode burst, and harvest
+        finished lanes under the lane view the stash was created with (a
+        compaction since permuted it: ``perm``)."""
+        with self.obs.span("harvest", delayed=True):
+            self.stats["host_syncs"] += 1
+            with self.obs.span("sync", what="harvest"):
+                if st["event"] is not None:
+                    st["event"].synchronize()
+            p, out, ngen = (_to_host(st[k]) for k in ("p", "out", "ngen"))
+            if "perm" in st:
+                p, out, ngen = p[st["perm"]], out[st["perm"]], ngen[st["perm"]]
+            steps = int(st["steps"])
+            self.stats["decode_steps"] += steps
+            self.stats["lane_steps"] += steps * (st["width"] or self.capacity)
+            base = self._host_ngen.copy()
+            base[st["admitted"]] = 1
+            self.stats["active_lane_steps"] += int(ngen.sum() - base.sum())
+            self._host_ngen = ngen.astype(np.int64)
+            for lane, v in st.get("resumed_fix", {}).items():
+                self._host_ngen[lane] = v
+            self.now += steps
+            finished = np.flatnonzero((st["lane_rid"] >= 0) & ~p
+                                      & ~st["pending"])
+            if finished.size == 0:
+                return
+            self._retire_finished(finished, st["lane_rid"], out, ngen)
+
     def run(self) -> dict[int, dict]:
         """Drain the queue and all live lanes; returns ``{rid: result}``.
 
@@ -847,68 +1052,76 @@ class ContinuousBatchingScheduler:
         host-swap tier on, later calls hit prefixes earlier calls retired.
 
         ``run`` never strands state: a ``KeyboardInterrupt`` drains the loop
-        (every live request recorded with partial output and
+        (stash flushed, every live request recorded with partial output and
         ``finish_reason="cancelled"``, allocator leak-free) and RETURNS the
         partial results; any other exception drains the same way and then
         re-raises.
         """
         try:
-            while self.queue or (self.lane_rid >= 0).any():
+            while (self.queue or self._preempted
+                   or (self.lane_rid >= 0).any()):
                 self.step()
         except KeyboardInterrupt:
             self._abort_drain()
         except BaseException:
             self._abort_drain()
             raise
+        finally:
+            self._flush_stash()
         return self.results
 
     @torch.inference_mode()
     def _abort_drain(self):
-        """Tear the serve loop down to a consistent idle state: record
-        partial ``cancelled`` results for every live request (resident,
-        chunk-prefilling or queued) and free their lanes/pages.  Asserts
-        the allocator ends leak-free."""
+        """Tear the serve loop down to a consistent idle state: flush the
+        in-flight stash, record partial ``cancelled`` results for every live
+        request (resident, chunk-prefilling, preempted or queued) and free
+        their lanes/pages.  Asserts the allocator ends leak-free."""
+        try:
+            self._flush_stash()
+        except Exception:           # a broken device must not block drain
+            self._stash = None
         for part in list(self._partials):
-            self._partials.remove(part)
-            self.lane_rid[part.lane] = -1
-            self._lane_pending[part.lane] = False
-            if part.plan is not None:
-                freed = [pid for pid in (part.plan.shared + part.plan.swapped
-                                         + part.plan.new)
-                         if self.allocator.release(pid)]
-                if freed:
-                    self._spill_pages(freed)
-            self._drain_one(part.req.rid, np.zeros((0,), np.int32), 0)
+            self.cancel(part.req.rid)
         for lane in np.flatnonzero(self.lane_rid >= 0):
-            self._retire_lane(int(lane))
+            rid = int(self.lane_rid[int(lane)])
+            self.stats["cancelled"] += 1
+            self.obs.request_event(rid, "cancelled")
+            self._retire_lane(int(lane), FinishReason.CANCELLED)
+        for ps in list(self._preempted):
+            self.cancel(ps.req.rid)
         for req in list(self.queue):
-            self._drain_one(req.rid, np.zeros((0,), np.int32), 0)
-        self.queue.clear()
+            self.cancel(req.rid)
         if self.page_size is not None:
             assert self.allocator.live_pages == 0, (
                 f"page leak after drain: {self.allocator.live_pages} "
                 "pages still held with no resident lane")
 
-    def _drain_one(self, rid: int, tokens, n: int):
-        self.stats["cancelled"] += 1
-        self.obs.request_event(rid, "cancelled")
-        self._record_result(rid, tokens, n, FinishReason.CANCELLED)
+    # ------------------------------------------------------------------
+    # request-lifecycle control plane: deadlines, preemption, resume
+    # ------------------------------------------------------------------
 
-    def _retire_lane(self, lane: int):
-        """Retire a RESIDENT lane in the drain: read its partial output,
-        record it as cancelled and free the lane + its page chain through
-        the same trash-page path harvest uses."""
+    def _retire_lane(self, lane: int, reason: "FinishReason"):
+        """Retire a RESIDENT lane mid-flight (cancel/deadline/drain): read
+        its partial output, record the typed result and free the lane + its
+        page chain through the same trash-page path harvest uses.  The
+        caller must have flushed the stash first — retiring under an
+        unharvested snapshot would harvest the lane twice.  A device that
+        fails the read must not block the drain: the lane then retires with
+        no output."""
         rid = int(self.lane_rid[lane])
         try:
             out, ngen = self._block_on((self.out_buf[lane], self.n_gen[lane]),
                                        "retire")
             n = int(ngen)
             out = out[:n].copy()
-        except Exception:           # a broken device must not block drain
+        except Exception:
             n, out = 0, np.zeros((0,), np.int32)
-        self._drain_one(rid, out, n)
+        self._record_result(rid, out, n, reason)
+        self.p = P.set_lanes(self.p, lane, False)
         self.lane_rid[lane] = -1
         self._lane_stoch[lane] = False
+        # keep the host n_gen mirror at the DEVICE value (stale rows of free
+        # lanes are part of the active_lane_steps accounting)
         self._host_ngen[lane] = n
         if self.page_size is not None:
             freed = [pid for pid in self.lane_pages.pop(lane, [])
@@ -921,6 +1134,28 @@ class ContinuousBatchingScheduler:
                         self.prefix_index.drop(pid)
             self.cache["page_table"] = P.set_lanes(
                 self.cache["page_table"], lane, self.trash_page)
+
+    def _sweep_deadlines(self):
+        """Retire resident lanes whose finish deadline has passed (partial
+        output, ``finish_reason="deadline"``).  The cheap pre-check keeps
+        the overlap loop's one sync a round: the stash is only flushed when
+        some lane is actually over deadline."""
+        over = [int(l) for l in np.flatnonzero(self.lane_rid >= 0)
+                if not self._lane_pending[int(l)]
+                and (r := self._live_req.get(int(self.lane_rid[int(l)])))
+                is not None and r.deadline is not None
+                and self.now > r.deadline]
+        if not over:
+            return
+        self._flush_stash()
+        for lane in over:
+            rid = int(self.lane_rid[lane])
+            req = self._live_req.get(rid)
+            if rid < 0 or req is None:      # finished in the flushed round
+                continue
+            self.stats["deadline_misses"] += 1
+            self.obs.request_event(rid, "deadline")
+            self._retire_lane(lane, FinishReason.DEADLINE)
 
     # ------------------------------------------------------------------
     # lane lifecycle
@@ -1017,15 +1252,227 @@ class ContinuousBatchingScheduler:
         return float(h.percentile(50)) if h.count else 0.0
 
     def _shed_infeasible(self, req: Request) -> bool:
-        """True when the request can no longer meet its deadlines.  Without
-        the control plane (item 7(e)) no request carries one, so this is
-        always False; kept so admission planning reads as the reference's."""
+        """True when the request can no longer meet its deadlines: its
+        predicted first-token time — now, or its arrival plus the observed
+        p50 queue wait, whichever is later — is past ``ttft_deadline`` or
+        ``deadline``.  Pure estimate, no device touch."""
         if req.ttft_deadline is None and req.deadline is None:
             return False
         first = max(self.now, req.arrival + self._est_ttft())
         if req.ttft_deadline is not None and first > req.ttft_deadline:
             return True
         return req.deadline is not None and first > req.deadline
+
+    def _fresh_pages_needed(self, req: Request) -> int:
+        """Pages ``_plan_pages`` would freshly allocate for this request —
+        the same lookup, side-effect-free (no refcounts, no stats).  Drives
+        the preemption trigger: preempt only when the top-priority waiter
+        cannot get this many pages from the free list."""
+        if self.page_size is None:
+            return 0
+        ps = self.page_size
+        plen = len(req.tokens)
+        shared: list = []
+        if self.prefix_sharing:
+            shared = self.prefix_index.lookup(req.tokens, ps)
+            while shared and len(shared) * ps >= plen:
+                shared.pop()
+        budget = self._budget_for(req, plen)
+        return (PG.pages_needed(min(plen + budget, self.max_len), ps)
+                - len(shared))
+
+    def _maybe_preempt(self):
+        """Priority preemption trigger, run once per round before planning:
+        while the highest-priority waiting request (queued-and-due or
+        already preempted) is starved — no free lane, or fewer free pages
+        than it needs — evict the lowest-priority resident lane whose
+        priority is STRICTLY below it.  Equal priorities never preempt each
+        other, so all-default-priority traffic behaves exactly as before."""
+        for _ in range(self.capacity):
+            best_q = None
+            for r in self.queue:
+                if self._due(r) and (best_q is None
+                                     or r.priority > best_q.priority):
+                    best_q = r
+            top_pri = None if best_q is None else best_q.priority
+            top_need = None
+            for ps in self._preempted:
+                if top_pri is None or ps.req.priority > top_pri:
+                    top_pri, top_need = ps.req.priority, ps.n_pages
+            if top_pri is None:
+                return
+            # victim check BEFORE the page-need lookup: with all-equal
+            # priorities no lane can ever be evicted, and the prefix-index
+            # walk would be pure overhead
+            victim = self._victim_lane(top_pri)
+            if victim is None:
+                return
+            if top_need is None:
+                top_need = self._fresh_pages_needed(best_q)
+            starved = len(self._free_lanes()) == 0 or (
+                self.page_size is not None
+                and top_need > self.allocator.free_pages)
+            if not starved:
+                return
+            self._preempt_lane(victim)
+
+    def _victim_lane(self, above: int) -> Optional[int]:
+        """Lowest-priority resident non-pending lane strictly below
+        ``above`` (ties: lowest lane index — deterministic), or None."""
+        best = None
+        for lane in np.flatnonzero(self.lane_rid >= 0):
+            lane = int(lane)
+            if self._lane_pending[lane]:
+                continue
+            req = self._live_req.get(int(self.lane_rid[lane]))
+            if req is None or req.priority >= above:
+                continue
+            if best is None or req.priority < best[0]:
+                best = (req.priority, lane)
+        return None if best is None else best[1]
+
+    def _preempt_lane(self, lane: int):
+        """Spill a resident lane's COMPLETE state to the host and free it:
+        page blocks through the host-swap gather, dense carries + decode
+        rows + sampler row through ``_spill_lane`` — one blocking sync for
+        all of it.  The request re-queues as a ``PreemptedState``; resuming
+        splices everything back bit for bit."""
+        self._flush_stash()
+        rid = int(self.lane_rid[lane])
+        if rid < 0:                         # finished in the flushed round
+            return
+        req = self._live_req[rid]
+        eng = self.engine
+        stoch = bool(self._lane_stoch[lane])
+        with self.obs.span("preempt", rid=rid, lane=lane):
+            self.stats["dispatches"] += 1
+            dense_h, row_h, srow_h = eng._spill_lane(
+                self.cache, self.out_buf, self.tok, self.n_gen, self.budget,
+                self.sstate, lane)
+            blocks_h = None
+            pages: list = []
+            if self.page_size is not None:
+                pages = self.lane_pages.get(lane, [])
+                if pages:
+                    kpad = _next_pow2(len(pages))
+                    pids = np.full((kpad,), self.trash_page, np.int32)
+                    pids[:len(pages)] = pages
+                    self.stats["dispatches"] += 1
+                    blocks_h = eng._gather_blocks(
+                        self.cache, torch.as_tensor(pids, device=self.device))
+            dtypes = {f"{name}.{k}": v.dtype
+                      for name, tree in (("dense", dense_h), ("row", row_h),
+                                         ("srow", srow_h))
+                      for k, v in tree.items()}
+            # _block_on's leaves are host copies: PreemptedState owns its
+            # bytes (on the card the next burst overwrites the carry)
+            dense, row, srow, blocks = self._block_on(
+                (dense_h, row_h, srow_h, blocks_h), "preempt")
+            if blocks is not None:
+                blocks = {k: b[:len(pages)] for k, b in blocks.items()}
+            if self.page_size is not None:
+                freed = [pid for pid in self.lane_pages.pop(lane, [])
+                         if self.allocator.release(pid)]
+                if freed:
+                    self._spill_pages(freed)
+                self.cache["page_table"] = P.set_lanes(
+                    self.cache["page_table"], lane, self.trash_page)
+            self.p = P.set_lanes(self.p, lane, False)
+            self.lane_rid[lane] = -1
+            self._lane_stoch[lane] = False
+            self._host_ngen[lane] = int(row["ngen"])
+            self._preempted.append(PreemptedState(
+                req=req, dense=dense, blocks=blocks, n_pages=len(pages),
+                row=row, srow=srow, dtypes=dtypes, stoch=stoch,
+                order=self._preempt_seq))
+            self._preempt_seq += 1
+            self.stats["preemptions"] += 1
+            self._rid_preempts[rid] = self._rid_preempts.get(rid, 0) + 1
+            self.obs.request_event(rid, "preempted", lane=lane,
+                                   n_gen=int(row["ngen"]))
+
+    def _try_resume(self):
+        """Re-admit preempted requests (highest priority first, FIFO within
+        a level) as soon as a lane and their full page-chain allocation are
+        available.  Resume takes the LOWEST free lane — the same fill order
+        admission uses, so burst narrowing stays valid."""
+        if not self._preempted:
+            return
+        # never resume BELOW a due queued request's priority: preemption
+        # just freed resources for it, and resuming the victim right back
+        # would thrash (preempt -> resume -> preempt)
+        top_queued = max((r.priority for r in self.queue if self._due(r)),
+                         default=None)
+        still: list[PreemptedState] = []
+        for ps in sorted(self._preempted,
+                         key=lambda s: (-s.req.priority, s.order)):
+            if top_queued is not None and ps.req.priority < top_queued:
+                still.append(ps)
+                continue
+            free = self._free_lanes()
+            if len(free) == 0:
+                still.append(ps)
+                continue
+            new = None
+            if self.page_size is not None and ps.n_pages:
+                new = self.allocator.alloc(ps.n_pages)
+                if new is None:
+                    self.stats["page_waits"] += 1
+                    still.append(ps)
+                    continue
+            self._resume_state(ps, int(free[0]), new)
+        self._preempted = still
+
+    def _resume_state(self, ps: PreemptedState, lane: int, new_pages):
+        """Splice a ``PreemptedState`` back into ``lane``: scatter its page
+        blocks into freshly allocated pages (the batched write of swap-in),
+        rebuild the page-table row (tail-padded with the last page, the
+        clamped-write containment rule), then restore dense carries + decode
+        rows + sampler row via ``_resume_lane``.  The resumed chain is NOT
+        re-registered in the prefix index: its pages are private now, and a
+        later prompt sharing this prefix pays a cold prefill."""
+        eng = self.engine
+        dev = self.device
+        rid = ps.req.rid
+        table_row = None
+        back = lambda name, tree: {
+            k: _to_device(v, ps.dtypes[f"{name}.{k}"], dev)
+            for k, v in tree.items()}
+        with self.obs.span("resume", rid=rid, lane=lane):
+            if self.page_size is not None and ps.n_pages:
+                kpad = _next_pow2(ps.n_pages)
+                pids = np.full((kpad,), self.trash_page, np.int32)
+                pids[:ps.n_pages] = new_pages
+                blocks = {}
+                for pk, b in ps.blocks.items():
+                    pad = np.zeros((kpad - ps.n_pages,) + b.shape[1:],
+                                   b.dtype)
+                    blocks[pk] = _to_device(np.concatenate([b, pad]),
+                                            self.cache[pk].dtype, dev)
+                self.stats["dispatches"] += 1
+                self.cache = eng._scatter_blocks(
+                    self.cache, torch.as_tensor(pids, device=dev), blocks)
+                tab = np.full((self.n_pages,), new_pages[-1], np.int32)
+                tab[:ps.n_pages] = new_pages
+                table_row = torch.as_tensor(tab, device=dev)
+                self.lane_pages[lane] = list(new_pages)
+                self.stats["resume_page_ins"] += ps.n_pages
+            self.stats["dispatches"] += 1
+            (self.cache, self.out_buf, self.tok, self.p, self.n_gen,
+             self.budget, self.sstate) = eng._resume_lane(
+                self.cache, self.out_buf, self.tok, self.p, self.n_gen,
+                self.budget, self.sstate, lane, back("dense", ps.dense),
+                back("row", ps.row), back("srow", ps.srow), table_row)
+            self.lane_rid[lane] = rid
+            self._lane_stoch[lane] = ps.stoch
+            self._host_ngen[lane] = int(ps.row["ngen"])
+            if self._stash is not None:
+                # the in-flight round's n_gen row for this lane may belong
+                # to a PREVIOUS occupant: pin the post-harvest mirror back
+                # to the resumed value when that stash lands
+                self._stash.setdefault("resumed_fix", {})[lane] = int(
+                    ps.row["ngen"])
+            self.obs.request_event(rid, "resumed", lane=lane)
 
     def _plan_admission(self) -> Optional[_AdmitPlan]:
         """Scan the queue and plan this round's admission sub-batch — pure
@@ -1053,8 +1500,10 @@ class ContinuousBatchingScheduler:
             req = queue[qi]
             if not self._due(req):
                 continue
-            if self._shed_infeasible(req):
-                raise _not_ported("shedding", _ITEM_CONTROL)
+            if self._shed_infeasible(req):  # can't meet its deadline: shed
+                keep[qi] = False
+                self._shed(req)
+                continue
             if len(batch_reqs) + n_claimed >= len(free):
                 continue
             chunkable = self.prefill_chunk is not None
@@ -1276,8 +1725,11 @@ class ContinuousBatchingScheduler:
         budget = (plan.budget if plan is not None
                   else self._budget_for(req, len(req.tokens)))
         sub_cache = eng.make_cache(1, self.max_len)
-        seed = (self._seed_arrays([plan], 1)
-                if plan is not None and plan.shared else None)
+        # the first chunk attends over the prefix pages, resident or paged
+        # in from the host store alike (``_seed_arrays`` takes both; the
+        # reference seeds resident pages only, so a chunked request whose
+        # prefix came back from the swap tier alone attends over zeros)
+        seed = self._seed_arrays([plan], 1) if plan is not None else None
         self.lane_rid[lane] = req.rid
         self._lane_pending[lane] = True
         self._partials.append(_Partial(
@@ -1558,40 +2010,46 @@ class ContinuousBatchingScheduler:
                                       & ~self._lane_pending)
             if finished.size == 0:
                 return
-            out = out_all[finished]
-            n_gen = ngen_all[finished]
-            t = time.perf_counter()
-            freed: list = []
-            for j, lane in enumerate(finished):
-                rid = int(self.lane_rid[lane])
-                n = int(n_gen[j])
-                self.results[rid] = {"tokens": out[j, :n].copy(),
-                                     "n_generated": n,
-                                     "finished_at": self.now,
-                                     "finish_reason": FinishReason.DONE}
-                self.req_times[rid]["finished"] = t
-                self._live_req.pop(rid, None)
-                self.obs.request_end(rid, n_generated=n,
-                                     finished_at=self.now,
-                                     reason=FinishReason.DONE.value)
-                self.lane_rid[lane] = -1
-                self._lane_stoch[lane] = False
-                if self.page_size is not None:
-                    for pid in self.lane_pages.pop(int(lane)):
-                        if self.allocator.release(pid):
-                            freed.append(pid)
+            self._retire_finished(finished, self.lane_rid, out_all, ngen_all)
+
+    def _retire_finished(self, finished, lane_rid, out_all, ngen_all):
+        """Record the results of the ``finished`` lanes (rids from the lane
+        view ``lane_rid``, tokens and counts from host copies) and free
+        their lanes and pages."""
+        t = time.perf_counter()
+        freed: list = []
+        for lane in finished:
+            lane = int(lane)
+            rid = int(lane_rid[lane])
+            n = int(ngen_all[lane])
+            reason = (FinishReason.PREEMPTED_RESUMED
+                      if self._rid_preempts.get(rid) else FinishReason.DONE)
+            self.results[rid] = {"tokens": out_all[lane, :n].copy(),
+                                 "n_generated": n,
+                                 "finished_at": self.now,
+                                 "finish_reason": reason}
+            self.req_times[rid]["finished"] = t
+            self._live_req.pop(rid, None)
+            self.obs.request_end(rid, n_generated=n, finished_at=self.now,
+                                 reason=reason.value)
+            self.lane_rid[lane] = -1
+            self._lane_stoch[lane] = False
             if self.page_size is not None:
-                if freed:
-                    self._spill_pages(freed)
-                # retired lanes keep decoding architecturally until their
-                # slot is refilled: repoint their table rows at the trash
-                # page (a new tensor; the next burst copies it into the
-                # graphs' carry) so the freed pages can be reused
-                self.cache["page_table"] = P.set_lanes(
-                    self.cache["page_table"],
-                    torch.as_tensor(finished, dtype=torch.int64,
-                                    device=self.device),
-                    self.trash_page)
+                for pid in self.lane_pages.pop(lane):
+                    if self.allocator.release(pid):
+                        freed.append(pid)
+        if self.page_size is not None:
+            if freed:
+                self._spill_pages(freed)
+            # retired lanes keep decoding architecturally until their slot
+            # is refilled: repoint their table rows at the trash page (a new
+            # tensor; the next burst copies it into the graphs' carry) so
+            # the freed pages can be reused
+            self.cache["page_table"] = P.set_lanes(
+                self.cache["page_table"],
+                torch.as_tensor(finished, dtype=torch.int64,
+                                device=self.device),
+                self.trash_page)
 
     def _maybe_compact(self):
         """SVE ``compact`` over the lane vector: squeeze live lanes to the
@@ -1642,4 +2100,14 @@ class ContinuousBatchingScheduler:
             self.lane_pages = {new: self.lane_pages[int(old)]
                                for new, old in enumerate(perm)
                                if int(old) in self.lane_pages}
+        if self._stash is not None:
+            # the in-flight round's copies describe the OLD lane order:
+            # the harvest permutes them when they land, and the snapshot
+            # views move now, so the delayed harvest reads a coherent
+            # picture
+            st = self._stash
+            st["perm"] = st["perm"][perm] if "perm" in st else perm
+            st["lane_rid"] = st["lane_rid"][perm]
+            st["pending"] = st["pending"][perm]
+            st["admitted"] = [new_of[l] for l in st["admitted"]]
         self.stats["compactions"] += 1

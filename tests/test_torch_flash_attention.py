@@ -126,11 +126,13 @@ def test_unknown_impl_raises():
     (2, 2, 1, 1, 40, K.SPLIT_KV),             # Skv below one tile
 ])
 def test_plan_routes_bf16_by_rows(b, hq, hkv, sq, skv, body, d):
-    """bf16 with more than 16 rows per KV head (group * Sq) takes the
-    tensor-core body on 64-row CTAs; with at most 16 the split-KV body on
-    a grid of ``split_grid(skv)`` splits per (KV head, lane), with
-    (B, Hkv, splits, rows, D + 2) f32 scratch."""
-    plan = K.plan_dense(torch.bfloat16, b, hq, hkv, sq, skv, d)
+    """bf16 prefill takes the tensor-core body on 64-row CTAs; bf16 decode
+    with at most 16 rows per KV head (group * Sq) the split-KV body on a
+    grid of ``split_grid(skv)`` splits per (KV head, lane), with (B, Hkv,
+    splits, rows, D + 2) f32 scratch.  The cases' split-KV rows are decode
+    calls, the others prefill."""
+    plan = K.plan_dense(torch.bfloat16, b, hq, hkv, sq, skv, d,
+                        decode=body == K.SPLIT_KV)
     assert plan.body == body
     if body == K.TENSOR_CORE:
         assert plan.splits == 1 and plan.scratch is None
@@ -145,8 +147,10 @@ def test_plan_routes_bf16_by_rows(b, hq, hkv, sq, skv, body, d):
 def test_plan_f32_takes_cuda_core_body(sq, skv):
     """f32 stays on the CUDA-core body: the tensor cores would round it to
     TF32."""
-    plan = K.plan_dense(torch.float32, 2, 4, 2, sq, skv, 80)
-    assert plan.body == K.CUDA_CORE and plan.scratch is None
+    for decode in (False, True):
+        plan = K.plan_dense(torch.float32, 2, 4, 2, sq, skv, 80,
+                            decode=decode)
+        assert plan.body == K.CUDA_CORE and plan.scratch is None
 
 
 def _lanes(skv):
@@ -166,7 +170,7 @@ def test_lane_splits_do_not_depend_on_the_call(b, hkv, skv):
     heads and the cache's allocated length: every lane that fits in a
     cache of ``skv`` keys has the same splits in any larger cache, and all
     of them inside the plan's grid, which the scratch covers."""
-    plan = K.plan_dense(torch.bfloat16, b, hkv, hkv, 1, skv, 64)
+    plan = K.plan_dense(torch.bfloat16, b, hkv, hkv, 1, skv, 64, decode=True)
     assert plan.body == K.SPLIT_KV
     assert plan.scratch == (b, hkv, plan.splits, 1, 66)
     for kv_len, q_offset, sq, causal, window in _lanes(skv):
@@ -177,7 +181,7 @@ def test_lane_splits_do_not_depend_on_the_call(b, hkv, skv):
         assert all(lo // span < plan.splits for lo, _ in splits)
         for bigger in (skv + 1, 2 * skv + 63, 10 ** 6):
             grid = K.plan_dense(torch.bfloat16, b, hkv, hkv, 1, bigger,
-                                64).splits
+                                64, decode=True).splits
             assert grid >= plan.splits
             assert all(lo // span < grid for lo, _ in splits)
 
@@ -225,14 +229,20 @@ def test_lane_splits_partition_the_live_keys(kv_len, q_offset, sq, causal,
     (torch.float32, torch.float32, 40, 2, K.CUDA_CORE),
 ])
 def test_plan_paged_routes_by_dtype_and_rows(dtype, pool, sq, group, body):
-    """bf16 q with at most 16 rows per KV head takes the split-KV body on
-    the grid a dense cache of n_pages * ps keys would take; f32 q (the
-    template of f32 dense decode) and more rows the CUDA-core body."""
+    """A bf16 decode call with at most 16 rows per KV head takes the
+    split-KV body on the grid a dense cache of n_pages * ps keys would
+    take; f32 q (the template of f32 dense decode), a decode of more rows
+    and a bf16 prefill at any row count (one row included) the CUDA-core
+    body."""
     b, hkv, n_pages, ps, d = 8, 4, 65, 16, 80
-    plan = K.plan_paged(dtype, pool, b, hkv * group, hkv, sq, n_pages, ps, d)
+    plan = K.plan_paged(dtype, pool, b, hkv * group, hkv, sq, n_pages, ps, d,
+                        decode=True)
     assert plan.body == body
+    assert K.plan_paged(dtype, pool, b, hkv * group, hkv, sq, n_pages, ps, d,
+                        decode=False).body == K.CUDA_CORE
     if body == K.SPLIT_KV:
-        dense = K.plan_dense(dtype, b, hkv * group, hkv, sq, n_pages * ps, d)
+        dense = K.plan_dense(dtype, b, hkv * group, hkv, sq, n_pages * ps, d,
+                             decode=True)
         assert plan == dense
         assert plan.scratch == (b, hkv, plan.splits, group * sq, d + 2)
     else:
@@ -241,17 +251,40 @@ def test_plan_paged_routes_by_dtype_and_rows(dtype, pool, sq, group, body):
 
 def test_plan_paged_refuses_what_no_body_takes():
     with pytest.raises(ValueError):
-        K.plan_paged(torch.bfloat16, torch.bfloat16, 1, 2, 2, 1, 4, 16, 160)
+        K.plan_paged(torch.bfloat16, torch.bfloat16, 1, 2, 2, 1, 4, 16, 160, decode=True)
     with pytest.raises(ValueError):
-        K.plan_paged(torch.bfloat16, torch.float32, 1, 2, 2, 1, 4, 16, 64)
+        K.plan_paged(torch.bfloat16, torch.float32, 1, 2, 2, 1, 4, 16, 64, decode=True)
     with pytest.raises(ValueError):
-        K.plan_paged(torch.float16, torch.float16, 1, 2, 2, 1, 4, 16, 64)
+        K.plan_paged(torch.float16, torch.float16, 1, 2, 2, 1, 4, 16, 64, decode=True)
 
 
 def test_plan_refuses_what_no_body_takes():
     with pytest.raises(ValueError):
-        K.plan_dense(torch.bfloat16, 1, 2, 2, 1, 8, 160)
+        K.plan_dense(torch.bfloat16, 1, 2, 2, 1, 8, 160, decode=True)
     with pytest.raises(ValueError):
-        K.plan_dense(torch.bfloat16, 1, 3, 2, 1, 8, 64)
+        K.plan_dense(torch.bfloat16, 1, 3, 2, 1, 8, 64, decode=True)
     with pytest.raises(ValueError):
-        K.plan_dense(torch.float16, 1, 2, 2, 1, 8, 64)
+        K.plan_dense(torch.float16, 1, 2, 2, 1, 8, 64, decode=True)
+
+
+@pytest.mark.parametrize("sq", [1, 2, 9, 16, 17, 963])
+@pytest.mark.parametrize("group", [1, 4])
+def test_plan_routes_by_role_not_row_count(sq, group):
+    """A bf16 prefill takes the tensor-core body (dense) or the CUDA-core
+    body (paged) at every row count, one row included, so a prompt's rows
+    take one body however it is cut into chunks; a decode call with at
+    most 16 rows per KV head takes the split-KV body, dense and paged."""
+    b, hkv, skv, d = 3, 2, 1027, 80
+    prefill = K.plan_dense(torch.bfloat16, b, hkv * group, hkv, sq, skv, d,
+                           decode=False)
+    assert prefill.body == K.TENSOR_CORE and prefill.scratch is None
+    paged = K.plan_paged(torch.bfloat16, torch.bfloat16, b, hkv * group, hkv,
+                         sq, 65, 16, d, decode=False)
+    assert paged.body == K.CUDA_CORE
+    decode = K.plan_dense(torch.bfloat16, b, hkv * group, hkv, sq, skv, d,
+                          decode=True)
+    split = group * sq <= K.SPLIT_ROWS
+    assert decode.body == (K.SPLIT_KV if split else K.TENSOR_CORE)
+    paged = K.plan_paged(torch.bfloat16, torch.bfloat16, b, hkv * group, hkv,
+                         sq, 65, 16, d, decode=True)
+    assert paged.body == (K.SPLIT_KV if split else K.CUDA_CORE)

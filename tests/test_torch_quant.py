@@ -179,17 +179,21 @@ def test_quantized_flash_refuses_what_it_cannot_take():
     (17, 1, K.CUDA_CORE),
 ])
 def test_plan_paged_routes_narrow_pools(page_dtype, sq, group, body):
-    """bf16 q over int8/fp8 pools with at most 16 rows per KV head takes
-    the split-KV body, on the grid of a bf16 pool of the same pages; more
-    rows, and f32 q, the CUDA-core body."""
+    """A bf16 decode call over int8/fp8 pools with at most 16 rows per KV
+    head takes the split-KV body, on the grid of a bf16 pool of the same
+    pages; more rows, a prefill at any row count, and f32 q the CUDA-core
+    body."""
     pool = PG.resolve_page_dtype(page_dtype)
     args = (8, 2 * group, 2, sq, 65, 16, 80)
-    plan = K.plan_paged(torch.bfloat16, pool, *args)
+    plan = K.plan_paged(torch.bfloat16, pool, *args, decode=True)
     assert plan.body == body
+    assert K.plan_paged(torch.bfloat16, pool, *args,
+                        decode=False).body == K.CUDA_CORE
     if body == K.SPLIT_KV:
-        assert plan == K.plan_paged(torch.bfloat16, torch.bfloat16, *args)
+        assert plan == K.plan_paged(torch.bfloat16, torch.bfloat16, *args,
+                                    decode=True)
         assert plan.scratch == (8, 2, K.split_grid(65 * 16), group * sq, 82)
-    f32 = K.plan_paged(torch.float32, pool, *args)
+    f32 = K.plan_paged(torch.float32, pool, *args, decode=True)
     assert f32.body == K.CUDA_CORE and f32.scratch is None
 
 
@@ -202,9 +206,9 @@ def test_plan_paged_refuses_narrow_head_dims_off_16(page_dtype, d):
     pool = PG.resolve_page_dtype(page_dtype)
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="multiple of 16"):
-            K.plan_paged(dtype, pool, 2, 4, 2, 1, 3, 16, d)
+            K.plan_paged(dtype, pool, 2, 4, 2, 1, 3, 16, d, decode=True)
     assert K.plan_paged(torch.bfloat16, torch.bfloat16, 2, 4, 2, 1, 3, 16,
-                        d).body == K.SPLIT_KV
+                        d, decode=True).body == K.SPLIT_KV
 
 
 @pytest.mark.parametrize("family", ["dense", "hybrid"])

@@ -15,8 +15,9 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 import numpy as np
-from torch_parity import (assert_same_results, plain_models, sched_trace,
-                          serve_trace)
+from torch_parity import (assert_same_results,
+                          jax_scheduler_seeding_swapped_pages, plain_models,
+                          sched_trace, serve_trace)
 
 from repro.serve import ContinuousBatchingScheduler as JaxScheduler
 from repro.serve import SamplingParams as JaxSampling
@@ -125,23 +126,29 @@ def test_entry_crc_is_over_the_pool_bytes(dtype):
 @pytest.fixture(scope="module")
 def paged_trace():
     """The trace of the JAX package's paged + prefix + chunked + compacting
-    fused test, with the host-swap tier, through the JAX scheduler once."""
+    fused test, with the host-swap tier, through the JAX scheduler once,
+    then with ``overlap=True`` on the same JAX engine (its
+    chunked requests seeded from paged-in prefix pages too: three of them
+    take that path, ``jax_scheduler_seeding_swapped_pages``)."""
     cfg_j, params, cfg_t, model = plain_models(1)
     rng = np.random.RandomState(12)
     trace = sched_trace(rng, 10, shared_prefix=rng.randint(1, 64, 8))
     eng_j = JaxEngine(cfg_j, params, max_new_tokens=6, stop_token=7)
-    want, stats, _ = serve_trace(JaxScheduler, JaxSampling, eng_j, trace,
-                                 max_len=MAX_LEN, **PAGED)
+    want, stats, _ = serve_trace(jax_scheduler_seeding_swapped_pages(),
+                                 JaxSampling, eng_j, trace, max_len=MAX_LEN,
+                                 **PAGED)
+    over = serve_trace(jax_scheduler_seeding_swapped_pages(), JaxSampling,
+                       eng_j, trace, max_len=MAX_LEN, overlap=True, **PAGED)
     eng_t = ServeEngine(cfg_t, model, max_new_tokens=6, stop_token=7,
                         device="cpu")
-    return eng_t, trace, want, stats
+    return eng_t, trace, want, stats, over[:2]
 
 
 @pytest.mark.parametrize("fused", [True, False])
 def test_paged_prefix_swap_chunked_trace_matches_jax(paged_trace, fused):
     """Fused: the JAX scheduler's bytes and stats.  Unfused: the same bytes
     (the JAX package holds its own fused == unfused)."""
-    eng_t, trace, want, want_stats = paged_trace
+    eng_t, trace, want, want_stats, _ = paged_trace
     got, stats, sched = serve_trace(ContinuousBatchingScheduler,
                                     SamplingParams, eng_t, trace,
                                     max_len=MAX_LEN, fused=fused, **PAGED)
@@ -155,6 +162,23 @@ def test_paged_prefix_swap_chunked_trace_matches_jax(paged_trace, fused):
     assert sched.allocator.live_pages == 0
     assert (sched.allocator.refcount == 0).all()
     assert len(sched.prefix_index) == 0 and len(sched.host_swap) <= 4
+    assert (sched.cache["page_table"] == sched.trash_page).all()
+
+
+def test_paged_overlap_trace_matches_jax(paged_trace):
+    """The async overlap loop on the paged + prefix + swap + chunked +
+    compacting trace: the JAX scheduler's ``overlap=True`` bytes and stats,
+    every page back and every table row on the trash page."""
+    eng_t, trace, _, _, (want, want_stats) = paged_trace
+    got, stats, sched = serve_trace(ContinuousBatchingScheduler,
+                                    SamplingParams, eng_t, trace,
+                                    max_len=MAX_LEN, overlap=True, **PAGED)
+    assert_same_results(got, want, "paged overlap")
+    assert stats == want_stats
+    for k in ("prefix_hits", "session_hits", "prefill_chunks", "compactions",
+              "page_waits"):
+        assert stats[k] > 0, k
+    assert sched._stash is None and sched.allocator.live_pages == 0
     assert (sched.cache["page_table"] == sched.trash_page).all()
 
 

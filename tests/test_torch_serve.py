@@ -249,12 +249,6 @@ def test_launcher_page_dtype_needs_page_size(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--overlap"], "Queue 1 item 7\\(d\\)"),
-    (["--chaos-seed", "1"], "Queue 1 item 7\\(e\\)"),
-    (["--max-queue", "4"], "Queue 1 item 7\\(e\\)"),
-    (["--deadline-steps", "8"], "Queue 1 item 7\\(e\\)"),
-    (["--priority-every", "3"], "Queue 1 item 7\\(e\\)"),
-    (["--chaos-cancel-rate", "0.1"], "Queue 1 item 7\\(e\\)"),
     (["--static", "--mesh", "1x1"], "Queue 1 item 14"),
     (["--mesh", "1x1"], "Queue 1 item 14"),
     (["--static", "--arch", "llama_3_2_vision_11b"], "Queue 1 item 12"),

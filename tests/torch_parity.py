@@ -86,6 +86,39 @@ def plain_models(seed=0, **over):
     return cfg_j, params, cfg_t, from_jax_params(cfg_t, params_np, device="cpu")
 
 
+def jax_scheduler_seeding_swapped_pages():
+    """The JAX scheduler with ``_start_partial`` seeding the first chunk from
+    every prefix page, paged-in ones included.  The JAX package seeds a
+    chunked request's sub-cache from RESIDENT shared pages only
+    (``plan.shared``), so a request whose prefix pages all came back from
+    the host-swap tier prefills its chunks over a zero prefix (ROADMAP
+    Queue 3 item 10); the port seeds both, and its parity tests hold it
+    against this subclass.  The JAX package is not edited."""
+    from repro.serve import ContinuousBatchingScheduler
+    from repro.serve.scheduler import _Partial
+
+    class Seeding(ContinuousBatchingScheduler):
+        def _start_partial(self, req, plan, lane):
+            lane = int(lane)
+            budget = (plan.budget if plan is not None
+                      else self._budget_for(req, len(req.tokens)))
+            sub_cache = self.engine.make_cache(1, self.max_len,
+                                               src_len=self.src_len)
+            seed = (self._seed_arrays([plan], 1) if plan is not None
+                    else None)
+            self.lane_rid[lane] = req.rid
+            self._lane_pending[lane] = True
+            self._partials.append(_Partial(
+                req=req, plan=plan, lane=lane, sub_cache=sub_cache, done=0,
+                pos0=plan.pos0 if plan is not None else 0, budget=budget,
+                seed=seed))
+            self.obs.request_event(req.rid, "prefill_start", lane=lane,
+                                   suffix=len(req.tokens)
+                                   - (plan.pos0 if plan is not None else 0))
+
+    return Seeding
+
+
 def sched_trace(rng, n, *, shared_prefix=None, vocab=64):
     """A ragged trace of ``(arrival, prompt, max_new_tokens)``: staggered
     arrivals, ragged prompts (3-13 tokens, or a shared prefix + suffix cut
