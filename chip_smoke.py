@@ -80,6 +80,20 @@
    TTFT, the decode step, a round's anatomy (admission and compaction
    cost, the splices' ms and bytes), captures and, for stablelm dense, the
    device's idle share over 10 profiled rounds.
+   Then the cross-attention models and gemma3 (``serve_cross``), random
+   bf16 weights from seed 0 at full width: seamless-m4t-large-v2 (encdec;
+   8 requests, encoder inputs of 256–1024 frames, decoder prompts of 8–64
+   tokens; dense, paged, int8), llama-3.2-vision-11b (the 8 prompts above
+   with image embeddings of (8, 1024, 4096); dense, paged) and gemma3-27b
+   (24 of its 62 layers; the 8 prompts, lanes 0 and 4 past its 1024-key
+   window; dense, paged), each through ``generate`` with the row checks,
+   graphed == eager, paged == dense and the launches per body held; and
+   seamless through the scheduler (``serve_encdec_scheduler``: 16
+   requests, ``src_len`` 1024, dense whole prefills against 16-token pages
+   with prefill chunks of 32, bit for bit).  The flash kernels are also
+   held in those models' roles (``check_cross_roles``: non-causal, Sq !=
+   Skv both ways, kv_lens down to 1, the split-KV body over 1024 keys) and
+   timed there (``time_cross``).
 4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
 5. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
@@ -92,6 +106,12 @@ fails.
 
 builds the kernels and runs only the continuous-batching phase.
 
+    python3 chip_smoke.py --cross
+
+builds the kernels and runs only the cross-attention roles' check and
+times, ``serve_cross`` for seamless, llama-vision and gemma3, and the
+encdec scheduler leg.
+
     python3 chip_smoke.py --chunk-probe
 
 builds the kernels and holds chunked against whole-prompt prefill of
@@ -103,8 +123,11 @@ shapes: a bf16 prefill's logits move with its GEMMs' row count.
 
 builds the kernels and shows which row counts give a row the same bits
 (``gemm_probe``): every projection shape of stablelm-3b, zamba2-1.2b and
-mamba2-130m and their row reductions with 16 probe rows inside calls of 1
-to 8192 rows, and at model level one decode step at widths 1/2/4/8 and one
+mamba2-130m and, from their configs (``shape_probe``), of
+seamless-m4t-large-v2, llama-3.2-vision-11b, gemma3-27b and
+command-r-plus-104b with their unembeddings, and their row reductions,
+with 16 probe rows inside calls of 1 to 8192 rows (what the per-shape
+floors of ``layers.ROW_FLOORS`` cost: ``table_cost``), and at model level one decode step at widths 1/2/4/8 and one
 prompt prefilled alone, in a batch and in chunks, at several row floors.
 
     python3 chip_smoke.py --ssd-probes
@@ -512,6 +535,67 @@ def check_kernels(flash_attention):
     check(splits == {1, 5, 8, 33}, f"split-KV cases planned grids of "
           f"{sorted(splits)} splits, expected 1, 5, 8 and 33")
     return worst
+
+
+# The flash kernels in the roles of the cross-attention models, (b, hkv,
+# group, sq, skv, d) and the body: non-causal prefill with fewer query rows
+# than keys (a decoder prompt over seamless' 1024 encoder frames, D 64;
+# over llama-vision's 1024 image tokens, D 128), with more (an encoder's
+# 300 frames over 128 keys), and square (seamless' encoder over 1024
+# frames); the split-KV body non-causal over 1024 keys (cross decode).
+# Lanes hold kv_lens (skv, skv // 2 + 3, 1, 7): ragged down to one key.
+CROSS_CASES = (
+    ((4, 16, 1, 64, 1024, 64), "tensor_core"),
+    ((4, 8, 4, 100, 1024, 128), "tensor_core"),
+    ((4, 16, 1, 300, 128, 64), "tensor_core"),
+    ((4, 8, 4, 300, 128, 128), "tensor_core"),
+    ((2, 16, 1, 1024, 1024, 64), "tensor_core"),
+    ((4, 16, 1, 1, 1024, 64), "split_kv"),
+    ((4, 8, 4, 1, 1024, 128), "split_kv"),
+)
+
+
+def check_cross_roles(flash_attention) -> dict:
+    """Each of ``CROSS_CASES`` non-causal in bf16 on its planned body and in
+    f32 on the CUDA-core body, against the plain version at ``TOL``, with
+    the launches counted per body (held: one a call, on the planned body).
+    Prints each case's ``tol_ratio``.  Returns the launches per body."""
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    bodies = collections.Counter()
+    lines = []
+    for (b, hkv, group, sq, skv, d), body in CROSS_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, hkv * group, sq, d, generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn(b, hkv, skv, d, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            kv_lens = torch.tensor([skv, skv // 2 + 3, 1, 7][:b],
+                                   dtype=torch.int32, device="cuda")
+            kw = dict(kv_lens=kv_lens, causal=False,
+                      decode=body == "split_kv")
+            K.reset_flash_counts()
+            got = flash_attention(q, k, v, impl="kernel", **kw)
+            torch.cuda.synchronize()
+            launched = dict(K.flash_dense_cuda.body_launches)
+            want = flash_attention(q, k, v, impl="naive", **kw)
+            kind = body if dtype == torch.bfloat16 else "f32"
+            want_body = body if dtype == torch.bfloat16 else "cuda_core"
+            where = f"cross role {dtype} {(b, hkv, group, sq, skv, d)}"
+            check(launched[want_body] == 1 and sum(launched.values()) == 1,
+                  f"{where} took the {want_body} body: {launched}")
+            bodies[want_body] += 1
+            atol, rtol = TOL[kind]
+            r = tol_ratio(got, want, atol, rtol)
+            check(r <= 1 and bool(torch.isfinite(got).all()),
+                  f"{where}: {r} times its limit from the plain version")
+            lines.append(f"{(b, hkv, group, sq, skv, d)} {kind} {r:.4f}")
+    print(f"[kernels] the cross-attention roles, non-causal, kv_lens down to "
+          f"1, against the plain version (held at TOL), tol_ratio per case: "
+          + "; ".join(lines) + f"; launches per body {dict(bodies)}",
+          flush=True)
+    return dict(bodies)
 
 
 def _quant_pools(gen, n_pool, hkv, ps, d, page_dtype):
@@ -1136,6 +1220,70 @@ def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
     return rows, (q1, k, v, kv1)
 
 
+def time_cross(gpu) -> dict:
+    """The dense kernel in the cross-attention models' roles, non-causal, at
+    their shapes (bf16): seamless' encoder (q and k/v (8, 16, 1024, 64),
+    ragged frame counts), its cross-attention prefill (a 64-token decoder
+    prompt over the frames) and decode (one row), llama-vision's
+    cross-attention prefill (1024 prompt rows, 32 heads over 8 KV heads of
+    D 128, all 1024 image tokens) and decode.  Each beside its plain
+    version, its bound (operations on the live query-key pairs, or the
+    bytes of q, out and the live K/V) and ``scaled_dot_product_attention``
+    with the same mask (``enable_gqa`` where the heads are grouped)."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    from repro_torch.kernels.flash_attention.ops import NO_WINDOW
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bf, item = torch.bfloat16, 2
+    win = torch.tensor([NO_WINDOW], dtype=torch.int32, device="cuda")
+    frames = torch.from_numpy(np.random.RandomState(0).randint(
+        256, 1025, N_REQ).astype(np.int32)).cuda()
+    full = torch.full((N_REQ,), 1024, dtype=torch.int32, device="cuda")
+    cases = (("seamless encoder", 16, 16, 64, 1024, frames, False),
+             ("seamless cross prefill", 16, 16, 64, 64, frames, False),
+             ("seamless cross decode", 16, 16, 64, 1, frames, True),
+             ("llama-vision cross prefill", 32, 8, 128, 1024, full, False),
+             ("llama-vision cross decode", 32, 8, 128, 1, full, True))
+    rows = {}
+    for name, h, hkv, d, sq, lens_t, decode in cases:
+        q = torch.randn(N_REQ, h, sq, d, generator=gen, device="cuda").to(bf)
+        k, v = (torch.randn(N_REQ, hkv, 1024, d, generator=gen,
+                            device="cuda").to(bf) for _ in range(2))
+        zero = torch.zeros(N_REQ, dtype=torch.int32, device="cuda")
+        kern = lambda: K.flash_dense_cuda(q, k, v, lens_t, zero, win,
+                                          causal=False, scale=d ** -0.5,
+                                          decode=decode)
+        plain = lambda: R.mha_ref(q, k, v, kv_lens=lens_t, q_offset=zero)
+        mask = R.attention_mask(sq, 1024, kv_lens=lens_t, q_offset=zero)
+        lib = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None], scale=d ** -0.5,
+            enable_gqa=h != hkv)
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        body = K.plan_dense(bf, N_REQ, h, hkv, sq, 1024, d, decode=decode).body
+        atol, rtol = TOL[body]
+        r = tol_ratio(out_k, out_p, atol, rtol)
+        check(r <= 1, f"{name}: {r} times its limit from the plain version")
+        pairs = int(mask.sum())
+        row = dict(shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
+                   "non-causal", body=body, ms=time_ms(kern, 20),
+                   plain_ms=time_ms(plain, 5), library_ms=time_ms(lib, 20),
+                   flops=4 * h * d * pairs,
+                   bytes=item * (2 * q.numel() + 2 * hkv * d * int(lens_t.sum())),
+                   max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
+        _bound(row)
+        rows[name] = row
+        print(f"[time] {name} ({row['body']}, {row['shape']}): "
+              f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+              f"scaled_dot_product_attention {row['library_ms']:.4f} ms; "
+              f"tol_ratio {r:.4f}  [{gpu}]", flush=True)
+        del q, k, v, out_k, out_p, mask
+    return rows
+
+
 def split_span_sweep(calls, gpu):
     """The decode calls of ``calls`` (name -> a call of a wrapper) timed at
     each split span of ``SWEEP_SPLIT_KEYS``: the wrappers read
@@ -1717,17 +1865,35 @@ def plain_fadda():
         R.fadda_rows = kernel
 
 
+def _attn_calls(cfg) -> tuple:
+    """The flash calls of one model: (a whole prefill's, a decode step's
+    self-attention ones through the cache, a decode step's cross-attention
+    ones over the dense per-lane cross K/V).  encdec's prefill runs the
+    encoder's and each decoder layer's self- and cross-attention; the vlm's
+    its self layers and one cross layer a group."""
+    if cfg.family == "encdec":
+        n = cfg.n_dec_layers
+        return cfg.n_enc_layers + 2 * n, n, n
+    if cfg.cross_attn_group:
+        groups = cfg.n_layers // cfg.cross_attn_group
+        n_self = cfg.n_layers - groups
+        return n_self + groups, n_self, groups
+    n = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+         "hybrid": cfg.n_layers // cfg.shared_attn_period}[cfg.family]
+    return n, n, 0
+
+
 def _attn_layers(cfg) -> int:
-    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
-            "hybrid": cfg.n_layers // cfg.shared_attn_period}[cfg.family]
+    """The attention layers a decode step runs through the cache."""
+    return _attn_calls(cfg)[1]
 
 
 def _want_launches(cfg, page_size, page_dtype, steps, stochastic=False):
     """Each kernel's launches in one ``generate`` of the smoke workload (a
     stochastic batch runs one ordered top-p scan per sampled token)."""
-    attn = _attn_layers(cfg)
+    pre, attn, cross = _attn_calls(cfg)
     want = dict.fromkeys(kernel_wrappers(), 0)
-    want["flash_attention_dense"] = attn                 # prefill
+    want["flash_attention_dense"] = pre + cross * steps  # prefill, cross decode
     decode = ("flash_attention_dense" if page_size is None else
               "flash_attention_paged_quant" if page_dtype else
               "flash_attention_paged")
@@ -1746,9 +1912,11 @@ def _want_bodies(cfg, page_size, page_dtype, steps):
     ``generate``: every prefill call on the dense kernel's tensor-core body,
     every decode call on the split-KV body of the dense or the paged kernel,
     every prefill scan of a Mamba layer on the SSD scan's tensor-core body,
-    none on a CUDA-core body."""
-    attn = _attn_layers(cfg)
-    want = {"flash_attention_dense": {"tensor_core": attn, "split_kv": 0,
+    none on a CUDA-core body.  Cross-attention decode runs the dense
+    kernel's split-KV body over the lane's cross K/V."""
+    pre, attn, cross = _attn_calls(cfg)
+    want = {"flash_attention_dense": {"tensor_core": pre,
+                                      "split_kv": cross * steps,
                                       "cuda_core": 0},
             "flash_attention_paged": {"split_kv": 0, "cuda_core": 0},
             "flash_attention_paged_quant": {"split_kv": 0, "cuda_core": 0}}
@@ -2476,6 +2644,231 @@ def serve_model(arch, gpu):
     return cfg, lens, max_len, runs
 
 
+# ---------------------------------------------------------------------------
+# the cross-attention models and gemma3 through ``generate``
+# ---------------------------------------------------------------------------
+
+CROSS_ARCHS = ("seamless_m4t_large_v2", "llama_3_2_vision_11b", "gemma3_27b")
+CROSS_WIDTHS = {
+    "seamless_m4t_large_v2": dict(
+        n_enc_layers=24, n_dec_layers=24, d_model=1024, n_heads=16,
+        n_kv_heads=16, resolved_head_dim=64, d_ff=8192, vocab_size=256206,
+        padded_vocab=256256),
+    "llama_3_2_vision_11b": dict(
+        n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
+        resolved_head_dim=128, d_ff=14336, vocab_size=128256,
+        cross_attn_group=5, n_cross_tokens=1024),
+    "gemma3_27b": dict(
+        n_layers=62, d_model=5376, n_heads=32, n_kv_heads=16,
+        resolved_head_dim=128, d_ff=21504, vocab_size=262144,
+        local_window=1024, local_global_period=6),
+}
+CROSS_RUNS = {
+    "seamless_m4t_large_v2": (("dense", None, None), ("paged", PAGE_SIZE, None),
+                              ("int8", PAGE_SIZE, "int8")),
+    "llama_3_2_vision_11b": (("dense", None, None), ("paged", PAGE_SIZE, None)),
+    "gemma3_27b": (("dense", None, None), ("paged", PAGE_SIZE, None)),
+}
+# depth cuts: gemma3-27b's 62 layers (57 GB of bf16 weights) leave the
+# 80 GB card too little for the graphed and eager runs' caches side by
+# side; 24 layers keep 4 of its 5:1 local:global periods (~25 GB)
+CROSS_DEPTH = {"gemma3_27b": dict(n_layers=24)}
+# gemma3: lanes 0 and 4 get 300 more prompt tokens, so that they hold more
+# than its 1024-key local window in prefill and in decode
+GEMMA3_LONGER = (0, 4)
+
+
+def cross_batch(cfg) -> tuple:
+    """The phase's batch of 8 and its prompt lengths.  seamless: source
+    frames N(0, 1) of ``RandomState(0).randint(256, 1025, 8)`` rows (zeros
+    past each row's length), decoder prompts of ``randint(8, 65, 8)``
+    tokens; llama-vision and gemma3: the smoke's prompts
+    (``randint(128, 1025, 8)`` tokens; gemma3's lanes ``GEMMA3_LONGER``
+    300 longer), llama-vision with image embeddings N(0, 1) of (8, 1024,
+    4096).  The embeddings come from a card generator seeded with 0."""
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {}
+    if cfg.family == "encdec":
+        src = rng.randint(256, 1025, N_REQ).astype(np.int32)
+        lens = rng.randint(8, 65, N_REQ).astype(np.int32)
+        emb = torch.randn(N_REQ, int(src.max()), cfg.d_model, generator=gen,
+                          device="cuda")
+        emb *= (torch.arange(emb.shape[1], device="cuda")[None, :, None]
+                < torch.from_numpy(src).cuda()[:, None, None])
+        batch.update(src_emb=emb, src_lens=torch.from_numpy(src).cuda())
+    else:
+        lens = rng.randint(128, 1025, N_REQ).astype(np.int32)
+        if cfg.local_window:
+            lens[list(GEMMA3_LONGER)] += 300
+        if cfg.cross_attn_group:
+            batch["cross_emb"] = torch.randn(N_REQ, cfg.n_cross_tokens,
+                                             cfg.d_model, generator=gen,
+                                             device="cuda")
+    tokens = rng.randint(1, cfg.vocab_size, (N_REQ, int(lens.max())))
+    batch.update(tokens=torch.from_numpy(tokens).cuda(),
+                 lens=torch.from_numpy(lens).cuda())
+    return batch, lens
+
+
+def serve_cross(arch, gpu) -> dict:
+    """One model of ``CROSS_ARCHS`` at its published widths (depth cut by
+    ``CROSS_DEPTH``) through ``ServeEngine.generate``, random bf16 weights
+    from seed 0, the batch of ``cross_batch``, 64 new tokens: the row
+    checks (``check_rows``: lane 0's decode logits at widths 1/2/4/8, a
+    prompt alone == in a batch == in chunks), then each cache of
+    ``CROSS_RUNS`` graphed and held against the eager body bit for bit
+    with equal launches, held to ``_want_launches`` per kernel and body;
+    paged tokens equal the dense run's (held), int8's reported; prefill
+    timed alone, the graphed decode step and tokens per second printed.
+    Returns each run's launches and bodies."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import BURST
+
+    cfg = get_config(arch)
+    widths = CROSS_WIDTHS[arch]
+    got = {k: getattr(cfg, k) for k in widths}
+    check(got == widths, f"{arch} widths {got}, published {widths}")
+    cfg = cfg.replace(**CROSS_DEPTH.get(arch, {}))
+    fam = get_model(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = fam.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[full] {cfg.name} ({cfg.family}): "
+          + " ".join(f"{k}={v}" for k, v in widths.items())
+          + (f", depth cut to {CROSS_DEPTH[arch]}" if arch in CROSS_DEPTH
+             else "")
+          + f" {cfg.compute_dtype}: {n_params / 1e9:.3f}B params, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    batch, lens = cross_batch(cfg)
+    max_len = int(lens.max()) + MAX_NEW
+    Engine, Eager, *_ = engine_classes()
+    small = {k: v[:2, :16] if k == "tokens" else v[:2]
+             for k, v in batch.items() if k != "lens"}
+    Engine(cfg, model, max_new_tokens=2, stop_token=-1).generate(small)
+    torch.cuda.synchronize()                           # cuBLAS warm-up
+    check_rows(fam, model, cfg, gpu)
+
+    runs = {}
+    steps = MAX_NEW - 1
+    slots = bursts(steps) * BURST
+    for name, page_size, page_dtype in CROSS_RUNS[arch]:
+        kw = dict(max_new_tokens=MAX_NEW, stop_token=-1, page_dtype=page_dtype)
+        eng, eager = Engine(cfg, model, **kw), Eager(cfg, model, **kw)
+        run = served_graphed(cfg, eng, eager, batch, name,
+                             dict(page_size=page_size), turns=False)
+        want = _want_launches(cfg, page_size, page_dtype, slots)
+        check(run["counts"] == want,
+              f"{arch} {name} launches {run['counts']}, expected {want}")
+        want = _want_bodies(cfg, page_size, page_dtype, slots)
+        check(run["bodies"] == want,
+              f"{arch} {name} bodies {run['bodies']}, expected {want}")
+        del run["cache"], run["engine"], eng, eager
+        torch.cuda.empty_cache()
+        runs[name] = run
+        print(f"[full] {cfg.name} generate {name}: launches "
+              f"{ {k: v for k, v in run['counts'].items() if v} }, bodies "
+              f"{ _nonzero(run['bodies']) } (as expected, counted across "
+              f"replays; the eager body's the same)", flush=True)
+    with torch.inference_mode():
+        prefill = lambda: fam.prefill(model, cfg, batch,
+                                      make_cache(fam, cfg, N_REQ, max_len, batch))
+        prefill()
+        _, prefill_s = timed(prefill)
+    for name, r in runs.items():
+        r.update(prefill_ms=prefill_s * 1e3,
+                 decode_ms_per_step=(r["total_s"] - prefill_s) * 1e3 / steps,
+                 eager_ms_per_step=(r["eager_s"] - prefill_s) * 1e3 / steps,
+                 tokens_per_s=N_REQ * MAX_NEW / r["total_s"])
+        print(f"[full] {cfg.name} {name}: generate {r['total_s'] * 1e3:.1f} ms "
+              f"graphed, {r['eager_s'] * 1e3:.1f} ms eager, for {N_REQ}x{MAX_NEW} "
+              f"tokens, prompts {lens.min()}-{lens.max()}: prefill "
+              f"{r['prefill_ms']:.1f} ms (timed alone), decode "
+              f"{r['decode_ms_per_step']:.2f} ms/step graphed, "
+              f"{r['eager_ms_per_step']:.2f} eager, {r['tokens_per_s']:.1f} "
+              f"tokens/s graphed; capture {r['capture_s']:.3f} s, graph pool "
+              f"{r['pool_bytes'] / 2**20:.1f} MiB, static carry "
+              f"{r['carry_bytes'] / 2**20:.1f} MiB  [{gpu}]", flush=True)
+    same = float((runs["dense"]["tokens"] == runs["paged"]["tokens"]).mean())
+    print(f"[full] {cfg.name} identical tokens dense vs paged: {same:.4f} "
+          "(held at 1)", flush=True)
+    check(same == 1.0, f"{cfg.name}: paged tokens equal the dense run's")
+    if "int8" in runs:
+        same = float((runs["int8"]["tokens"] == runs["paged"]["tokens"]).mean())
+        print(f"[full] {cfg.name} tokens of the int8 pages equal to the "
+              f"full-precision paged run: {same:.4f} (reported: quantization "
+              "may change tokens)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def encdec_workload(cfg) -> list:
+    """The encdec scheduler leg's 16 requests from ``RandomState(22)``:
+    source frames 256–1024, decoder prompts 8–64 tokens, budgets 16–64,
+    then each prompt and its frames N(0, 1); the first 8 at step 0, then
+    one every 4 decode steps; all greedy."""
+    rs = np.random.RandomState(22)
+    n = ENCDEC_REQ
+    frames = rs.randint(256, 1025, n)
+    plens = rs.randint(8, 65, n)
+    budgets = rs.randint(16, 65, n)
+    return [{"prompt": rs.randint(1, cfg.vocab_size, int(m)).astype(np.int32),
+             "extras": {"src_emb": rs.standard_normal(
+                 (int(f), cfg.d_model)).astype(np.float32)},
+             "budget": int(b), "arrival": 0.0 if i < 8 else 4.0 * (i - 7),
+             "sampling": None}
+            for i, (f, m, b) in enumerate(zip(frames, plens, budgets))]
+
+
+ENCDEC_REQ, ENCDEC_SRC_LEN, ENCDEC_CHUNK = 16, 1024, 32
+
+
+def serve_encdec_scheduler(gpu) -> dict:
+    """seamless-m4t-large-v2 through ``ContinuousBatchingScheduler`` at full
+    width: ``encdec_workload`` on 8 lanes, bursts of 8, ``src_len`` 1024,
+    on the dense cache with whole prefills and on a paged cache (16-token
+    pages) with prefill chunks of 32 (the first chunk runs the encoder,
+    the rest read the cached cross K/V); each leg twice (``sched_leg``:
+    the warm run repeats the first run's tokens, launches held per body),
+    the paged leg's tokens held to the dense leg's bit for bit, and each
+    leg's tokens/s, TTFT and decode step printed.  Returns the warm runs'
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config("seamless_m4t_large_v2")
+    model = get_model(cfg).init(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "cuda")
+    work = encdec_workload(cfg)
+    launches = {}
+    legs = (("dense, whole prefills", {}),
+            (f"paged, chunks of {ENCDEC_CHUNK}",
+             dict(page_size=PAGE_SIZE, prefill_chunk=ENCDEC_CHUNK)))
+    out = {}
+    for name, kw in legs:
+        eng, sched, res, log, st, counts, caps = sched_leg(
+            cfg, model, work, gpu, name, src_len=ENCDEC_SRC_LEN, **kw)
+        launches[f"{cfg.name} {name}"] = counts
+        out[name] = res
+        sched_report(cfg, name, work, res, log, sched, caps, gpu)
+        if "page_size" in kw:
+            check(st["prefill_chunks"] > 0, f"{cfg.name} {name}: chunked")
+        del eng, sched
+        torch.cuda.empty_cache()
+    (a, ra), (b, rb) = out.items()
+    bad = same_tokens(rb, ra)
+    check(not bad, f"{cfg.name}: {b} tokens differ from {a} (requests {bad})")
+    print(f"[sched] {cfg.name}: every request's tokens on the {b} leg equal "
+          f"the {a} leg's bit for bit (held)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 @contextlib.contextmanager
 def split_kv_held(record):
     """Inside the block every split-KV call of the dense and the paged
@@ -2750,6 +3143,7 @@ class _PrefillRecorder:
 
     def __init__(self, fam, keep: bool):
         self.fam, self.keep, self.calls, self.rows = fam, keep, 0, []
+        self.enc_calls = 0                  # calls that ran an encoder
 
     def __getattr__(self, name):
         return getattr(self.fam, name)
@@ -2757,6 +3151,7 @@ class _PrefillRecorder:
     def prefill(self, model, cfg, batch, cache):
         logits, cache = self.fam.prefill(model, cfg, batch, cache)
         self.calls += 1
+        self.enc_calls += "src_emb" in batch
         if self.keep:
             toks = batch["tokens"]
             pos0 = batch.get("pos0")
@@ -2834,7 +3229,8 @@ def drive(sched, work, follow=None, window=None, monkey=None):
         rid_of[i] = sched.submit(prompt, max_new_tokens=w["budget"],
                                  arrival=arrival, sampling=w["sampling"],
                                  priority=w.get("priority", 0),
-                                 deadline=w.get("deadline"))
+                                 deadline=w.get("deadline"),
+                                 extras=w.get("extras"))
 
     for i, w in enumerate(work):
         if i not in follow:
@@ -3025,35 +3421,46 @@ def _want_sched(cfg, eng) -> tuple:
     ``sched_engine``) runs ``SCHED_CHUNK`` steps, each launching the decode
     kernel's split-KV body once per attention layer; MoE layers rank once
     per prefill call and decode step; no call runs a CUDA-core body.
-    ``fadda`` depends on the sampled steps and is not stated.  Returns
-    (launches, decode kernel, its decode launches)."""
-    attn, calls = _attn_layers(cfg), eng.model.calls
+    ``fadda`` depends on the sampled steps and is not stated.  encdec runs
+    its encoder only in the prefill calls that carry ``src_emb`` (an
+    admission, a request's first chunk), and each decode step's cross
+    attention on the dense kernel's split-KV body.  Returns (launches,
+    decode kernel, its decode launches, the cross decode launches)."""
+    pre, attn, cross = _attn_calls(cfg)
+    calls = eng.model.calls
     steps = SCHED_CHUNK * eng.bursts
     decode = ("flash_attention_dense" if eng.paged is None else
               "flash_attention_paged_quant" if eng.page_dtype else
               "flash_attention_paged")
     want = dict.fromkeys(kernel_wrappers(), 0)
-    want["flash_attention_dense"] = attn * calls
+    if cfg.family == "encdec":
+        want["flash_attention_dense"] = ((pre - cfg.n_enc_layers) * calls
+                                         + cfg.n_enc_layers * eng.model.enc_calls)
+    else:
+        want["flash_attention_dense"] = pre * calls
+    want["flash_attention_dense"] += cross * steps
     want[decode] += attn * steps
     if cfg.family in ("ssm", "hybrid"):
         want["ssd_scan"] = cfg.n_layers * calls
     if cfg.family == "moe":
         want["moe_positions"] = (cfg.n_layers - cfg.first_k_dense) * (
             calls + steps)
-    return want, decode, attn * steps
+    return want, decode, attn * steps, cross * steps
 
 
-def _held_bodies(bodies, want, decode, decode_launches) -> bool:
+def _held_bodies(bodies, want, decode, decode_launches, cross=0) -> bool:
     """The bodies ``_want_sched`` states: no CUDA-core body; every prefill
     call of the dense kernel on the tensor-core body; the decode kernel's
-    split-KV launches those of the bursts; the SSD scan all on its
-    tensor-core body."""
+    split-KV launches those of the bursts, and the dense kernel's the
+    cross-attention decode's; the SSD scan all on its tensor-core body."""
     if any(b.get("cuda_core", 0) for b in bodies.values()):
         return False
     dense = bodies["flash_attention_dense"]
-    return (dense["tensor_core"] == want["flash_attention_dense"]
-            - (decode_launches if decode == "flash_attention_dense" else 0)
-            and bodies[decode]["split_kv"] == decode_launches
+    own = decode_launches if decode == "flash_attention_dense" else 0
+    return (dense["tensor_core"] == want["flash_attention_dense"] - own - cross
+            and dense["split_kv"] == own + cross
+            and bodies[decode]["split_kv"] == decode_launches + (
+                cross if decode == "flash_attention_dense" else 0)
             and bodies["ssd_scan"]["tensor_core"] == want["ssd_scan"])
 
 
@@ -3100,7 +3507,7 @@ def sched_leg(cfg, model, work, gpu, name, *, keep=False, follow=None,
     sched_served(cfg, work, res1, f"{name} (first run)")
     captures = [((g.kw["stochastic"], g.kw["width"] or SCHED_CAP),
                  round(g.capture_s, 3)) for g in eng.graphs.values()]
-    eng.model.calls = eng.bursts = 0
+    eng.model.calls = eng.bursts = eng.model.enc_calls = 0
     obs = obs if obs is not None else Obs(tracer=Tracer())
     sched = new_sched(eng, obs=obs, **sched_kw)
     reset_counts()
@@ -3111,7 +3518,7 @@ def sched_leg(cfg, model, work, gpu, name, *, keep=False, follow=None,
     check(not bad, f"{cfg.name} {name}: the warm run repeats the first run's "
           f"tokens (requests {bad} differ)")
     st = dict(sched.stats)
-    want, decode, decode_launches = _want_sched(cfg, eng)
+    want, decode, decode_launches, cross = _want_sched(cfg, eng)
     print(f"[sched] {cfg.name} {name}: launches "
           f"{ {k: v for k, v in counts.items() if v} }, bodies "
           f"{_nonzero(bodies)} ({eng.model.calls} prefill calls, "
@@ -3119,7 +3526,7 @@ def sched_leg(cfg, model, work, gpu, name, *, keep=False, follow=None,
           f"first run's tokens (held)", flush=True)
     check({k: v for k, v in counts.items() if k != "fadda"}
           == {k: v for k, v in want.items() if k != "fadda"}
-          and _held_bodies(bodies, want, decode, decode_launches),
+          and _held_bodies(bodies, want, decode, decode_launches, cross),
           f"{cfg.name} {name}: launches {counts} bodies {_nonzero(bodies)}, "
           f"expected {want} ({decode_launches} of {decode} by the bursts)")
     if any(w["sampling"] is not None for w in work):
@@ -3171,10 +3578,10 @@ def overlap_leg(cfg, eng, work, dense_res, dense_log, dense_a, gpu) -> dict:
           f"{cfg.name} overlap: one host sync a round plus the flush "
           f"({st['host_syncs']} syncs, {st['dispatches']} dispatches, "
           f"{st['steps']} rounds)")
-    want, decode, decode_launches = _want_sched(cfg, eng)
+    want, decode, decode_launches, cross = _want_sched(cfg, eng)
     check({k: v for k, v in counts.items() if k != "fadda"}
           == {k: v for k, v in want.items() if k != "fadda"}
-          and _held_bodies(bodies, want, decode, decode_launches),
+          and _held_bodies(bodies, want, decode, decode_launches, cross),
           f"{cfg.name} overlap: launches {counts} bodies {_nonzero(bodies)}, "
           f"expected {want}")
     a = sched_report(cfg, "dense overlap", work, res, log, sched, captures,
@@ -3265,10 +3672,10 @@ def control_plane_leg(cfg, model, work, follow, dense_res, paged_res,
           and (m1.alloc_failures, m1.cancels, m1.corruptions)
           == (monkey.alloc_failures, monkey.cancels, monkey.corruptions),
           f"{cfg.name} control plane: two runs from one seed agree")
-    want, decode, decode_launches = _want_sched(cfg, eng)
+    want, decode, decode_launches, cross = _want_sched(cfg, eng)
     check({k: v for k, v in counts.items() if k != "fadda"}
           == {k: v for k, v in want.items() if k != "fadda"}
-          and _held_bodies(bodies, want, decode, decode_launches),
+          and _held_bodies(bodies, want, decode, decode_launches, cross),
           f"{cfg.name} control plane: launches {counts} bodies "
           f"{_nonzero(bodies)}, expected {want}")
     resumed = [i for i in whole if reasons[i] == "preempted_resumed"]
@@ -3631,6 +4038,10 @@ def chunk_probe(gpu) -> None:
 PROBE_MS = (1, 2, 3, 4, 5, 8, 9, 13, 16, 20, 32, 64, 128, 227, 256, 300, 512,
             963, 1024, 2048, 4096, 8192)
 PROBE_ARCHS = ("stablelm_3b", "zamba2_1_2b", "mamba2_130m")
+# archs probed by their shapes alone (no model is built: command-r-plus
+# does not fit the card): projections, unembedding and row reductions
+PROBE_SHAPE_ARCHS = ("seamless_m4t_large_v2", "llama_3_2_vision_11b",
+                     "gemma3_27b", "command_r_plus_104b")
 # (projection floor, norm floor) pairs: none, the shipped pair, and the
 # projections' floor for both
 PROBE_FLOORS = ((1, 1), (256, 16), (256, 256))
@@ -3694,10 +4105,111 @@ def _probe_weights(cfg, model) -> list:
     return out
 
 
+def _cfg_projections(cfg) -> list:
+    """``_probe_weights`` from the config alone: each distinct (in, out) of
+    an attention, MLP and unembedding weight of a dense or encdec model."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    qo, kvo = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    named = [("attn.wq", d, qo), ("attn.wk", d, kvo), ("attn.wo", qo, d),
+             ("mlp.w_up", d, cfg.d_ff), ("mlp.w_down", cfg.d_ff, d)]
+    if not cfg.tie_embeddings:
+        named.append(("embed.unembed", d, cfg.padded_vocab))
+    seen, out = set(), []
+    for name, k_in, n_out in named:
+        if (k_in, n_out) not in seen:
+            seen.add((k_in, n_out))
+            out.append((name, k_in, n_out, False))
+    if cfg.tie_embeddings:
+        out.append(("embed.tok (tied unembed)", d, cfg.padded_vocab, True))
+    return out
+
+
+def shape_probe(gpu, gen, rnd, found) -> None:
+    """Part 1 of ``gemm_probe`` for ``PROBE_SHAPE_ARCHS``, from their
+    configs: every projection shape with its unembedding, the block norm
+    over d_model and (qk-norm) the rms norm over the head dim, each with
+    the least M from which a row's bits agree, and whether that M is above
+    the floor ``layers`` gives the shape (``layers.row_floor``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    for arch in PROBE_SHAPE_ARCHS:
+        cfg = get_config(arch)
+        for name, k_in, n_out, tied in _cfg_projections(cfg):
+            w = rnd(n_out, k_in).t() if tied else rnd(k_in, n_out)
+            classes, floor = _row_classes(rows_in(rnd, rnd(16, k_in)),
+                                          lambda x, w=w: (x @ w,))
+            found[(arch, name)] = floor
+            have = L.row_floor(k_in, n_out)
+            print(f"[gemm] {arch} {name} ({k_in}, {n_out}){' tied' if tied else ''}"
+                  f": row counts by a row's bits {classes}; every call from "
+                  f"M = {floor} on gives M = {PROBE_MS[-1]}'s bits; layers "
+                  f"floor {have}: {'ok' if floor is not None and floor <= have else 'ABOVE'}"
+                  f"  [{gpu}]", flush=True)
+            del w
+            torch.cuda.empty_cache()
+        d = cfg.d_model
+        if cfg.norm == "layernorm":
+            norm = lambda x: ((x - x.mean(-1, keepdim=True)) * torch.rsqrt(
+                x.var(-1, keepdim=True, unbiased=False) + 1e-5),)
+        else:
+            norm = lambda x: (x * torch.rsqrt(x.square().mean(-1, keepdim=True)
+                                              + 1e-5),)
+        classes, floor = _row_classes(
+            rows_in(rnd, rnd(16, d, dt=torch.float32)), norm)
+        found[(arch, cfg.norm)] = floor
+        print(f"[gemm] {arch} f32 {cfg.norm} over {d}: {classes}; from M = "
+              f"{floor} on; layers floor {L.NORM_ROW_FLOOR}  [{gpu}]",
+              flush=True)
+        if cfg.qk_norm:
+            hd = cfg.resolved_head_dim
+            qk = lambda x: (L._rms_headdim(x),)
+            for dt in (torch.bfloat16, torch.float32):
+                classes, floor = _row_classes(
+                    rows_in(rnd, rnd(16, hd, dt=dt)), qk)
+                found[(arch, f"qk-norm {dt}")] = floor
+                print(f"[gemm] {arch} qk-norm (rms over head dim {hd}, {dt}) "
+                      f"as ``layers._rms_headdim`` runs it: {classes}; from M "
+                      f"= {floor} on  [{gpu}]", flush=True)
+    table_cost(gpu, rnd)
+
+
+def table_cost(gpu, rnd) -> None:
+    """What each shape of ``layers.ROW_FLOORS`` pays for its floor above
+    ``ROW_FLOOR``: one decode burst's projection of 8 rows padded to
+    ``ROW_FLOOR`` rows and to the shape's own floor, in turns (256, own,
+    own, 256), CUDA events around 50 calls in a row."""
+    from repro_torch.models import layers as L
+
+    def event_ms(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return round(start.elapsed_time(end) / reps, 4)
+
+    for (k_in, n_out), own in L.ROW_FLOORS.items():
+        w, x = rnd(k_in, n_out), rnd(8, k_in)
+        out = {}
+        for floor in (L.ROW_FLOOR, own, own, L.ROW_FLOOR):
+            out.setdefault(floor, []).append(event_ms(
+                lambda f=floor: L.per_row(lambda r: r @ w, x, f)))
+        print(f"[gemm] row floor of ({k_in}, {n_out}): 8 rows padded to "
+              f"{L.ROW_FLOOR} rows {out[L.ROW_FLOOR]} ms, to {own} rows "
+              f"{out[own]} ms a call, in turns (CUDA events)  [{gpu}]",
+              flush=True)
+        del w, x
+
+
 @torch.inference_mode()
 def gemm_probe(gpu) -> dict:
     """Which row counts give a row the same bits, at the full width of
-    stablelm-3b, zamba2-1.2b and mamba2-130m.
+    stablelm-3b, zamba2-1.2b and mamba2-130m (and first, from their configs
+    alone, of ``PROBE_SHAPE_ARCHS``: ``shape_probe``).
 
     1. Every projection shape (``x @ w``, bf16, ``(in, out)`` weights; the
        tied unembedding through the transposed table) and the f32 row
@@ -3723,6 +4235,7 @@ def gemm_probe(gpu) -> dict:
         *shape, generator=gen, device="cuda").to(dt)
     shipped = L.ROW_FLOOR, L.NORM_ROW_FLOOR
     found = {}
+    shape_probe(gpu, gen, rnd, found)
     for arch in PROBE_ARCHS:
         cfg = get_config(arch)
         fam = get_model(cfg)
@@ -3816,14 +4329,40 @@ def gemm_probe(gpu) -> dict:
     return found
 
 
+def model_extras(cfg, b: int, seed: int, src_len: int = 256) -> dict:
+    """The second sequence a model's attention reads, N(0, 1) from
+    ``seed``, on the card: encdec's encoder frames (``src_emb`` (b,
+    src_len, d), all ``src_len`` valid) or the vlm's image embeddings
+    (``cross_emb`` (b, n_cross_tokens, d)); nothing for the others."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"src_emb": torch.randn(b, src_len, cfg.d_model, generator=gen,
+                                       device="cuda"),
+                "src_lens": torch.full((b,), src_len, dtype=torch.int32,
+                                       device="cuda")}
+    if cfg.cross_attn_group:
+        return {"cross_emb": torch.randn(b, cfg.n_cross_tokens, cfg.d_model,
+                                         generator=gen, device="cuda")}
+    return {}
+
+
+def make_cache(fam, cfg, b, max_len, extras):
+    """``fam.make_cache`` sized for ``extras`` (encdec's cross memory)."""
+    kw = ({"src_len": extras["src_emb"].shape[1]} if "src_emb" in extras
+          else {})
+    return fam.make_cache(cfg, b, max_len, **kw, device="cuda")
+
+
 def _probe_cache(fam, model, cfg):
-    """8 lanes prefilled with 64 random tokens each (seed 7) and their
-    first tokens."""
+    """8 lanes prefilled with 64 random tokens each (seed 7; with the
+    model's extras, seed 7) and their first tokens."""
     rs = np.random.RandomState(7)
     prompts = torch.from_numpy(rs.randint(1, cfg.vocab_size, (8, 64))
                                .astype(np.int32)).cuda()
-    cache = fam.make_cache(cfg, 8, 128, device="cuda")
-    logits, cache = fam.prefill(model, cfg, {"tokens": prompts}, cache)
+    extras = model_extras(cfg, 8, 7)
+    cache = make_cache(fam, cfg, 8, 128, extras)
+    logits, cache = fam.prefill(model, cfg, {"tokens": prompts, **extras},
+                                cache)
     return cache, logits
 
 
@@ -3865,28 +4404,33 @@ def prefill_layouts(fam, model, cfg, rs) -> dict:
     batch of 8 and in chunks of 256 ending in a 9-token chunk (each padded
     to a power of two, as the scheduler pads them): whether the batch's and
     the chunks' equal the prompt's alone, and the chunks' largest
-    difference."""
+    difference.  With the model's extras (``model_extras``, row 3 the
+    prompt's own): encdec's encoder input rides the first chunk only, the
+    vlm's image embeddings every chunk."""
     n = 521
     prompt = torch.from_numpy(rs.randint(1, cfg.vocab_size, n).astype(
         np.int32)).cuda()
-    alone = fam.prefill(model, cfg, {"tokens": prompt[None]},
-                        fam.make_cache(cfg, 1, SCHED_MAX_LEN, device="cuda"))[0][0]
+    extras = model_extras(cfg, 8, 9)
+    own = {k: v[3:4] for k, v in extras.items()}
+    alone = fam.prefill(model, cfg, {"tokens": prompt[None], **own},
+                        make_cache(fam, cfg, 1, SCHED_MAX_LEN, own))[0][0]
     toks = torch.from_numpy(rs.randint(1, cfg.vocab_size, (8, 1024)).astype(
         np.int32)).cuda()
     lens = torch.from_numpy(rs.randint(128, 1025, 8).astype(np.int32)).cuda()
     toks[3, :n] = prompt
     lens[3] = n
-    batch = fam.prefill(model, cfg, {"tokens": toks, "lens": lens},
-                        fam.make_cache(cfg, 8, SCHED_MAX_LEN, device="cuda"))[0][3]
-    cache, start = fam.make_cache(cfg, 1, SCHED_MAX_LEN, device="cuda"), 0
+    batch = fam.prefill(model, cfg, {"tokens": toks, "lens": lens, **extras},
+                        make_cache(fam, cfg, 8, SCHED_MAX_LEN, extras))[0][3]
+    cache, start = make_cache(fam, cfg, 1, SCHED_MAX_LEN, own), 0
     while start < n:
         m = min(256, n - start)
         width = 1 << (m - 1).bit_length()
         t = torch.zeros((1, width), dtype=torch.int32, device="cuda")
         t[0, :m] = prompt[start:start + m]
+        ride = own if start == 0 or "cross_emb" in own else {}
         lg, cache = fam.prefill(model, cfg, {
             "tokens": t, "lens": torch.tensor([m], device="cuda"),
-            "pos0": torch.tensor([start], device="cuda")}, cache)
+            "pos0": torch.tensor([start], device="cuda"), **ride}, cache)
         start += m
     return {"n": n, "batch": torch.equal(batch, alone),
             "chunks": torch.equal(lg[0], alone),
@@ -3911,7 +4455,7 @@ def check_rows(fam, model, cfg, gpu) -> None:
         check(all(eq), f"{cfg.name}: the sampler's lane-0 draw at widths "
               f"1/2/4/8 ({eq})")
         msg += ", the sampler's lane-0 draw and state too"
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "hybrid", "encdec"):
         lay = prefill_layouts(fam, model, cfg, np.random.RandomState(7))
         check(lay["batch"] and lay["chunks"],
               f"{cfg.name}: first-token logits alone == in a batch of 8 "
@@ -4683,11 +5227,20 @@ def main() -> int:
         parent = args[args.index("--parent") + 1] if "--parent" in args else None
         phase("fadda probes", fadda_probes, gpu, parent)
         return 0
+    if "--cross" in args:
+        phase("check cross roles", check_cross_roles, flash_attention)
+        phase("time cross", time_cross, gpu)
+        for arch in CROSS_ARCHS:
+            phase(f"serve {arch}", serve_cross, arch, gpu)
+        phase("serve encdec scheduler", serve_encdec_scheduler, gpu)
+        return 0
     phase("check flash", check_kernels, flash_attention)
     phase("check flash quant", check_quant_kernel, flash_attention)
     phase("check paged == dense", check_paged_equals_dense, flash_attention)
     phase("check batch independence", check_batch_independence, flash_attention)
     phase("check prefill rows", check_prefill_rows, flash_attention)
+    cross_bodies = phase("check cross roles", check_cross_roles,
+                         flash_attention)
     phase("check ssd", check_ssd)
     phase("check moe_positions", check_moe_positions)
     phase("check fadda", check_fadda)
@@ -4698,6 +5251,10 @@ def main() -> int:
     served = {arch: phase(f"serve {arch}", serve_model, arch, gpu)
               for arch in WIDTHS}
     sched_launches, _ = phase("serve scheduler", serve_scheduler, gpu)
+    cross = {arch: phase(f"serve {arch}", serve_cross, arch, gpu)
+             for arch in CROSS_ARCHS}
+    sched_launches.update(phase("serve encdec scheduler",
+                                serve_encdec_scheduler, gpu))
     cfg, lens, max_len, _ = served["stablelm_3b"]
     rows = phase("time flash", time_kernels, cfg, lens, max_len, gpu)
     ssd_rows = phase("time ssd", time_ssd, lens, gpu)
@@ -4707,18 +5264,22 @@ def main() -> int:
     fadda_times = phase("time fadda", time_fadda, cfg.padded_vocab, gpu,
                         floor_ms)
     daxpy_rows = phase("time daxpy", time_daxpy, gpu)
+    phase("time cross", time_cross, gpu)
     quick = phase("quickstart", run_quickstart)
 
-    launches = {k: sum(r["counts"][k] for *_, runs in served.values()
-                       for r in runs.values()) + quick[k]
+    every_run = ([r for *_, runs in served.values() for r in runs.values()]
+                 + [r for runs in cross.values() for r in runs.values()])
+    launches = {k: sum(r["counts"][k] for r in every_run) + quick[k]
                 + sum(c[k] for c in sched_launches.values())
                 for k in kernel_wrappers()}
-    bodies = {k: {body: sum(r["bodies"][k][body] for *_, runs in served.values()
-                            for r in runs.values()) for body in v}
+    bodies = {k: {body: sum(r["bodies"][k][body] for r in every_run)
+                  for body in v}
               for k, v in read_bodies().items()}
-    print(f"[full] launches over every generate, the scheduler legs' warm runs "
-          f"and the quickstart: {launches}; "
-          f"the flash kernels by body over every generate: {bodies}", flush=True)
+    print(f"[full] launches over every generate (the cross-attention models' "
+          f"and gemma3's included), the scheduler legs' warm runs and the "
+          f"quickstart: {launches}; the flash kernels by body over every "
+          f"generate: {bodies}; the cross-attention roles' check: "
+          f"{cross_bodies}", flush=True)
     entries = []
     for name, row, source, replaces in (
             ("flash_attention_dense", rows["dense_prefill"], SRC_CU,

@@ -6,11 +6,15 @@ from __future__ import annotations
 import importlib
 
 ARCHS = [
+    "llama_3_2_vision_11b",
     "olmoe_1b_7b",
     "moonshot_v1_16b_a3b",
     "stablelm_3b",
-    "mamba2_130m",
+    "command_r_plus_104b",
+    "gemma3_27b",
     "zamba2_1_2b",
+    "mamba2_130m",
+    "seamless_m4t_large_v2",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

@@ -9,6 +9,9 @@ default), or one static batch through ``ServeEngine.generate`` with
     python -m repro_torch.launch.serve --arch zamba2_1_2b --page-size 16 \
         --page-dtype int8 --prefill-chunk 16
     python -m repro_torch.launch.serve --arch stablelm_3b --static --no-reduce
+    python -m repro_torch.launch.serve --arch seamless_m4t_large_v2 \
+        --src-len 16 --page-size 4 --prefill-chunk 8
+    python -m repro_torch.launch.serve --arch llama_3_2_vision_11b --static
     python -m repro_torch.launch.serve --arch stablelm_3b --device cpu \
         --temperature 0.8 --top-p 0.9 --trace-out trace.json --metrics
     python -m repro_torch.launch.serve --arch stablelm_3b --device cpu \
@@ -25,9 +28,12 @@ turns on stochastic sampling for every request (request i uses seed
 the async host loop; ``--max-queue``, ``--deadline-steps``,
 ``--priority-every`` and ``--chaos-*`` drive the request control plane and
 the chaos harness (``serve.chaos``), with the JAX launcher's meaning, and a
-``[robustness]`` line reports them.  What is not ported yet exits naming
-the ROADMAP item that ports it: ``--mesh`` (Queue 1 item 14); the encdec
-and VLM archs (item 12).
+``[robustness]`` line reports them.  An encdec arch streams each request
+with its own random encoder input (``--src-len`` frames at most, default
+``--prompt-len``); the VLM arch serves one static batch with random image
+embeddings, as the JAX launcher does.  What is not ported yet exits naming
+the ROADMAP item that ports it: ``--mesh`` (Queue 1 item 14) and
+stablelm-12b (item 18: its head dim of 160 is past the flash kernels' 128).
 """
 
 from __future__ import annotations
@@ -58,15 +64,15 @@ REDUCE_FAMILY = {
     "hybrid": dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16, n_layers=5,
                    shared_attn_period=2),
     "moe": dict(n_experts=8, top_k=2, d_ff_dense=128),
+    "encdec": dict(n_enc_layers=2, n_dec_layers=2),
 }
+# the JAX launcher's depth for the vlm variant (two groups of 5)
+REDUCE_VLM = dict(n_layers=10)
 
 # the JAX launcher's archs that the port cannot serve yet -> ROADMAP item
 PENDING_ARCHS = {
-    "llama_3_2_vision_11b": "Queue 1 item 12 (dense VLM branch)",
-    "command_r_plus_104b": "a config module (dense family, not ported yet)",
-    "stablelm_12b": "a config module (dense family, not ported yet)",
-    "gemma3_27b": "a config module (dense family, not ported yet)",
-    "seamless_m4t_large_v2": "Queue 1 item 12 (encdec)",
+    "stablelm_12b": "Queue 1 item 18 (head dim 160 > the flash kernels' "
+                    "MAX_HEAD_DIM 128)",
 }
 
 # the JAX launcher's options that are not ported yet -> (flag, ROADMAP item)
@@ -114,7 +120,10 @@ def main(argv=None):
                          "burst calls) instead of the fused step")
     ap.add_argument("--static", action="store_true",
                     help="one-shot ServeEngine.generate instead of the "
-                         "scheduler")
+                         "scheduler (always for the vlm arch)")
+    ap.add_argument("--src-len", type=int, default=None,
+                    help="encdec: padded encoder memory length the scheduler "
+                         "allocates caches for (default: --prompt-len)")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="record the serve run's round/request timeline and "
                          "export Chrome/Perfetto trace_event JSON to FILE; "
@@ -192,13 +201,21 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:
-        cfg = cfg.replace(**{**REDUCE, **REDUCE_FAMILY.get(cfg.family, {})})
+        cfg = cfg.replace(**{**REDUCE, **REDUCE_FAMILY.get(cfg.family, {}),
+                             **(REDUCE_VLM if cfg.cross_attn_group else {})})
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = get_model(cfg).init(cfg, gen, device)
     rng = np.random.RandomState(args.seed)
     batch = {"tokens": rng.randint(1, cfg.vocab_size,
                                    (args.batch, args.prompt_len)),
              "lens": rng.randint(4, args.prompt_len + 1, args.batch)}
+    if cfg.cross_attn_group:
+        batch["cross_emb"] = rng.randn(
+            args.batch, cfg.n_cross_tokens, cfg.d_model).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["src_emb"] = rng.randn(
+            args.batch, args.prompt_len, cfg.d_model).astype(np.float32)
+        batch["src_lens"] = np.full((args.batch,), args.prompt_len, np.int32)
     obs = Obs(tracer=Tracer() if args.trace_out else None)
     eng = ServeEngine(cfg, params, max_new_tokens=args.max_new, stop_token=7,
                       paged_attn=args.paged_attn, page_dtype=args.page_dtype,
@@ -213,7 +230,8 @@ def main(argv=None):
                               repetition_penalty=args.repetition_penalty,
                               seed=args.sample_seed + i, greedy=False)
 
-    if args.static:
+    if args.static or cfg.cross_attn_group:
+        # the vlm's image embeddings are per batch, not per request
         sampling = ([_sampling(i) for i in range(args.batch)]
                     if args.temperature is not None else None)
         res = eng.generate(batch, sampling=sampling, page_size=args.page_size)
@@ -225,6 +243,8 @@ def main(argv=None):
         return
 
     # ---- continuous batching: stream requests through the lane vector ----
+    src_len = ((args.src_len or args.prompt_len)
+               if cfg.family == "encdec" else None)
     sched = ContinuousBatchingScheduler(
         eng, capacity=args.batch, max_len=args.prompt_len + args.max_new,
         chunk=args.chunk, compact_threshold=args.compact_threshold,
@@ -232,7 +252,8 @@ def main(argv=None):
         prefix_sharing=not args.no_prefix_sharing,
         host_swap_pages=args.host_swap_pages,
         prefill_chunk=args.prefill_chunk, fused=not args.no_fused,
-        overlap=args.overlap, max_queue=args.max_queue, obs=obs)
+        overlap=args.overlap, src_len=src_len, max_queue=args.max_queue,
+        obs=obs)
     monkey = None
     if args.chaos_seed is not None:
         monkey = ChaosMonkey(ChaosConfig(
@@ -243,10 +264,15 @@ def main(argv=None):
     rid_len = {}
     for i in range(args.requests):
         plen = int(rng.randint(4, args.prompt_len + 1))
+        extras = None
+        if cfg.family == "encdec":
+            sl = int(rng.randint(2, src_len + 1))
+            extras = {"src_emb": rng.randn(sl, cfg.d_model)
+                      .astype(np.float32)}
         prio = (5 if args.priority_every and i % args.priority_every == 0
                 else 0)
         rid = sched.submit(rng.randint(1, cfg.vocab_size, plen),
-                           sampling=_sampling(i), priority=prio,
+                           sampling=_sampling(i), extras=extras, priority=prio,
                            deadline=(args.deadline_steps
                                      if args.deadline_steps else None))
         rid_len[rid] = plen

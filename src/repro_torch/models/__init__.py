@@ -1,5 +1,5 @@
-"""Model zoo of the port (the dense, moe, ssm and hybrid families) and the
-cache lane and paged-layout interface of ``repro.models``.
+"""Model zoo of the port (the dense, moe, ssm, hybrid and encdec families)
+and the cache lane and paged-layout interface of ``repro.models``.
 
 A decode cache is a dict of tensors, each with ONE request-lane axis
 declared by the family's ``cache_batch_axes(cfg)``.  A paged cache replaces
@@ -23,25 +23,19 @@ from repro_torch.core import predicate as P
 from .config import ModelConfig  # noqa: F401
 
 # each ported family's module is named after it
-_PORTED = ("dense", "moe", "ssm", "hybrid")
-# families still to port -> the ROADMAP item that ports them
-_PENDING = {"encdec": "Queue 1 item 12"}
+_PORTED = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def get_model(cfg: "ModelConfig"):
     """Return the module implementing cfg.family's model API:
     init(cfg, generator, device) -> the family's model (``DenseLM``,
-    ``MoELM``, ``SSMLM`` or ``HybridLM``); prefill(model, cfg, batch, cache) ->
-    (logits_last, cache); decode(model, cfg, batch, cache) -> (logits,
-    cache); make_cache / make_paged_cache / cache_batch_axes /
-    paged_cache_spec."""
+    ``MoELM``, ``SSMLM``, ``HybridLM`` or ``EncDecLM``); prefill(model, cfg,
+    batch, cache) -> (logits_last, cache); decode(model, cfg, batch, cache)
+    -> (logits, cache); make_cache / make_paged_cache / cache_batch_axes /
+    paged_cache_spec (encdec's caches also take ``src_len``)."""
     if cfg.family in _PORTED:
         return importlib.import_module(f"{__name__}.{cfg.family}")
-    item = _PENDING.get(cfg.family)
-    if item is None:
-        raise ValueError(f"unknown family {cfg.family!r}")
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP {item})")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _lane_axes(cfg, cache):

@@ -41,6 +41,16 @@ ROW_FLOOR = 256
 #: a row over more threads), and a norm of 256 rows costs ~4x a norm of 16
 #: (``--gemm-probe``)
 NORM_ROW_FLOOR = 16
+#: (in, out) -> the fewest rows of a projection of that shape, where
+#: ``ROW_FLOOR`` is not enough: on an H100 these split a row's bits at 256
+#: rows and agree from 300 (seamless' and gemma3's MLP down projections) or
+#: 512 (command-r-plus' K/V projections) on; ``--gemm-probe`` shows it
+ROW_FLOORS = {(8192, 1024): 512, (21504, 5376): 512, (12288, 1024): 512}
+
+
+def row_floor(k_in: int, n_out: int) -> int:
+    """The fewest rows ``linear`` gives a projection of ``(k_in, n_out)``."""
+    return ROW_FLOORS.get((k_in, n_out), ROW_FLOOR)
 
 
 def cdt(cfg) -> torch.dtype:
@@ -63,8 +73,8 @@ def per_row(fn, x, floor: int):
 
 def linear(x, w):
     """The projection ``x @ w`` (``w`` is ``(in, out)``) on at least
-    ``ROW_FLOOR`` rows."""
-    return per_row(lambda r: r @ w, x, ROW_FLOOR)
+    ``row_floor`` rows."""
+    return per_row(lambda r: r @ w, x, row_floor(*w.shape))
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -223,7 +233,7 @@ def mlp(p: MLP, x, cfg):
 
 
 # ---------------------------------------------------------------------------
-# attention (self, cached / uncached, local / global)
+# attention (self / cross, cached / uncached, local / global)
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
@@ -276,9 +286,10 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     return k_cache, v_cache
 
 
-def layer_cache(cache: dict, prefix: str, i: int):
-    """Slot ``i`` of the K/V stack ``prefix + "k"``/``prefix + "v"`` of a
-    cache dict, as ``attention`` takes it: views of the dense cache, or the
+def layer_cache(cache: dict, prefix: str, i):
+    """Slot ``i`` (an int, or a tuple over several lead axes) of the K/V
+    stack ``prefix + "k"``/``prefix + "v"`` of a cache dict, as
+    ``attention`` takes it: views of the dense cache, or the
     paged 3-tuple with the page table, or the quantized 5-tuple with the
     scale pools — views, so the layer's in-place K/V write reaches the
     cache."""
@@ -292,11 +303,13 @@ def layer_cache(cache: dict, prefix: str, i: int):
     return kv
 
 
-def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
-              kv_lens=None, q_offset=None, cache=None, cache_pos=None,
-              use_rope=True, decode=False):
+def attention(p: Attention, x, positions, cfg, *, kv_x=None, causal=True,
+              window=None, kv_lens=None, q_offset=None, cache=None,
+              cache_pos=None, use_rope=True, decode=False):
     """Returns (out, new_cache_kv_or_None).
 
+    - ``kv_x``: cross-attention source (image or encoder memory, (B, Skv,
+      d)): K/V are projected from it, and no rope is applied.
     - ``cache``: dense ``(k_cache, v_cache)`` of shape (B, Hkv, Smax, Dh), or
       the paged ``(k_pool, v_pool, page_table)`` of a decode step (Snew ==
       1), or the QUANTIZED paged ``(k_pool, v_pool, page_table, k_scale,
@@ -311,7 +324,8 @@ def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
     """
     hd = cfg.resolved_head_dim
     xc = x.to(cdt(cfg))
-    q, k, v = linear(xc, p.wq), linear(xc, p.wk), linear(xc, p.wv)
+    src = xc if kv_x is None else kv_x.to(cdt(cfg))
+    q, k, v = linear(xc, p.wq), linear(src, p.wk), linear(src, p.wv)
     if cfg.use_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = _split_heads(q, cfg.n_heads, hd)
@@ -319,7 +333,7 @@ def attention(p: Attention, x, positions, cfg, *, causal=True, window=None,
     v = _split_heads(v, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q, k = _rms_headdim(q), _rms_headdim(k)
-    if use_rope:
+    if use_rope and kv_x is None:
         q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
         k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
 
@@ -384,10 +398,10 @@ class Block(nn.Module):
 
 def block_apply(p: Block, x, positions, cfg, *, causal=True, window=None,
                 kv_lens=None, q_offset=None, cache=None, cache_pos=None,
-                use_rope=True, decode=False):
+                kv_x=None, use_rope=True, decode=False):
     h = apply_norm(p.ln1, x, cfg)
     attn_out, new_cache = attention(
-        p.attn, h, positions, cfg, causal=causal, window=window,
+        p.attn, h, positions, cfg, kv_x=kv_x, causal=causal, window=window,
         kv_lens=kv_lens, q_offset=q_offset, cache=cache, cache_pos=cache_pos,
         use_rope=use_rope, decode=decode)
     if cfg.parallel_block:                      # cohere: one norm, two branches

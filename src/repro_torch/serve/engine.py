@@ -76,7 +76,8 @@ def _flatten(cache, out_buf, tok, p, n_gen, lane_budget, sstate) -> dict:
 
 def _shapes(flat: dict) -> tuple:
     """Every carry's shape and dtype: lanes, max_len or pages and pool size,
-    page dtype, sampler state."""
+    page dtype, the cross K/V's length (encdec's ``src_len``, the vlm's
+    image tokens), sampler state."""
     return tuple(sorted((k, tuple(v.shape), str(v.dtype))
                         for k, v in flat.items()))
 
@@ -92,8 +93,8 @@ def _unflatten(flat: dict):
 @dataclasses.dataclass
 class ServeEngine:
     """Generation engine over one model config + weights: the family's
-    model (``DenseLM``, ``MoELM``, ``SSMLM`` or ``HybridLM``), whose
-    ``device`` says where the weights live.
+    model (``DenseLM``, ``MoELM``, ``SSMLM``, ``HybridLM`` or
+    ``EncDecLM``), whose ``device`` says where the weights live.
 
     ``device`` defaults to the card and raises if it is absent; pass
     ``device="cpu"`` to run on the CPU.  The weights must already live on
@@ -156,15 +157,29 @@ class ServeEngine:
     # caches
     # ------------------------------------------------------------------
 
-    def make_cache(self, b: int, max_len: int):
+    def _src_kw(self, batch, src_len) -> dict:
+        """encdec sizes its cross-attention memory from ``batch["src_emb"]``
+        or an explicit ``src_len`` (the scheduler's batch-free
+        allocations); the other families take no such argument."""
+        if self.cfg.family != "encdec":
+            return {}
+        return {"src_len": src_len if src_len is not None
+                else batch["src_emb"].shape[1]}
+
+    def make_cache(self, b: int, max_len: int, batch: Optional[dict] = None,
+                   src_len: Optional[int] = None):
         """Allocate a dense cache for ``b`` request lanes."""
-        return self.model.make_cache(self.cfg, b, max_len, device=self.device)
+        return self.model.make_cache(self.cfg, b, max_len,
+                                     **self._src_kw(batch, src_len),
+                                     device=self.device)
 
     def make_paged_cache(self, b: int, max_len: int, *, page_size: int,
-                         pool_pages: int):
+                         pool_pages: int, batch: Optional[dict] = None,
+                         src_len: Optional[int] = None):
         """Allocate a paged cache: shared page pools + per-lane page table
         (narrow pools + scale pools when the engine has a ``page_dtype``)."""
         return self.model.make_paged_cache(self.cfg, b, max_len,
+                                           **self._src_kw(batch, src_len),
                                            page_size=page_size,
                                            pool_pages=pool_pages,
                                            page_dtype=self.page_dtype,
@@ -524,7 +539,8 @@ class ServeEngine:
         if admit is not None:
             admit = self._on_device(admit)
             batch = admit["batch"]
-            sub_cache = self.make_cache(batch["tokens"].shape[0], max_len)
+            sub_cache = self.make_cache(batch["tokens"].shape[0], max_len,
+                                        batch)
             if "seed_tab" in admit:
                 sub_cache = self._seed_pages(cache, sub_cache,
                                              admit["seed_tab"],
@@ -635,7 +651,9 @@ class ServeEngine:
                  sampling=None, page_size: Optional[int] = None,
                  pool_pages: Optional[int] = None):
         """batch: {"tokens": (B, S) prompts, "lens": (B,)} (tensors or
-        arrays).
+        arrays), with the model's modality extras: encdec's ``src_emb``
+        (B, S_src, d) and ``src_lens`` (B,), the vlm's ``cross_emb`` (B, N,
+        d).
 
         ``sampling`` is None (the engine default, else greedy), one
         ``SamplingParams`` broadcast over lanes, a per-lane sequence of
@@ -681,11 +699,14 @@ class ServeEngine:
                 if lens is None
                 else torch.as_tensor(lens, device=self.device).to(torch.int32))
         max_len = max_len or (s + self.max_new_tokens)
-        cache = self.make_cache(b, max_len)
+        extras = {k: self._on_device(v) for k, v in batch.items()
+                  if k not in ("tokens", "lens")}
+        cache = self.make_cache(b, max_len, extras)
         sstate = self.make_state(b, sampling)
         with self.obs.span("prefill", dispatch=True, b=b, s=s):
             logits, cache = self.model.prefill(
-                self.params, self.cfg, {"tokens": tokens, "lens": lens}, cache)
+                self.params, self.cfg, dict(extras, tokens=tokens, lens=lens),
+                cache)
         if page_size is not None:
             cache = to_paged(self.cfg, cache, page_size=page_size,
                              pool_pages=pool_pages, page_dtype=self.page_dtype)

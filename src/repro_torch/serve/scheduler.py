@@ -64,8 +64,10 @@ next burst copies into the carry.  Only the page pools are written in place
 (page installs, page-in, resume's page scatter), as the captured decode
 writes them.
 
-Not ported yet, each raising where it is asked for: encdec serving
-(ROADMAP Queue 1 item 12) and mesh sharding (item 14).
+encdec serving takes ``src_len`` and each request's encoder input as
+``extras`` (``src_emb``, zero-padded to ``src_len`` at submit, and its true
+length ``src_lens``).  Not ported yet, raising where it is asked for: mesh
+sharding (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -409,7 +411,7 @@ class Request:
     tokens: np.ndarray                      # (S,) prompt token ids
     max_new_tokens: Optional[int] = None    # default: engine budget
     arrival: float = 0.0
-    extras: Optional[dict] = None           # modality extras (none ported)
+    extras: Optional[dict] = None           # modality extras (src_emb, ...)
     sampling: Optional[S.SamplingParams] = None  # default: engine default
     priority: int = 0
     deadline: Optional[float] = None        # absolute finish deadline (steps)
@@ -471,7 +473,9 @@ class ContinuousBatchingScheduler:
         one-round-stale lane view (under-reports free lanes only);
         ``finished_at`` timestamps shift by the harvest delay.  Requires
         ``fused``.
-    src_len: encdec serving (item 12): raises.
+    src_len: encoder memory length for encdec serving (every request's
+        ``src_emb`` extra is zero-padded to this length at submit; required
+        for the encdec family, ignored otherwise).
     max_queue: bounded admission queue — a ``submit`` past this many queued
         requests is SHED immediately (recorded result with
         ``finish_reason="shed"``).  None = unbounded (the default).
@@ -497,9 +501,10 @@ class ContinuousBatchingScheduler:
         if overlap and not fused:
             raise ValueError("overlap=True requires fused=True (the async "
                              "harvest hangs off the fused dispatch)")
-        if src_len is not None or engine.cfg.family == "encdec":
-            raise _not_ported("encdec serving (src_len)",
-                              "ROADMAP Queue 1 item 12")
+        if engine.cfg.family == "encdec" and src_len is None:
+            raise ValueError(
+                "encdec serving needs src_len= (the padded encoder memory "
+                "length caches are allocated for)")
         if getattr(engine, "mesh", None) is not None:
             raise _not_ported("mesh-sharded serving", "ROADMAP Queue 1 item 14")
         if prefill_chunk is not None:
@@ -521,6 +526,7 @@ class ContinuousBatchingScheduler:
         self.device = dev = engine.device
         self.fused = fused
         self.overlap = overlap
+        self.src_len = src_len
         self.capacity = capacity
         self.chunk = chunk
         self.compact_threshold = compact_threshold
@@ -555,7 +561,7 @@ class ContinuousBatchingScheduler:
             self.trash_page = self.pool_pages
             self.cache = engine.make_paged_cache(
                 b, max_len, page_size=page_size,
-                pool_pages=self.pool_pages + 1)
+                pool_pages=self.pool_pages + 1, src_len=src_len)
             self.cache["page_table"] = torch.full_like(
                 self.cache["page_table"], self.trash_page)
             self.allocator = PageAllocator(self.pool_pages)
@@ -570,7 +576,7 @@ class ContinuousBatchingScheduler:
             if host_swap_pages:
                 raise ValueError("host_swap_pages needs a paged cache "
                                  "(set page_size)")
-            self.cache = engine.make_cache(b, max_len)
+            self.cache = engine.make_cache(b, max_len, src_len=src_len)
             self.prefix_sharing = False
             self.host_swap = None
         self.max_len = max_len
@@ -670,21 +676,21 @@ class ContinuousBatchingScheduler:
         (0.0 = immediately).  ``max_new_tokens`` caps this request's decode
         budget below the engine default; ``sampling`` carries the request's
         own decoding distribution (None: engine default/greedy) — lanes with
-        different distributions coexist in one burst.  ``priority`` orders
+        different distributions coexist in one burst.  ``extras`` holds
+        per-request side inputs (encdec: ``src_emb`` (S_src, d_model) and
+        optionally ``src_lens``).  ``priority`` orders
         admission and arms preemption (see ``Request``); ``deadline`` /
         ``ttft_deadline`` are absolute decode-step timestamps the request
         must finish / first-token by — infeasible ones are shed.
         Submission never touches the device; planning happens at admission.
 
-        ``extras`` (item 12) raises ``NotImplementedError``.  Raises
-        :class:`RequestRejected` for a request that could NEVER be admitted
-        (over-long prompt, or a worst-case page demand above the whole
-        pool).  A request past a full ``max_queue`` bound is not an error:
+        Raises :class:`RequestRejected` for a request that could NEVER be
+        admitted (over-long prompt, or a worst-case page demand above the
+        whole pool), and ``ValueError`` for an encdec request without a
+        ``src_emb`` or with one longer than ``src_len``.  A request past a full ``max_queue`` bound is not an error:
         it is recorded immediately as a ``shed`` result and its rid
         returned.
         """
-        if extras:
-            raise _not_ported("per-request extras", "ROADMAP Queue 1 item 12")
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1:
             raise ValueError(f"prompt must be 1-D, got shape {tokens.shape}")
@@ -701,14 +707,16 @@ class ContinuousBatchingScheduler:
             # best (plen-1)//page_size pages come from donors — below that
             # the pool can never cover the request, even empty
             max_shared = ((len(tokens) - 1) // self.page_size
-                          if self.prefix_sharing else 0)
+                          if self.prefix_sharing and not extras else 0)
             if n_total - max_shared > self.pool_pages:
                 raise RequestRejected(
                     f"request needs {n_total - max_shared} fresh pages "
                     f"worst-case but the pool has only {self.pool_pages}")
+        if self.engine.cfg.family == "encdec":
+            extras = self._pad_encdec_extras(extras)
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid, tokens, max_new_tokens, arrival, None, sampling,
+        req = Request(rid, tokens, max_new_tokens, arrival, extras, sampling,
                       priority, deadline, ttft_deadline)
         self.req_times[rid] = {"submitted": time.perf_counter()}
         self.obs.request_begin(rid, prompt_len=len(tokens),
@@ -802,6 +810,24 @@ class ContinuousBatchingScheduler:
         self._live_req.pop(rid, None)
         self.obs.request_end(rid, n_generated=int(n), finished_at=self.now,
                              reason=reason.value)
+
+    def _pad_encdec_extras(self, extras: Optional[dict]) -> dict:
+        """Zero-pad a request's encoder memory to the scheduler-wide
+        ``src_len`` so every admission sub-batch stacks homogeneously; the
+        true length rides along as ``src_lens`` (the attention predicate)."""
+        if not extras or "src_emb" not in extras:
+            raise ValueError("encdec requests need extras={'src_emb': "
+                             "(S_src, d_model) encoder input embeddings}")
+        emb = np.asarray(extras["src_emb"])
+        if emb.ndim != 2:
+            raise ValueError(f"src_emb must be 2-D, got shape {emb.shape}")
+        if emb.shape[0] > self.src_len:
+            raise ValueError(f"src_emb length {emb.shape[0]} exceeds "
+                             f"src_len={self.src_len}")
+        sl = int(extras.get("src_lens", emb.shape[0]))
+        pad = np.zeros((self.src_len, emb.shape[1]), emb.dtype)
+        pad[:emb.shape[0]] = emb
+        return dict(extras, src_emb=pad, src_lens=np.int32(sl))
 
     def occupancy(self) -> float:
         return float((self.lane_rid >= 0).sum()) / self.capacity
@@ -1188,7 +1214,7 @@ class ContinuousBatchingScheduler:
         budget = self._budget_for(req, plen)
         shared: list = []
         swap_entries: list = []
-        if self.prefix_sharing:
+        if self.prefix_sharing and not req.extras:
             shared = self.prefix_index.lookup(req.tokens, ps)
             # the suffix prefill must be non-empty (the last prompt token's
             # logits seed decode), so never share the whole prompt
@@ -1273,7 +1299,7 @@ class ContinuousBatchingScheduler:
         ps = self.page_size
         plen = len(req.tokens)
         shared: list = []
-        if self.prefix_sharing:
+        if self.prefix_sharing and not req.extras:
             shared = self.prefix_index.lookup(req.tokens, ps)
             while shared and len(shared) * ps >= plen:
                 shared.pop()
@@ -1480,8 +1506,10 @@ class ContinuousBatchingScheduler:
         page-ins).
 
         The whole queue is scanned (a not-yet-due request must not block due
-        ones behind it); FIFO order is preserved among the due.  Under
-        paging each candidate must also fit the page pool
+        ones behind it); FIFO order is preserved among the due.  One
+        prefill sub-batch must stack homogeneously, so only requests with
+        the same extras keys are admitted together.  Under paging each
+        candidate must also fit the page pool
         (``_plan_pages``); prefix-hit rows prefill only their suffix.
 
         With ``prefill_chunk`` set, a request whose (suffix) prompt exceeds
@@ -1494,6 +1522,7 @@ class ContinuousBatchingScheduler:
         plans: list[_PagePlan] = []
         queue = list(self.queue)
         keep = [True] * len(queue)          # stays queued for a later round
+        extras_keys = None
         n_claimed = 0                       # lanes claimed by new partials
         suffix_max = pos0_max = 0
         for qi in sorted(range(len(queue)), key=lambda i: -queue[i].priority):
@@ -1506,7 +1535,14 @@ class ContinuousBatchingScheduler:
                 continue
             if len(batch_reqs) + n_claimed >= len(free):
                 continue
-            chunkable = self.prefill_chunk is not None
+            keys = frozenset(req.extras) if req.extras else frozenset()
+            # extras ride chunked prefill only when they are per-request
+            # constants the FIRST chunk consumes whole (encdec's encoder
+            # memory); token-aligned extras would need per-chunk slicing
+            chunkable = self.prefill_chunk is not None and (
+                not req.extras or self.engine.cfg.family == "encdec")
+            if extras_keys is not None and keys != extras_keys:
+                continue
             if self.page_size is None and chunkable \
                     and len(req.tokens) > self.prefill_chunk:
                 self._start_partial(req, None, free[len(free) - 1 - n_claimed])
@@ -1538,6 +1574,8 @@ class ContinuousBatchingScheduler:
                 plans.append(plan)
             batch_reqs.append(req)
             keep[qi] = False
+            if extras_keys is None:
+                extras_keys = keys
         self.queue = collections.deque(
             q for i, q in enumerate(queue) if keep[i])
         if not batch_reqs:
@@ -1586,10 +1624,19 @@ class ContinuousBatchingScheduler:
 
     def _admit_batch(self, plan: _AdmitPlan) -> dict:
         """Host-side prefill batch for an admission plan (numpy leaves: the
-        engine moves them to the device in one place)."""
+        engine moves them to the device in one place).  The requests'
+        extras stack row by row; dummy rows' ``src_lens`` pad to 1, not 0
+        (an all-masked attention row would give NaNs), the rest to zeros."""
         batch = {"tokens": plan.toks, "lens": plan.lens}
         if self.page_size is not None:
             batch["pos0"] = plan.pos0_pad
+        r0 = plan.reqs[0]
+        for k in r0.extras or ():
+            proto = np.asarray(r0.extras[k])
+            pad = (np.ones_like(proto) if k == "src_lens"
+                   else np.zeros_like(proto))
+            batch[k] = np.stack([np.asarray(r.extras[k]) for r in plan.reqs]
+                                + [pad] * (plan.n_pad - plan.n))
         return batch
 
     def _admit(self):
@@ -1602,7 +1649,7 @@ class ContinuousBatchingScheduler:
         dev = self.device
         n, n_pad, lanes = plan.n, plan.n_pad, plan.lanes
         batch = self._admit_batch(plan)
-        sub_cache = eng.make_cache(n_pad, self.max_len)
+        sub_cache = eng.make_cache(n_pad, self.max_len, src_len=self.src_len)
         if self.page_size is not None:
             sub_cache = self._seed_shared_prefix(sub_cache, plan.plans, n_pad)
         self.stats["dispatches"] += 1
@@ -1724,7 +1771,7 @@ class ContinuousBatchingScheduler:
         lane = int(lane)
         budget = (plan.budget if plan is not None
                   else self._budget_for(req, len(req.tokens)))
-        sub_cache = eng.make_cache(1, self.max_len)
+        sub_cache = eng.make_cache(1, self.max_len, src_len=self.src_len)
         # the first chunk attends over the prefix pages, resident or paged
         # in from the host store alike (``_seed_arrays`` takes both; the
         # reference seeds resident pages only, so a chunked request whose
@@ -1765,6 +1812,11 @@ class ContinuousBatchingScheduler:
             seed = None
             if part.done == 0:
                 seed, part.seed = part.seed, None
+                # per-request constant extras (encdec's encoder memory) ride
+                # the FIRST chunk only: the encoder runs once and its cross
+                # K/V persists in the accumulating sub-cache
+                for k, v in (part.req.extras or {}).items():
+                    batch[k] = np.asarray(v)[None]
             self.stats["prefill_tokens"] += n
             self.stats["prefill_chunks"] += 1
             part.done += n
@@ -1987,8 +2039,10 @@ class ContinuousBatchingScheduler:
         """Make this request's full prompt pages discoverable for sharing.
         Called at COMMIT time (the splice is riding this round's dispatch),
         never at plan time — a rolled-back plan must need no index surgery.
-        Swapped-in pages register like fresh ones."""
-        if not self.prefix_sharing:
+        Swapped-in pages register like fresh ones.  A request with extras
+        (encdec's encoder memory) registers none: its decoder state depends
+        on more than its prompt."""
+        if not self.prefix_sharing or req.extras:
             return
         ps = self.page_size
         parent = plan.shared[-1] if plan.shared else -1

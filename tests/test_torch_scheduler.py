@@ -12,8 +12,8 @@ The dense trace also runs with ``overlap=True`` on both sides.
 Within the port (cheap, no JAX run): fused == unfused and tracing on == off
 for every family it serves, requests through recycled and compacted lanes
 equal ``generate`` of each alone, arrivals, rejection, an immediate stop,
-the capability flags against JAX's, and each unported option (encdec,
-per-request extras) raising with its ROADMAP item.
+the capability flags against JAX's, ``src_len`` ignored outside encdec
+and an encdec request's extras checked as the JAX scheduler checks them.
 """
 
 import pytest
@@ -39,7 +39,9 @@ MAX_NEW, STOP, MAX_LEN = 6, 7, 24
 # the SSD scan chunk of the serving twins: chunked prefill of 4 sits on it
 OVER = {"dense": {}, "moe": FAMILY["moe"],
         "ssm": dict(FAMILY["ssm"], ssm_chunk=4),
-        "hybrid": dict(FAMILY["hybrid"], ssm_chunk=4)}
+        "hybrid": dict(FAMILY["hybrid"], ssm_chunk=4),
+        "encdec": dict(family="encdec", n_enc_layers=1, n_dec_layers=1),
+        "vlm": dict(n_layers=10, cross_attn_group=5, n_cross_tokens=4)}
 
 
 def _engines(family, seed=0, **kw):
@@ -240,7 +242,8 @@ def test_immediate_stop_lane_recycles():
     assert other in results and (sched.lane_rid < 0).all()
 
 
-@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid", "encdec",
+                                    "vlm"])
 def test_capability_flags_equal_jax(family):
     cfg_j, _, cfg_t, _ = plain_models(0, **OVER[family])
     for flag in ("PAGED_PREFIX_OK", "CHUNKED_PREFILL_OK",
@@ -252,23 +255,34 @@ def test_capability_flags_equal_jax(family):
         assert getattr(MT, fn)(cfg_t) == getattr(MJ, fn)(cfg_j), fn
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(src_len=8), "item 12"),
-])
-def test_unported_scheduler_options_raise(kw, item):
+def test_src_len_is_ignored_outside_encdec():
+    """As in the JAX scheduler: ``src_len`` sizes encdec's cross memory and
+    is ignored by the other families (the same tokens as without it)."""
     _, eng = _engines("dense")
-    with pytest.raises(NotImplementedError, match=item):
-        ContinuousBatchingScheduler(eng, capacity=2, max_len=MAX_LEN, **kw)
+    trace = sched_trace(np.random.RandomState(24), 4)
+    base, _, _ = _port(eng, trace)
+    got, _, sched = _port(eng, trace, src_len=8)
+    assert_same_results(got, base)
+    assert "cross_k" not in sched.cache
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(extras={"src_emb": np.zeros((2, 64), np.float32)}), "item 12"),
+@pytest.mark.parametrize("extras,match", [
+    (None, "src_emb"),
+    ({"src_emb": np.zeros((9, 64), np.float32)}, "exceeds src_len=8"),
 ])
-def test_unported_request_options_raise(kw, item):
-    _, eng = _engines("dense")
-    sched = ContinuousBatchingScheduler(eng, capacity=2, max_len=MAX_LEN)
-    with pytest.raises(NotImplementedError, match=item):
-        sched.submit(np.arange(1, 5), **kw)
+def test_encdec_request_extras_are_checked(extras, match):
+    """As in the JAX scheduler: an encdec request without ``src_emb``, or
+    with one longer than ``src_len``, raises ``ValueError`` and queues
+    nothing; an encdec scheduler without ``src_len`` raises too."""
+    cfg_j, params, cfg_t, model = plain_models(0, **OVER["encdec"])
+    eng = ServeEngine(cfg_t, model, max_new_tokens=MAX_NEW, stop_token=STOP,
+                      device="cpu")
+    with pytest.raises(ValueError, match="src_len"):
+        ContinuousBatchingScheduler(eng, capacity=2, max_len=MAX_LEN)
+    sched = ContinuousBatchingScheduler(eng, capacity=2, max_len=MAX_LEN,
+                                        src_len=8)
+    with pytest.raises(ValueError, match=match):
+        sched.submit(np.arange(1, 5), extras=extras)
     assert sched.cancel(0) is False         # never submitted
     assert not sched.queue
 

@@ -251,10 +251,68 @@ def test_launcher_page_dtype_needs_page_size(capsys):
 @pytest.mark.parametrize("argv,item", [
     (["--static", "--mesh", "1x1"], "Queue 1 item 14"),
     (["--mesh", "1x1"], "Queue 1 item 14"),
-    (["--static", "--arch", "llama_3_2_vision_11b"], "Queue 1 item 12"),
-    (["--static", "--arch", "seamless_m4t_large_v2"], "Queue 1 item 12"),
+    (["--static", "--arch", "stablelm_12b"], "Queue 1 item 18"),
 ])
 def test_launcher_names_the_roadmap_item_of_unported_modes(argv, item):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit, match=item):
         serve.main(["--device", "cpu"] + argv)
+
+
+def _run_jax_launcher(argv):
+    """The JAX launcher's printed request lines (it reads ``sys.argv``)."""
+    import contextlib
+    import io
+
+    from repro.launch import serve as jax_serve
+    old, sys.argv = sys.argv, ["serve"] + argv
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            jax_serve.main()
+    finally:
+        sys.argv = old
+    return [ln for ln in buf.getvalue().splitlines() if ln.startswith("req")]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "llama_3_2_vision_11b", "--static", "--batch", "2",
+     "--max-new", "3"],
+    ["--arch", "seamless_m4t_large_v2", "--src-len", "12", "--batch", "2",
+     "--requests", "3", "--max-new", "3", "--prompt-len", "8"],
+])
+def test_launcher_serves_the_cross_attention_archs(argv, capsys, monkeypatch):
+    """The VLM (one static batch with image embeddings) and encdec (the
+    scheduler, each request with its own encoder input) on the CPU, with
+    the JAX launcher's weights carried across: the JAX launcher's tokens."""
+    import dataclasses
+
+    import jax
+
+    from repro.models import ModelConfig as JaxConfig
+    from repro.models import get_model as jax_get_model
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import from_jax_params
+
+    want = _run_jax_launcher(argv)
+    orig = serve.get_model
+
+    class FromJax:
+        def __init__(self, cfg):
+            self.mod = orig(cfg)
+
+        def __getattr__(self, name):
+            return getattr(self.mod, name)
+
+        def init(self, cfg, gen, device):
+            cfg_j = JaxConfig(**{f.name: getattr(cfg, f.name)
+                                 for f in dataclasses.fields(cfg)})
+            params, _ = jax_get_model(cfg_j).init(jax.random.PRNGKey(0), cfg_j)
+            return from_jax_params(cfg, jax.tree.map(np.asarray, params),
+                                   device=device)
+
+    monkeypatch.setattr(serve, "get_model", FromJax)
+    serve.main(argv + ["--device", "cpu"])
+    got = [ln for ln in capsys.readouterr().out.splitlines()
+           if ln.startswith("req")]
+    assert got == want and len(got) in (2, 3)
