@@ -16,13 +16,15 @@
    cumsum run in another order, bf16 h_final at 1e-4 and bf16 y at
    ``SSD_Y_TOL`` with its ratio to that limit printed per case; the MoE
    dispatch ranks, the ordered
-   ``fadda`` sums and scans and ``daxpy`` exactly, bit for bit), holds bf16
+   ``fadda`` sums and scans and ``daxpy`` exactly, bit for bit; every flash
+   body at head dims up to 160, stablelm-12b's), holds bf16
    paged decode equal to dense decode bit for bit and each lane's bf16
-   decode equal alone and in the batch, checks the threefry bits on the
-   card against the CPU's, and times each kernel at the shapes its path
-   gives it, beside its plain version, its bound and, where one exists,
-   one PyTorch library call (``moe_positions`` and ``fadda`` also beside
-   the launch floor: the time of one empty kernel).
+   decode equal alone and in the batch (head dims 80 and 160), checks the
+   threefry bits on the card against the CPU's, and times each kernel at
+   the shapes its path gives it (the flash kernels also at stablelm-12b's
+   D-160 shapes), beside its plain version, its bound and, where one
+   exists, one PyTorch library call (``moe_positions`` and ``fadda`` also
+   beside the launch floor: the time of one empty kernel).
 3. Serves 8 greedy requests through ``ServeEngine.generate`` at the full
    width of stablelm-3b (dense family), zamba2-1.2b (hybrid), mamba2-130m
    (ssm) and olmoe-1b-7b (moe), random weights from seed 0, with the dense
@@ -94,6 +96,15 @@
    held in those models' roles (``check_cross_roles``: non-causal, Sq !=
    Skv both ways, kv_lens down to 1, the split-KV body over 1024 keys) and
    timed there (``time_cross``).
+   Then stablelm-12b (``serve_stablelm_12b``: 40 x d 5120, 32 heads over 8
+   KV heads of D 160, random bf16 weights from seed 0) through the same
+   checks as the models above (dense, paged, int8), with its first step
+   through the kernels held to the plain path (bf16 and f32 weights on 8
+   of its 40 layers; bf16 at full depth reported), and speculative
+   decoding on it (``serve_speculative``: 8 lanes, 32 tokens, k 4; the
+   target as its own draft and a 2-layer draft, greedy, both committing
+   the target's greedy ``generate`` tokens bit for bit; the mixed batch
+   twice, the same tokens).
 4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
 5. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
@@ -112,6 +123,13 @@ builds the kernels and runs only the cross-attention roles' check and
 times, ``serve_cross`` for seamless, llama-vision and gemma3, and the
 encdec scheduler leg.
 
+    python3 chip_smoke.py --spec
+
+builds the kernels and runs only this slice's phases: ptxas's registers
+and spills for every flash instance, the flash checks (every head dim up
+to 160), the D-160 kernel times (``time_head160``), ``serve_stablelm_12b``
+and ``serve_speculative``.
+
     python3 chip_smoke.py --chunk-probe
 
 builds the kernels and holds chunked against whole-prompt prefill of
@@ -124,8 +142,9 @@ shapes: a bf16 prefill's logits move with its GEMMs' row count.
 builds the kernels and shows which row counts give a row the same bits
 (``gemm_probe``): every projection shape of stablelm-3b, zamba2-1.2b and
 mamba2-130m and, from their configs (``shape_probe``), of
-seamless-m4t-large-v2, llama-3.2-vision-11b, gemma3-27b and
-command-r-plus-104b with their unembeddings, and their row reductions,
+seamless-m4t-large-v2, llama-3.2-vision-11b, gemma3-27b,
+command-r-plus-104b and stablelm-12b with their unembeddings, and their
+row reductions,
 with 16 probe rows inside calls of 1 to 8192 rows (what the per-shape
 floors of ``layers.ROW_FLOORS`` cost: ``table_cost``), and at model level one decode step at widths 1/2/4/8 and one
 prompt prefilled alone, in a batch and in chunks, at several row floors.
@@ -369,12 +388,15 @@ DENSE_CASES = (
     ((3, 2, 1, 65, 200, True, None), "tensor_core"),
     ((2, 1, 2, 963, 1027, True, None), "tensor_core"),
 )
-DENSE_HEAD_DIMS = (16, 32, 37, 64, 80, 96, 100, 128)   # every tensor-core instance
+# every tensor-core instance; 144, 150 and 160 (stablelm-12b's) also take
+# the split-KV body's third pass of 64 head dims and the CUDA-core body's
+# fifth head dim per lane
+DENSE_HEAD_DIMS = (16, 32, 37, 64, 80, 96, 100, 128, 144, 150, 160)
 # Paged cases (b, hkv, group, sq, ps, n_pages) and the body each takes in
 # bf16 (f32 always takes the CUDA-core body): the split-KV body at every
 # row-count instance (1, 2, 4, 6 and 16 rows per KV head), page sizes 8 and
-# 16, one and several splits (1120 keys: 5); a chunk of 24 rows on the
-# CUDA-core body.  Lanes hold kv_lens (skv, skv // 2 + 1, 0, 5) with stale
+# 16, one and several splits (1120 keys: 5); stablelm-12b's 8 KV heads of
+# group 4 over 1120 keys; a chunk of 24 rows on the CUDA-core body.  Lanes hold kv_lens (skv, skv // 2 + 1, 0, 5) with stale
 # ids past the second lane's strip; each case runs non-causal, causal, and
 # causal with a window.
 PAGED_CASES = (
@@ -384,6 +406,7 @@ PAGED_CASES = (
     ((4, 2, 2, 3, 8, 9), "split_kv"),
     ((4, 1, 4, 4, 16, 20), "split_kv"),
     ((4, 1, 8, 2, 8, 40), "split_kv"),
+    ((4, 8, 4, 1, 16, 70), "split_kv"),
     ((2, 2, 2, 12, 16, 4), "cuda_core"),
 )
 PAGED_MASKS = ((False, None), (True, None), (True, 37))
@@ -610,8 +633,8 @@ def _quant_pools(gen, n_pool, hkv, ps, d, page_dtype):
 # Quantized paged cases (d, ps, group, sq, window) and the body each takes
 # with bf16 q (f32 q always takes the CUDA-core body): the split-KV body at
 # every row-count instance (1, 2, 4, 6 and 16 rows per KV head), page sizes
-# 8 and 16, head dims 48, 64, 80 and 128, with and without a window; a
-# chunk of 20 rows on the CUDA-core body.
+# 8 and 16, head dims 48, 64, 80, 128 and 160 (stablelm-12b's, group 4),
+# with and without a window; chunks of 20 rows on the CUDA-core body.
 QUANT_CASES = (
     ((64, 16, 1, 1, None), "split_kv"),
     ((80, 16, 2, 1, None), "split_kv"),
@@ -619,7 +642,10 @@ QUANT_CASES = (
     ((128, 8, 2, 3, 11), "split_kv"),
     ((48, 8, 4, 4, None), "split_kv"),
     ((64, 16, 8, 2, 50), "split_kv"),
+    ((160, 16, 4, 1, None), "split_kv"),
+    ((160, 8, 4, 4, 40), "split_kv"),
     ((80, 16, 4, 5, None), "cuda_core"),
+    ((160, 16, 4, 5, None), "cuda_core"),
 )
 
 
@@ -723,14 +749,15 @@ def check_paged_equals_dense(flash_attention):
     cache over the same keys bit for bit (``torch.equal``): the split-KV
     body is one template for both.  The smoke run's ragged lanes (kv_len
     320 to 1027) and an empty lane, page sizes 8 and 16, one row and 16 rows
-    per KV head, causal, with and without a window, head dims 64, 80 and
-    128."""
+    per KV head, causal, with and without a window, head dims 64, 80, 128
+    and 160 (stablelm-12b's 8 KV heads of group 4, 4 and 16 rows)."""
     from repro_torch.kernels.flash_attention import kernel as K
     gen = torch.Generator(device="cuda").manual_seed(13)
     lens = torch.tensor([812, 687, 757, 320, 963, 891, 835, 0], dtype=torch.int32,
                         device="cuda") + 1
     n_cases = 0
-    for d, hkv, group, sq in ((80, 32, 1, 1), (64, 4, 4, 4), (128, 16, 1, 1)):
+    for d, hkv, group, sq in ((80, 32, 1, 1), (64, 4, 4, 4), (128, 16, 1, 1),
+                              (160, 8, 4, 1), (160, 8, 4, 4)):
         q = torch.randn(8, hkv * group, sq, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         k, v = (torch.randn(8, hkv, 1027, d, generator=gen, device="cuda").to(
@@ -754,8 +781,8 @@ def check_paged_equals_dense(flash_attention):
                       f"{float((dense.float() - paged.float()).abs().max()):.3g}")
                 n_cases += 1
     print(f"[kernels] bf16 paged decode equals dense decode bit for bit "
-          f"(torch.equal): {n_cases} cases (d 64, 80, 128; ps 8, 16; 1 and 16 "
-          f"rows per KV head; window none and 200)", flush=True)
+          f"(torch.equal): {n_cases} cases (d 64, 80, 128, 160; ps 8, 16; 1, 4 "
+          f"and 16 rows per KV head; window none and 200)", flush=True)
 
 
 def check_prefill_rows(flash_attention):
@@ -813,36 +840,43 @@ def check_batch_independence(flash_attention):
     """Each lane's bf16 decode output, dense and paged, is bit for bit the
     same alone in a short cache (its own keys, rounded up to a page) as
     among the 8 lanes of the smoke batch in the 1027-key cache: the split
-    grid follows from the lane's own keys only."""
+    grid follows from the lane's own keys only.  At stablelm-3b's heads (32
+    of D 80) and stablelm-12b's (32 over 8 KV heads of D 160)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     lens = torch.tensor([812, 687, 757, 320, 963, 891, 835, 487], dtype=torch.int32,
                         device="cuda") + 1
-    d, hkv, ps = 80, 32, PAGE_SIZE
-    q = torch.randn(8, hkv, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn(8, hkv, 1027, d, generator=gen, device="cuda").to(
-        torch.bfloat16) for _ in range(2))
-    kp, vp, table = _pages_of(k, v, ps, gen)
+    ps = PAGE_SIZE
     kw = lambda ln: dict(kv_lens=ln, causal=True, q_offset=ln - 1, decode=True)
-    batch = {"dense": flash_attention(q, k, v, impl="kernel", **kw(lens)),
-             "paged": flash_attention(q, kp, vp, impl="kernel", page_table=table,
-                                      **kw(lens))}
-    for i, n in enumerate(lens.tolist()):
-        short = -(-n // ps) * ps
-        ki, vi = k[i:i + 1, :, :short].contiguous(), v[i:i + 1, :, :short].contiguous()
-        kpi, vpi, ti = _pages_of(ki, vi, ps, gen)
-        li = lens[i:i + 1]
-        alone = {"dense": flash_attention(q[i:i + 1], ki, vi, impl="kernel", **kw(li)),
-                 "paged": flash_attention(q[i:i + 1], kpi, vpi, impl="kernel",
-                                          page_table=ti, **kw(li))}
-        torch.cuda.synchronize()
-        for cache in alone:
-            check(torch.equal(alone[cache][0], batch[cache][i]),
-                  f"lane {i} ({n} keys) {cache}: alone in a {short}-key cache "
-                  "equals its row in the batch of 8 at 1027 keys, bit for bit")
+    for d, hkv, group in ((80, 32, 1), (160, 8, 4)):
+        q = torch.randn(8, hkv * group, 1, d, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(8, hkv, 1027, d, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        kp, vp, table = _pages_of(k, v, ps, gen)
+        batch = {"dense": flash_attention(q, k, v, impl="kernel", **kw(lens)),
+                 "paged": flash_attention(q, kp, vp, impl="kernel",
+                                          page_table=table, **kw(lens))}
+        for i, n in enumerate(lens.tolist()):
+            short = -(-n // ps) * ps
+            ki = k[i:i + 1, :, :short].contiguous()
+            vi = v[i:i + 1, :, :short].contiguous()
+            kpi, vpi, ti = _pages_of(ki, vi, ps, gen)
+            li = lens[i:i + 1]
+            alone = {"dense": flash_attention(q[i:i + 1], ki, vi, impl="kernel",
+                                              **kw(li)),
+                     "paged": flash_attention(q[i:i + 1], kpi, vpi, impl="kernel",
+                                              page_table=ti, **kw(li))}
+            torch.cuda.synchronize()
+            for cache in alone:
+                check(torch.equal(alone[cache][0], batch[cache][i]),
+                      f"lane {i} ({n} keys, d={d}) {cache}: alone in a "
+                      f"{short}-key cache equals its row in the batch of 8 at "
+                      "1027 keys, bit for bit")
     print(f"[kernels] bf16 decode is batch-composition independent: each of the "
           f"8 lanes (kv_len {lens.min().item()}-{lens.max().item()}) alone in a "
           f"short cache equals its row in the batch of 8 over 1027 keys, dense "
-          f"and paged, bit for bit", flush=True)
+          f"and paged, d 80 (32 heads) and 160 (32 over 8 KV heads), bit for "
+          f"bit", flush=True)
 
 
 def moe_cases():
@@ -1178,7 +1212,7 @@ def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
     mask = R.attention_mask(s, max_len, kv_lens=lens_t, causal=True,
                             q_offset=zero)                  # (B,S,Skv)
     lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None],
-                                                 scale=scale)
+                                                 scale=scale, enable_gqa=h != hkv)
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
     torch.testing.assert_close(out_k, out_p, atol=TOL["tensor_core"][0],
@@ -1204,7 +1238,7 @@ def time_dense(name, b, h, hkv, d, lens_t, max_len, gen):
     plain = lambda: R.mha_ref(q1, k, v, kv_lens=kv1, q_offset=lens_t)
     mask1 = R.attention_mask(1, max_len, kv_lens=kv1, q_offset=lens_t)
     lib = lambda: F.scaled_dot_product_attention(q1, k, v, attn_mask=mask1[:, None],
-                                                 scale=scale)
+                                                 scale=scale, enable_gqa=h != hkv)
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
     torch.testing.assert_close(out_k, out_p, atol=TOL["split_kv"][0],
@@ -1307,47 +1341,37 @@ def split_span_sweep(calls, gpu):
               + f" (shipped: {shipped})  [{gpu}]", flush=True)
 
 
-def time_kernels(cfg, lens, max_len, gpu):
-    """Each flash kernel at the serving path's shapes: the dense kernel's
-    prefill and decode calls at stablelm-3b's heads (D 80, 32 heads; its row
-    in the ``kernels`` line), zamba2-1.2b's (D 64, 32 heads) and
-    olmoe-1b-7b's (D 128, 16 heads); the paged kernels' decode calls at
-    stablelm-3b's."""
-    from repro_torch.configs import get_config
+def time_paged(rows, name, q1, k, v, kv1, lens_t, max_len, h, hkv, d,
+               quant=()) -> dict:
+    """The paged kernel's decode call over the dense K/V of ``time_dense``
+    laid out as pages (identity tables over (B*n_pages, Hkv, ps, D)),
+    held to the plain version and to the dense call bit for bit, into
+    ``rows`` as ``paged_decode{name}``; then over the same pages truncated
+    to each type of ``quant`` by the port's quantize_block, with their
+    scale pools (``paged_decode{name}_{type}``).  No one PyTorch call reads
+    K/V through a page table: the rows' library time is null, and the
+    print gives ``scaled_dot_product_attention`` over the dense K/V beside
+    them as a yardstick.  Returns each call, by cache, for the split-span
+    sweep."""
     from repro_torch.core import paging as PG
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
     from repro_torch.kernels.flash_attention.ops import NO_WINDOW
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    b, h, d = len(lens), cfg.n_heads, cfg.resolved_head_dim
-    hkv = cfg.n_kv_heads
-    bf = torch.bfloat16
-    item = 2
+    b, bf, item, scale = q1.shape[0], torch.bfloat16, 2, d ** -0.5
     win = torch.tensor([NO_WINDOW], dtype=torch.int32, device="cuda")
-    scale = d ** -0.5
-    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    rows, (q1, k, v, kv1) = time_dense("", b, h, hkv, d, lens_t, max_len, gen)
     live = int(kv1.sum())
-    for arch in ("zamba2_1_2b", "olmoe_1b_7b"):
-        c = get_config(arch)
-        rows.update(time_dense(f"_{arch}", b, c.n_heads, c.n_kv_heads,
-                               c.resolved_head_dim, lens_t, max_len, gen)[0])
-
-    # paged kernel, decode call: identity tables over (B*n_pages,Hkv,ps,D)
     n_pages = PG.pages_needed(max_len, PAGE_SIZE)
     kp = torch.zeros(b * n_pages, hkv, PAGE_SIZE, d, dtype=bf, device="cuda")
     vp = torch.zeros_like(kp)
     tab = (torch.arange(b, device="cuda")[:, None] * n_pages
            + torch.arange(n_pages, device="cuda")[None]).to(torch.int32)
-    kview = kp.view(b, n_pages, hkv, PAGE_SIZE, d)
-    vview = vp.view(b, n_pages, hkv, PAGE_SIZE, d)
     pad = n_pages * PAGE_SIZE - max_len
-    kview.copy_(F.pad(k, (0, 0, 0, pad)).view(b, hkv, n_pages, PAGE_SIZE, d)
-                .transpose(1, 2))
-    vview.copy_(F.pad(v, (0, 0, 0, pad)).view(b, hkv, n_pages, PAGE_SIZE, d)
-                .transpose(1, 2))
+    for pool, t in ((kp, k), (vp, v)):
+        pool.view(b, n_pages, hkv, PAGE_SIZE, d).copy_(
+            F.pad(t, (0, 0, 0, pad)).view(b, hkv, n_pages, PAGE_SIZE, d)
+            .transpose(1, 2))
     tab_c = torch.where(PG.page_whilelt(kv1, n_pages, PAGE_SIZE), tab, 0)
     kern = lambda: K.flash_paged_cuda(q1, kp, vp, tab_c, kv1, lens_t, win,
                                       causal=False, scale=scale, decode=True)
@@ -1361,23 +1385,16 @@ def time_kernels(cfg, lens, max_len, gpu):
     dense_out = K.flash_dense_cuda(q1, k, v, kv1, lens_t, win, causal=False,
                                    scale=scale, decode=True)
     torch.cuda.synchronize()
-    check(torch.equal(out_k, dense_out), "paged decode at stablelm's shape "
-          "equals the dense call bit for bit")
-    sweep = {"dense": lambda: K.flash_dense_cuda(q1, k, v, kv1, lens_t, win,
-                                                 causal=False, scale=scale,
-                                                 decode=True),
-             "paged bf16": kern}
-    rows["paged_decode"] = dict(
+    check(torch.equal(out_k, dense_out), f"paged decode{name} equals the dense "
+          "call bit for bit")
+    calls = {"paged bf16": kern}
+    rows[f"paged_decode{name}"] = dict(
         shape=f"q {tuple(q1.shape)} pools {tuple(kp.shape)} ps {PAGE_SIZE} bf16",
         ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20), library_ms=None,
         flops=4 * h * d * live,
         bytes=item * (2 * q1.numel() + 2 * hkv * d * live) + 4 * tab_c.numel(),
         max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
-    del kview, vview
-
-    # the quantized paged kernel, decode call: the same pages truncated to
-    # int8 and to fp8 by the port's quantize_block, with their scale pools
-    for page_dtype in ("int8", "fp8"):
+    for page_dtype in quant:
         qdt = PG.resolve_page_dtype(page_dtype)
         (kq, ksc), (vq, vsc) = PG.quantize_block(kp, qdt), PG.quantize_block(vp, qdt)
         kern = lambda kq=kq, vq=vq, ksc=ksc, vsc=vsc: K.flash_paged_quant_cuda(
@@ -1390,8 +1407,8 @@ def time_kernels(cfg, lens, max_len, gpu):
         torch.cuda.synchronize()
         torch.testing.assert_close(out_k, out_p, atol=TOL["split_kv"][0],
                                    rtol=TOL["split_kv"][1])
-        sweep[f"paged {page_dtype}"] = kern
-        rows[f"paged_decode_{page_dtype}"] = dict(
+        calls[f"paged {page_dtype}"] = kern
+        rows[f"paged_decode{name}_{page_dtype}"] = dict(
             shape=f"q {tuple(q1.shape)} pools {tuple(kq.shape)} {page_dtype} "
                   f"+ scales {tuple(ksc.shape)} f32, ps {PAGE_SIZE}, q bf16",
             ms=time_ms(kern, 50), plain_ms=time_ms(plain, 20), library_ms=None,
@@ -1399,8 +1416,13 @@ def time_kernels(cfg, lens, max_len, gpu):
             bytes=(item * 2 * q1.numel() + 2 * hkv * d * live
                    + 4 * 2 * hkv * live + 4 * tab_c.numel()),
             max_abs_err=float((out_k.float() - out_p.float()).abs().max()))
-    split_span_sweep(sweep, gpu)
-    del sweep
+    return calls
+
+
+def print_rows(rows, gpu) -> None:
+    """Each timed row with its bound (``_bound``) and, beside a paged row,
+    the dense decode row's ``scaled_dot_product_attention`` time of the
+    same shapes."""
     for name, r in rows.items():
         _bound(r)
         lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1412,10 +1434,69 @@ def time_kernels(cfg, lens, max_len, gpu):
         if name in PREVIOUS_PAGED_MS:
             extra += (f" (split_kv body), previous design (CUDA-core, "
                       f"flash_fwd) {PREVIOUS_PAGED_MS[name]:.4f} ms")
+        dense = rows.get(name.replace("paged_decode", "dense_decode")
+                         .replace("_int8", "").replace("_fp8", ""))
+        if name.startswith("paged_decode") and dense:
+            extra += (f"; scaled_dot_product_attention over the dense K/V "
+                      f"{dense['library_ms']:.4f} ms")
         print(f"[time] {name}: {r['shape']}: kernel {r['ms']:.4f} ms{extra}, plain "
               f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|err| "
               f"{r['max_abs_err']:.3g}  [{gpu}]", flush=True)
+
+
+def time_head160(gpu) -> dict:
+    """The flash kernels at stablelm-12b's shapes (32 query heads over 8 KV
+    heads of D 160, bf16): the prefill call of the smoke's 8 prompts
+    (tensor-core body), the dense-cache and paged decode calls (split-KV
+    body, its third pass of 64 head dims), each beside its plain version,
+    its bound and ``scaled_dot_product_attention``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("stablelm_12b")
+    lens = np.random.RandomState(0).randint(128, 1025, N_REQ).astype(np.int32)
+    lens_t = torch.from_numpy(lens).cuda()
+    max_len = int(lens.max()) + MAX_NEW
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rows, (q1, k, v, kv1) = time_dense("_stablelm_12b", N_REQ, h, hkv, d,
+                                       lens_t, max_len, gen)
+    time_paged(rows, "_stablelm_12b", q1, k, v, kv1, lens_t, max_len, h, hkv, d,
+               ("int8",))
+    print_rows(rows, gpu)
+    return rows
+
+
+def time_kernels(cfg, lens, max_len, gpu):
+    """Each flash kernel at the serving path's shapes: the dense kernel's
+    prefill and decode calls at stablelm-3b's heads (D 80, 32 heads; its row
+    in the ``kernels`` line), zamba2-1.2b's (D 64, 32 heads) and
+    olmoe-1b-7b's (D 128, 16 heads); the paged kernels' decode calls at
+    stablelm-3b's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ops import NO_WINDOW
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, d = len(lens), cfg.n_heads, cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads
+    win = torch.tensor([NO_WINDOW], dtype=torch.int32, device="cuda")
+    scale = d ** -0.5
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rows, (q1, k, v, kv1) = time_dense("", b, h, hkv, d, lens_t, max_len, gen)
+    for arch in ("zamba2_1_2b", "olmoe_1b_7b"):
+        c = get_config(arch)
+        rows.update(time_dense(f"_{arch}", b, c.n_heads, c.n_kv_heads,
+                               c.resolved_head_dim, lens_t, max_len, gen)[0])
+
+    sweep = {"dense": lambda: K.flash_dense_cuda(q1, k, v, kv1, lens_t, win,
+                                                 causal=False, scale=scale,
+                                                 decode=True)}
+    sweep.update(time_paged(rows, "", q1, k, v, kv1, lens_t, max_len, h, hkv,
+                            d, ("int8", "fp8")))
+    split_span_sweep(sweep, gpu)
+    del sweep
+    print_rows(rows, gpu)
     return rows
 
 
@@ -2662,12 +2743,18 @@ CROSS_WIDTHS = {
         n_layers=62, d_model=5376, n_heads=32, n_kv_heads=16,
         resolved_head_dim=128, d_ff=21504, vocab_size=262144,
         local_window=1024, local_global_period=6),
+    # served by serve_stablelm_12b through serve_cross_model's checks
+    "stablelm_12b": dict(
+        n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8,
+        resolved_head_dim=160, d_ff=13824, vocab_size=100352),
 }
 CROSS_RUNS = {
     "seamless_m4t_large_v2": (("dense", None, None), ("paged", PAGE_SIZE, None),
                               ("int8", PAGE_SIZE, "int8")),
     "llama_3_2_vision_11b": (("dense", None, None), ("paged", PAGE_SIZE, None)),
     "gemma3_27b": (("dense", None, None), ("paged", PAGE_SIZE, None)),
+    "stablelm_12b": (("dense", None, None), ("paged", PAGE_SIZE, None),
+                     ("int8", PAGE_SIZE, "int8")),
 }
 # depth cuts: gemma3-27b's 62 layers (57 GB of bf16 weights) leave the
 # 80 GB card too little for the graphed and eager runs' caches side by
@@ -2711,20 +2798,12 @@ def cross_batch(cfg) -> tuple:
     return batch, lens
 
 
-def serve_cross(arch, gpu) -> dict:
-    """One model of ``CROSS_ARCHS`` at its published widths (depth cut by
-    ``CROSS_DEPTH``) through ``ServeEngine.generate``, random bf16 weights
-    from seed 0, the batch of ``cross_batch``, 64 new tokens: the row
-    checks (``check_rows``: lane 0's decode logits at widths 1/2/4/8, a
-    prompt alone == in a batch == in chunks), then each cache of
-    ``CROSS_RUNS`` graphed and held against the eager body bit for bit
-    with equal launches, held to ``_want_launches`` per kernel and body;
-    paged tokens equal the dense run's (held), int8's reported; prefill
-    timed alone, the graphed decode step and tokens per second printed.
-    Returns each run's launches and bodies."""
+def init_full(arch):
+    """(cfg, family module, model) of one model of ``CROSS_WIDTHS`` at its
+    published widths (depth cut by ``CROSS_DEPTH``), random bf16 weights
+    from seed 0 on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
-    from repro_torch.serve.engine import BURST
 
     cfg = get_config(arch)
     widths = CROSS_WIDTHS[arch]
@@ -2743,6 +2822,31 @@ def serve_cross(arch, gpu) -> dict:
              else "")
           + f" {cfg.compute_dtype}: {n_params / 1e9:.3f}B params, init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, fam, model
+
+
+def serve_cross(arch, gpu) -> dict:
+    """``serve_cross_model`` of one model of ``CROSS_ARCHS`` (``init_full``),
+    which is freed after."""
+    cfg, fam, model = init_full(arch)
+    runs = serve_cross_model(arch, cfg, fam, model, gpu)
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def serve_cross_model(arch, cfg, fam, model, gpu) -> dict:
+    """One model of ``CROSS_WIDTHS`` at its published widths through ``ServeEngine.generate``,
+    the batch of ``cross_batch``, 64 new tokens: the row checks
+    (``check_rows``: lane 0's decode logits at widths 1/2/4/8, a prompt
+    alone == in a batch == in chunks), then each cache of ``CROSS_RUNS``
+    graphed and held against the eager body bit for bit with equal
+    launches, held to ``_want_launches`` per kernel and body; paged tokens
+    equal the dense run's (held), int8's reported; prefill timed alone, the
+    graphed decode step and tokens per second printed.  Returns each run's
+    launches and bodies, and its tokens."""
+    from repro_torch.serve.engine import BURST
+
     batch, lens = cross_batch(cfg)
     max_len = int(lens.max()) + MAX_NEW
     Engine, Eager, *_ = engine_classes()
@@ -2801,9 +2905,155 @@ def serve_cross(arch, gpu) -> dict:
         print(f"[full] {cfg.name} tokens of the int8 pages equal to the "
               f"full-precision paged run: {same:.4f} (reported: quantization "
               "may change tokens)", flush=True)
-    del model
-    torch.cuda.empty_cache()
     return runs
+
+
+# stablelm-12b's first-step checks run on a depth cut to this many layers,
+# in bf16 and in f32 (48 GB of f32 weights at full depth do not fit beside
+# the 24 GB bf16 model the phase keeps for speculative decoding); at full
+# depth the bf16 figure is reported: bf16 rounding grows through 40 random
+# layers (0.0202 of the 2e-2 limit on an H100, every D-160 body within one
+# bf16 rounding step of its plain version in ``check_kernels``)
+CUT_DEPTH_12B = 8
+# speculative decoding on the stablelm-12b target: new tokens per lane and
+# draft tokens per round
+SPEC_TOKENS, SPEC_K = 32, 4
+
+
+def first_step_errs(fam, model, cfg, batch, max_len) -> dict:
+    """One prefill and one decode step of the smoke batch through the
+    kernels and through the plain path (``PLAIN``, on the kernel path's
+    first token), and the step on a paged copy of the cache: the relative
+    errors over the real vocab (logits of the expected shape, finite), and
+    whether paged decode equals dense decode bit for bit."""
+    from repro_torch.models import to_paged
+    from repro_torch.sample import greedy_tokens
+
+    def run(c, tok=None):
+        cache = fam.make_cache(c, N_REQ, max_len, device="cuda")
+        lp, cache = fam.prefill(model, c, batch, cache)
+        tok = greedy_tokens(lp) if tok is None else tok
+        step = {"token": tok[:, None]}
+        paged = to_paged(c, {k: v.clone() for k, v in cache.items()},
+                         page_size=PAGE_SIZE)
+        lpg, _ = fam.decode(model, c, step, paged)
+        ld, _ = fam.decode(model, c, step, cache)
+        for t in (lp, ld, lpg):
+            check(t.shape == (N_REQ, cfg.padded_vocab)
+                  and bool(torch.isfinite(t).all()),
+                  f"{c.name} first-step logits of the expected shape, finite")
+        return lp, ld, lpg, tok
+
+    with torch.inference_mode():
+        fast = run(cfg)
+        slow = run(cfg.replace(**PLAIN), fast[3])
+    v = cfg.vocab_size
+    return {"prefill kernel vs plain": rel_err(fast[0][:, :v], slow[0][:, :v]),
+            "decode kernel vs plain": rel_err(fast[1][:, :v], slow[1][:, :v]),
+            "paged == dense": torch.equal(fast[2], fast[1])}
+
+
+def serve_stablelm_12b(gpu) -> dict:
+    """stablelm-12b (head dim 160) at its published widths through
+    ``serve_cross_model`` (row checks, dense / paged / int8 caches graphed
+    == eager, paged == dense, launches per body), then its first step
+    through the kernels against the plain path: held at ``LIMIT_BF16`` with
+    bf16 weights and at ``LIMIT_F32`` with f32 weights on ``CUT_DEPTH_12B``
+    layers, reported with bf16 weights at full depth; paged decode == dense
+    decode bit for bit in all three.  Returns the runs, and the bf16 model
+    for ``serve_speculative``."""
+    arch = "stablelm_12b"
+    cfg, fam, model = init_full(arch)
+    runs = serve_cross_model(arch, cfg, fam, model, gpu)
+    batch, lens = cross_batch(cfg)
+    max_len = int(lens.max()) + MAX_NEW
+    seed0 = lambda: torch.Generator(device="cuda").manual_seed(0)
+    cut = f"depth cut to {CUT_DEPTH_12B} of {cfg.n_layers} layers"
+    firsts = [(lambda: model, cfg, None, "bf16 weights, full depth")]
+    for dt, limit in (("bfloat16", LIMIT_BF16), ("float32", LIMIT_F32)):
+        c = cfg.replace(compute_dtype=dt, n_layers=CUT_DEPTH_12B)
+        firsts.append((lambda c=c: fam.init(c, seed0(), "cuda"), c, limit,
+                       f"{dt} weights, {cut}"))
+    for make, c, limit, kind in firsts:
+        m = make()
+        errs = first_step_errs(fam, m, c, batch, max_len)
+        del m
+        torch.cuda.empty_cache()
+        check(errs.pop("paged == dense"), f"{c.name} ({kind}): paged decode "
+              "equals dense decode bit for bit")
+        for what, e in errs.items():
+            held = (f"limit {limit:g}" if limit is not None
+                    else "reported, not held")
+            print(f"[full] {cfg.name} first-step logits {what}: max|d|/max|ref| "
+                  f"= {e:.3g} ({held}, {kind}); paged decode == dense decode "
+                  f"bit for bit (held)  [{gpu}]", flush=True)
+            check(limit is None or e <= limit, f"{cfg.name} first-step logits "
+                  f"{what} ({kind}): {e} > {limit}")
+    return dict(cfg=cfg, fam=fam, model=model, runs=runs)
+
+
+def serve_speculative(s12, gpu) -> list:
+    """``serve.speculative_decode`` on the full-width stablelm-12b target of
+    ``serve_stablelm_12b``: the smoke's 8 prompts, ``SPEC_TOKENS`` new
+    tokens a lane, ``SPEC_K`` draft tokens a round.  Greedy with the target
+    as its own draft (every window accepted: mean_accepted == k, held) and
+    with stablelm-12b's config cut to 2 layers, weights from seed 1, as the
+    draft: both commit the target's own greedy ``generate`` tokens (the
+    dense run of ``serve_stablelm_12b``) bit for bit (held).  Then the
+    mixed batch (lanes 0-3 greedy, 4-7 stochastic) with the target as its
+    draft, twice: the same tokens both times, and its greedy lanes the
+    greedy tokens (held).  Prints each leg's rounds, mean_accepted and wall
+    time; returns each leg's launches and bodies."""
+    from repro_torch.serve import speculative_decode
+
+    cfg, fam, model = s12["cfg"], s12["fam"], s12["model"]
+    want = s12["runs"]["dense"]["tokens"][:, :SPEC_TOKENS]
+    batch, _ = cross_batch(cfg)
+    dcfg = cfg.replace(n_layers=2)
+    draft = fam.init(dcfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    legs = (("greedy, the target as its draft", cfg, model, None),
+            ("greedy, a 2-layer draft", dcfg, draft, None),
+            ("mixed, the target as its draft", cfg, model, mixed_specs()),
+            ("mixed again", cfg, model, mixed_specs()))
+    out, toks = [], {}
+    for name, c, m, specs in legs:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, stats = speculative_decode(
+            cfg, model, c, m, batch["tokens"], lens=batch["lens"],
+            n_tokens=SPEC_TOKENS, k_draft=SPEC_K, sampling=specs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks[name] = got.cpu().numpy()
+        counts, bodies = read_counts(), read_bodies()
+        out.append(dict(counts=counts, bodies=bodies))
+        check(toks[name].shape == (N_REQ, SPEC_TOKENS)
+              and (stats["n_generated"] == SPEC_TOKENS).all()
+              and ((toks[name] >= 0) & (toks[name] < cfg.vocab_size)).all(),
+              f"speculative {name}: every lane its {SPEC_TOKENS} tokens in the "
+              "vocab")
+        rows = slice(None) if specs is None else slice(0, 4)
+        same = bool((toks[name][rows] == want[rows]).all())
+        check(same, f"speculative {name}: the greedy lanes commit the target's "
+              "greedy generate tokens")
+        print(f"[spec] {cfg.name} target, {name}: {len(stats['accept_counts'])} "
+              f"rounds, mean_accepted {stats['mean_accepted']:.4f} of k = "
+              f"{SPEC_K}, {wall:.2f} s wall for {N_REQ}x{SPEC_TOKENS} tokens "
+              f"({N_REQ * SPEC_TOKENS / wall:.1f} tokens/s); greedy lanes equal "
+              f"the target's greedy generate tokens (held); launches "
+              f"{ {k: v for k, v in counts.items() if v} }, bodies "
+              f"{_nonzero(bodies)}  [{gpu}]", flush=True)
+        if specs is None and c is cfg:
+            check(stats["mean_accepted"] == SPEC_K, f"speculative {name}: a "
+                  f"perfect draft accepts every window ({stats['mean_accepted']})")
+    check((toks["mixed again"] == toks["mixed, the target as its draft"]).all(),
+          "the seeded mixed speculative batch repeats its tokens")
+    print(f"[spec] {cfg.name}: the seeded mixed batch run twice draws the same "
+          f"tokens (held)", flush=True)
+    del draft
+    torch.cuda.empty_cache()
+    return out
 
 
 def encdec_workload(cfg) -> list:
@@ -4041,7 +4291,7 @@ PROBE_ARCHS = ("stablelm_3b", "zamba2_1_2b", "mamba2_130m")
 # archs probed by their shapes alone (no model is built: command-r-plus
 # does not fit the card): projections, unembedding and row reductions
 PROBE_SHAPE_ARCHS = ("seamless_m4t_large_v2", "llama_3_2_vision_11b",
-                     "gemma3_27b", "command_r_plus_104b")
+                     "gemma3_27b", "command_r_plus_104b", "stablelm_12b")
 # (projection floor, norm floor) pairs: none, the shipped pair, and the
 # projections' floor for both
 PROBE_FLOORS = ((1, 1), (256, 16), (256, 256))
@@ -4532,7 +4782,8 @@ def floor_cost(fam, model, cfg, L, gpu) -> None:
 def run_quickstart() -> dict:
     """The port's quickstart (``repro_torch.launch.quickstart``) on the card:
     Fig. 2's daxpy at three VLs and §2.4's fadda, each held against its
-    plain version inside; its kernel launches, counted from 0."""
+    plain version inside, and Figs. 4-6 (``ldff``, strlen, the list XOR)
+    held to their scalar answers; its kernel launches, counted from 0."""
     from repro_torch.launch import quickstart
 
     reset_counts()
@@ -5234,6 +5485,18 @@ def main() -> int:
             phase(f"serve {arch}", serve_cross, arch, gpu)
         phase("serve encdec scheduler", serve_encdec_scheduler, gpu)
         return 0
+    if "--spec" in args:
+        from repro_torch.kernels.flash_attention import kernel as K
+        phase("ptxas flash", ptxas_report, [K.SOURCE])
+        phase("check flash", check_kernels, flash_attention)
+        phase("check flash quant", check_quant_kernel, flash_attention)
+        phase("check paged == dense", check_paged_equals_dense, flash_attention)
+        phase("check batch independence", check_batch_independence,
+              flash_attention)
+        phase("time flash d160", time_head160, gpu)
+        s12 = phase("serve stablelm_12b", serve_stablelm_12b, gpu)
+        phase("serve speculative", serve_speculative, s12, gpu)
+        return 0
     phase("check flash", check_kernels, flash_attention)
     phase("check flash quant", check_quant_kernel, flash_attention)
     phase("check paged == dense", check_paged_equals_dense, flash_attention)
@@ -5255,8 +5518,14 @@ def main() -> int:
              for arch in CROSS_ARCHS}
     sched_launches.update(phase("serve encdec scheduler",
                                 serve_encdec_scheduler, gpu))
+    s12 = phase("serve stablelm_12b", serve_stablelm_12b, gpu)
+    spec = phase("serve speculative", serve_speculative, s12, gpu)
+    cross["stablelm_12b"] = s12["runs"]
+    del s12
+    torch.cuda.empty_cache()
     cfg, lens, max_len, _ = served["stablelm_3b"]
     rows = phase("time flash", time_kernels, cfg, lens, max_len, gpu)
+    phase("time flash d160", time_head160, gpu)
     ssd_rows = phase("time ssd", time_ssd, lens, gpu)
     floor_ms = phase("launch floor", launch_floor_ms)
     moe_rows = phase("time moe_positions", time_moe_positions, lens, gpu,
@@ -5268,18 +5537,19 @@ def main() -> int:
     quick = phase("quickstart", run_quickstart)
 
     every_run = ([r for *_, runs in served.values() for r in runs.values()]
-                 + [r for runs in cross.values() for r in runs.values()])
+                 + [r for runs in cross.values() for r in runs.values()]
+                 + spec)
     launches = {k: sum(r["counts"][k] for r in every_run) + quick[k]
                 + sum(c[k] for c in sched_launches.values())
                 for k in kernel_wrappers()}
     bodies = {k: {body: sum(r["bodies"][k][body] for r in every_run)
                   for body in v}
               for k, v in read_bodies().items()}
-    print(f"[full] launches over every generate (the cross-attention models' "
-          f"and gemma3's included), the scheduler legs' warm runs and the "
-          f"quickstart: {launches}; the flash kernels by body over every "
-          f"generate: {bodies}; the cross-attention roles' check: "
-          f"{cross_bodies}", flush=True)
+    print(f"[full] launches over every generate (the cross-attention models', "
+          f"gemma3's and stablelm-12b's included), the speculative legs, the "
+          f"scheduler legs' warm runs and the quickstart: {launches}; the flash "
+          f"kernels by body over every generate and speculative leg: {bodies}; "
+          f"the cross-attention roles' check: {cross_bodies}", flush=True)
     entries = []
     for name, row, source, replaces in (
             ("flash_attention_dense", rows["dense_prefill"], SRC_CU,

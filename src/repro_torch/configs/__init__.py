@@ -1,5 +1,5 @@
-"""Architecture registry: the configs the port can run so far (one module
-per architecture, mirroring ``repro.configs``)."""
+"""Architecture registry: every config of ``repro.configs``, one module per
+architecture."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ ARCHS = [
     "moonshot_v1_16b_a3b",
     "stablelm_3b",
     "command_r_plus_104b",
+    "stablelm_12b",
     "gemma3_27b",
     "zamba2_1_2b",
     "mamba2_130m",

@@ -1,8 +1,11 @@
 """Predicate-centric execution (SVE C2/C3) as boolean tensor algebra.
 
-The helpers the serving path needs, with the semantics of
-``repro.core.predicate``: predicates are bool tensors over the trailing
-(lane) axis and broadcast right-aligned against the data they govern.
+The helpers of ``repro.core.predicate``, with its semantics: predicates are
+bool tensors over the trailing (lane) axis and broadcast right-aligned
+against the data they govern; the NZCV conditions of the paper's Table 1
+(``first``, ``none``, ``last``, ...) are reductions over that axis.
+Everything runs on the device of its inputs (``device=`` for the
+constructors), and nothing reads back to the host.
 """
 
 from __future__ import annotations
@@ -43,6 +46,115 @@ def whilelt(start, limit, vl: int, *, device=None) -> torch.Tensor:
         wrapped = elem < s
     return torch.where(wrapped, torch.zeros((), dtype=torch.bool, device=s.device),
                        elem < limit.to(elem.dtype))
+
+
+_U32 = 0xFFFFFFFF
+
+
+def whilelo(start, limit, vl: int, *, device=None) -> torch.Tensor:
+    """Unsigned variant of ``whilelt``: start, limit and start + i as
+    uint32 (a negative input wraps, as ``astype(uint32)`` does); an element
+    whose index passed 2**32 - 1 is inactive."""
+    start = torch.as_tensor(start, device=device)
+    limit = torch.as_tensor(limit, device=start.device)
+    # uint32 words held in int64: an index past 2**32 - 1 is never below a
+    # uint32 limit
+    s = start.to(torch.int64) & _U32
+    lim = limit.to(torch.int64) & _U32
+    return s + torch.arange(vl, dtype=torch.int64, device=s.device) < lim
+
+
+def index_pred(lengths: torch.Tensor, vl: int) -> torch.Tensor:
+    """Batched whilelt: row r active for i < lengths[r].  Shape
+    (*lengths, vl) — the ragged-batch predicate."""
+    lengths = torch.as_tensor(lengths)
+    i = torch.arange(vl, dtype=torch.int32, device=lengths.device)
+    return i[None, :] < lengths.to(torch.int32)[..., None]
+
+
+# NZCV condition analogues (paper Table 1)
+
+def first(p: torch.Tensor) -> torch.Tensor:
+    """N flag: the first element is active (``b.first`` continues a loop)."""
+    return p[..., 0].to(torch.bool)
+
+
+def none(p: torch.Tensor) -> torch.Tensor:
+    """Z flag: no element is active."""
+    return ~torch.any(p, dim=-1)
+
+
+def any_(p: torch.Tensor) -> torch.Tensor:
+    return torch.any(p, dim=-1)
+
+
+def last(p: torch.Tensor) -> torch.Tensor:
+    """!C flag: the LAST element is active (``b.last`` continues a loop)."""
+    return p[..., -1].to(torch.bool)
+
+
+def not_last(p: torch.Tensor) -> torch.Tensor:
+    """C flag: the last element is NOT active."""
+    return ~last(p)
+
+
+# predicate queries and manipulation
+
+def cntp(p: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Count active elements (SVE ``cntp``), int32."""
+    return torch.sum(p.to(torch.int32), dim=axis, dtype=torch.int32)
+
+
+def _first_index(p: torch.Tensor) -> torch.Tensor:
+    """Index of the first active element (0 when none is)."""
+    return torch.argmax(p.to(torch.int8), dim=-1)
+
+
+def pfirst(p: torch.Tensor) -> torch.Tensor:
+    """Predicate selecting only the first active element (SVE ``pfirst``)."""
+    i = torch.arange(p.shape[-1], device=p.device)
+    return (i == _first_index(p)[..., None]) & torch.any(p, dim=-1, keepdim=True)
+
+
+def plast(p: torch.Tensor) -> torch.Tensor:
+    """Predicate selecting only the last active element."""
+    return torch.flip(pfirst(torch.flip(p, dims=(-1,))), dims=(-1,))
+
+
+def pnext(p_gov: torch.Tensor, p_cur: torch.Tensor) -> torch.Tensor:
+    """Next active element of ``p_gov`` strictly after the one in ``p_cur``
+    (SVE ``pnext``): with an empty ``p_cur`` the first active element; all
+    false when exhausted."""
+    i = torch.arange(p_gov.shape[-1], device=p_gov.device)
+    cur = torch.where(torch.any(p_cur, dim=-1), _first_index(p_cur),
+                      torch.full((), -1, device=p_gov.device))
+    return pfirst(p_gov & (i > cur[..., None]))
+
+
+def propagate_last(p: torch.Tensor) -> torch.Tensor:
+    """Monotone closure: active up to the LAST active element (inclusive)."""
+    flipped = torch.flip(p.to(torch.int32), dims=(-1,))
+    return torch.flip(torch.cumsum(flipped, dim=-1) > 0, dims=(-1,))
+
+
+def lane_iota(vl: int, dtype=torch.int32, *, device=None) -> torch.Tensor:
+    """SVE ``index``: the [0, 1, .. VL-1] induction vector."""
+    return torch.arange(vl, dtype=dtype, device=device)
+
+
+def cpy(p_lane: torch.Tensor, scalar, vec: torch.Tensor) -> torch.Tensor:
+    """Insert ``scalar`` into ``vec`` at the lanes of ``p_lane`` (SVE
+    ``cpy /m``)."""
+    fill = torch.as_tensor(scalar, dtype=vec.dtype, device=vec.device)
+    return torch.where(_bcast(p_lane, vec.dim()), fill, vec)
+
+
+def ctermeq(a, b, p_last: torch.Tensor) -> torch.Tensor:
+    """SVE ``ctermeq``, the termination test of a scalarized sub-loop
+    (paper Fig. 6c): True (continue) while the scalars differ AND the lane
+    predicate still has an active element."""
+    term = torch.as_tensor(a) == torch.as_tensor(b)
+    return (~term.to(p_last.device)) & torch.any(p_last, dim=-1)
 
 
 def _bcast(p: torch.Tensor, ndim: int) -> torch.Tensor:

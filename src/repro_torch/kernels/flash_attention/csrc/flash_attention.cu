@@ -49,7 +49,9 @@
 // tiles are never loaded (the key range from kv_len, the causal edge and
 // the window); the element predicate runs only on edge tiles.  Row blocks
 // run last-first so under causal the longest start first.  The head dim is
-// zero-padded to a multiple of 16 in shared memory: every D <= 128 runs.
+// zero-padded to a multiple of 16 in shared memory: every D <= 160 runs
+// (stablelm-12b's 160 with the most registers: 20 n-tiles of O, 80 f32 a
+// thread, beside 10 k-steps of Q fragments).
 // The softmax is the plain version's exp(s * scale - m) by the accurate
 // expf in both bf16 bodies.  exp2f with the scale folded in took 12% less
 // time at stablelm-3b's prefill shapes on an H100, but it moved the smoke
@@ -96,8 +98,9 @@
 // would round f32 to TF32) and flash_attention_paged / _paged_quant for f32
 // q and for bf16 chunks of more than 16 rows per KV head (flash_fwd): the
 // products run on the CUDA cores in f32 (one key per lane for Q.K^T, the
-// head dims across lanes for P.V).  For the memory bound it (1) skips every
-// K/V tile that is masked for all rows of a block by computing the key
+// head dims across lanes for P.V: 4 a lane up to D 128, 5 up to D 160).
+// For the memory bound it (1) skips every K/V tile that is masked for all
+// rows of a block by computing the key
 // range [k_begin, k_end) from kv_len, the causal edge and the window, so
 // decode reads only the live prefix of the cache; (2) in the paged kernel
 // serves all Hq/Hkv query heads and all Sq rows of a KV head from one
@@ -129,8 +132,8 @@ constexpr int kWarp = 32;
 constexpr int kWarps = 4;              // warps per block
 constexpr int kRows = 4;               // query rows per warp
 constexpr int kBK = 32;                // keys per warp tile: one per lane
-constexpr int kNI = 4;                 // head dims per lane
-constexpr int kMaxD = kWarp * kNI;     // 128
+constexpr int kMaxNI = 5;              // head dims per lane of the CUDA-core body
+constexpr int kMaxD = kWarp * kMaxNI;  // 160: every head dim of the bodies
 constexpr int kBatch = 8;              // K/V loads in flight per thread
 constexpr float kNeg = -1e30f;         // finite mask value, as the TPU kernel
 constexpr unsigned kFull = 0xffffffffu;
@@ -337,8 +340,9 @@ __device__ __forceinline__ void stage_kv(const Args& a, const KV* kg, const KV* 
 
 // One block: dense -> (query chunk, query head, lane); paged -> (KV head,
 // lane), walking every (head of the group, query row) in chunks.  q and the
-// output are T; K/V are stored as KV (T itself, or a narrow type).
-template <typename T, typename KV, bool kPaged, bool kVec>
+// output are T; K/V are stored as KV (T itself, or a narrow type).  Each
+// lane keeps NI head dims (lane + 32 i): 4 up to D 128, 5 up to D 160.
+template <typename T, typename KV, bool kPaged, bool kVec, int NI>
 __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
   extern __shared__ float smem[];
   const int d = a.d;
@@ -398,7 +402,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
 
     bool live[kRows];
     long long qpos[kRows];
-    float m[kRows], l[kRows], acc[kRows][kNI];
+    float m[kRows], l[kRows], acc[kRows][NI];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int cr = rg * kRows + r;
@@ -407,7 +411,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
       m[r] = kNeg;
       l[r] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kNI; ++i) acc[r][i] = 0.f;
+      for (int i = 0; i < NI; ++i) acc[r][i] = 0.f;
     }
     const bool computes = rg * kRows < nr;
 
@@ -440,12 +444,12 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
         l[r] = alpha * l[r] + warp_sum(p);
         m[r] = m_new;
 #pragma unroll
-        for (int i = 0; i < kNI; ++i) acc[r][i] *= alpha;
+        for (int i = 0; i < NI; ++i) acc[r][i] *= alpha;
         for (int j = 0; j < kBK; ++j) {
           const float pj = __shfl_sync(kFull, p, j);
           const float* vrow = vs + (j0 + j) * d;
 #pragma unroll
-          for (int i = 0; i < kNI; ++i) {
+          for (int i = 0; i < NI; ++i) {
             const int dd = lane + i * kWarp;
             if (dd < d) acc[r][i] = fmaf(pj, vrow[dd], acc[r][i]);
           }
@@ -468,7 +472,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
             slot[1] = l[r];
           }
 #pragma unroll
-          for (int i = 0; i < kNI; ++i) {
+          for (int i = 0; i < NI; ++i) {
             const int dd = lane + i * kWarp;
             if (dd < d) slot[2 + dd] = acc[r][i];
           }
@@ -482,22 +486,22 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
           for (int sp = 0; sp < a.splits; ++sp)
             mx = fmaxf(mx, mrg[((sp * row_groups + rg) * kRows + r) * stride]);
           float lt = 0.f;
-          float at[kNI];
+          float at[NI];
 #pragma unroll
-          for (int i = 0; i < kNI; ++i) at[i] = 0.f;
+          for (int i = 0; i < NI; ++i) at[i] = 0.f;
           for (int sp = 0; sp < a.splits; ++sp) {
             const float* slot = mrg + ((sp * row_groups + rg) * kRows + r) * stride;
             const float w = expf(slot[0] - mx);
             lt += w * slot[1];
 #pragma unroll
-            for (int i = 0; i < kNI; ++i) {
+            for (int i = 0; i < NI; ++i) {
               const int dd = lane + i * kWarp;
               if (dd < d) at[i] += w * slot[2 + dd];
             }
           }
           l[r] = lt;
 #pragma unroll
-          for (int i = 0; i < kNI; ++i) acc[r][i] = at[i];
+          for (int i = 0; i < NI; ++i) acc[r][i] = at[i];
         }
       }
     }
@@ -510,7 +514,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
         T* orow = og + (((size_t)b * a.hq + head_of(rr)) * a.sq + qrow_of(rr)) * d;
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
-        for (int i = 0; i < kNI; ++i) {
+        for (int i = 0; i < NI; ++i) {
           const int dd = lane + i * kWarp;
           // an empty predicate row (l == 0) writes 0, as zeroing predication
           if (dd < d) store(orow + dd, l[r] > 0.f ? acc[r][i] * inv : 0.f);
@@ -527,16 +531,22 @@ int splits_for(int rows) {
   return 1;
 }
 
-template <typename T, typename KV, bool kPaged, bool kVec>
-int launch_as(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
+template <typename T, typename KV, bool kPaged, bool kVec, int NI>
+int launch_ni(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, KV, kPaged, kVec>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, KV, kPaged, kVec, NI>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  flash_fwd<T, KV, kPaged, kVec><<<grid, kWarps * kWarp, smem, stream>>>(a);
+  flash_fwd<T, KV, kPaged, kVec, NI><<<grid, kWarps * kWarp, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename KV, bool kPaged, bool kVec>
+int launch_as(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
+  return a.d <= 4 * kWarp ? launch_ni<T, KV, kPaged, kVec, 4>(a, grid, smem, stream)
+                          : launch_ni<T, KV, kPaged, kVec, kMaxNI>(a, grid, smem, stream);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -989,12 +999,13 @@ __device__ __forceinline__ void stage_paged(KV* dst, int ld, const KV* pool, con
 // per K/V byte: the bytes bound it, not the operations), a narrow element
 // widened to float(x) * scale in registers where it is used.  Each warp
 // takes 16 keys of every tile (Q.K^T: a key per half-warp lane, half of
-// the head dims per half-warp; P.V: 2 head dims per lane and 64 per pass);
+// the head dims per half-warp; P.V: 2 head dims per lane and 64 per pass,
+// NP passes: 2 up to D 128, 3 up to D 160, so a lane keeps 2 * NP);
 // the 4 warps' softmax states merge in warp order, and the CTA writes its
 // (m, l, acc) rows to part (B, Hkv, splits, rows, d + 2) f32.  What a key
 // contributes depends only on its value and its absolute position, so the
 // dense and the paged instance over the same bf16 keys give the same bits.
-template <int R, typename KV, bool kPaged>
+template <int R, int NP, typename KV, bool kPaged>
 __global__ void __launch_bounds__(4 * kWarp) flash_split(const Args a, float* part, int dp,
                                                           int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1010,6 +1021,7 @@ __global__ void __launch_bounds__(4 * kWarp) flash_split(const Args a, float* pa
   float* ksc = reinterpret_cast<float*>(roff + kStages * kTile);   // (kStages, 64)
   float* vsc = ksc + kStages * kTile;
   float* mrg = reinterpret_cast<float*>(ks);    // after the walk: (4, rows, dp + 2)
+                                                // (the launch sizes smem to hold it)
 
   const int split = blockIdx.x, splits = gridDim.x;
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -1066,12 +1078,13 @@ __global__ void __launch_bounds__(4 * kWarp) flash_split(const Args a, float* pa
 
   // the plain version's formula, exp(s * scale - m): decode is bound by
   // bytes, so the accurate expf costs nothing here
-  float m[R], l[R], acc[R][4];
+  float m[R], l[R], acc[R][2 * NP];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m[r] = kNeg;
     l[r] = 0.f;
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2 * NP; ++i) acc[r][i] = 0.f;
   }
   const int hd = dp / 2;           // head dims per half-warp in Q.K^T
 
@@ -1125,15 +1138,15 @@ __global__ void __launch_bounds__(4 * kWarp) flash_split(const Args a, float* pa
       l[r] = l[r] * al + ps;
       m[r] = mn;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][i] *= al;
+      for (int i = 0; i < 2 * NP; ++i) acc[r][i] *= al;
     }
     // P.V: lane owns head dims 2 * lane + {0, 1} + 64 * i
     for (int jj = 0; jj < 16; ++jj) {
       const KV* vrow = vt + (warp * 16 + jj) * ld;
       const float v_sc = kNarrow ? vsc[st * kTile + warp * 16 + jj] : 1.f;
-      float2 vv[2];
+      float2 vv[NP];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < NP; ++i) {
         const int c = 2 * lane + 64 * i;
         vv[i] = c < dp ? widen2(vrow + c, v_sc) : make_float2(0.f, 0.f);
       }
@@ -1142,7 +1155,7 @@ __global__ void __launch_bounds__(4 * kWarp) flash_split(const Args a, float* pa
         if (r >= rows) continue;
         const float pj = __shfl_sync(kFull, p[r], jj);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
+        for (int i = 0; i < NP; ++i) {
           acc[r][2 * i] = fmaf(pj, vv[i].x, acc[r][2 * i]);
           acc[r][2 * i + 1] = fmaf(pj, vv[i].y, acc[r][2 * i + 1]);
         }
@@ -1168,7 +1181,7 @@ __global__ void __launch_bounds__(4 * kWarp) flash_split(const Args a, float* pa
       slot[1] = l[r];
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < NP; ++i) {
       const int c = 2 * lane + 64 * i;
       if (c < dp) {
         slot[2 + c] = acc[r][2 * i];
@@ -1232,30 +1245,44 @@ int launch_tc(const Args& a, int b, int vec, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// R: the most rows the instance serves (registers per row: acc, m, l, s, p).
-template <int R, typename KV, bool kPaged>
+// R: the most rows the instance serves (registers per row: acc, m, l, s, p);
+// NP: its passes of 64 head dims in P.V.  The merge scratch reuses the
+// K/V ring: smem holds whichever of the two is larger (the ring, at every
+// shape served so far: at R 16 and D 160 the merge takes 41,472 B of the
+// int8 ring's 45,056).
+template <int R, int NP, typename KV, bool kPaged>
 int launch_split_as(const Args& a, float* part, int dp, int vec, dim3 grid, cudaStream_t stream) {
   const size_t ld = dp + 16 / sizeof(KV);
-  const size_t smem = sizeof(float) * R * dp + sizeof(KV) * 2 * kStages * kTile * ld +
+  const size_t ring = sizeof(KV) * 2 * kStages * kTile * ld +
                       (kPaged ? (sizeof(int) + 2 * sizeof(float)) * kStages * kTile : 0);
-  cudaError_t err = cudaFuncSetAttribute(flash_split<R, KV, kPaged>,
+  const size_t merge = sizeof(float) * 4 * R * (dp + 2);
+  const size_t smem = sizeof(float) * R * dp + (ring > merge ? ring : merge);
+  cudaError_t err = cudaFuncSetAttribute(flash_split<R, NP, KV, kPaged>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_split<R, KV, kPaged><<<grid, 4 * kWarp, smem, stream>>>(a, part, dp, vec);
+  flash_split<R, NP, KV, kPaged><<<grid, 4 * kWarp, smem, stream>>>(a, part, dp, vec);
   return (int)cudaGetLastError();
 }
 
-// The split launch for `rows` rows per KV head, then the merge launch.
+template <int NP, typename KV, bool kPaged>
+int launch_split_rows(const Args& a, float* part, int dp, int vec, int rows, dim3 grid,
+                      cudaStream_t st) {
+  return rows <= 1   ? launch_split_as<1, NP, KV, kPaged>(a, part, dp, vec, grid, st)
+         : rows <= 2 ? launch_split_as<2, NP, KV, kPaged>(a, part, dp, vec, grid, st)
+         : rows <= 4 ? launch_split_as<4, NP, KV, kPaged>(a, part, dp, vec, grid, st)
+         : rows <= 8 ? launch_split_as<8, NP, KV, kPaged>(a, part, dp, vec, grid, st)
+                     : launch_split_as<16, NP, KV, kPaged>(a, part, dp, vec, grid, st);
+}
+
+// The split launch for `rows` rows per KV head (two passes of 64 head dims
+// up to D 128, three up to 160), then the merge launch.
 template <typename KV, bool kPaged>
 int launch_split(const Args& a, float* part, int vec, int splits, int b, cudaStream_t st) {
   const int dp = (a.d + 15) / 16 * 16;
   const int rows = (a.hq / a.hkv) * a.sq;
   const dim3 grid(splits, a.hkv, b);
-  const int err = rows <= 1   ? launch_split_as<1, KV, kPaged>(a, part, dp, vec, grid, st)
-                  : rows <= 2 ? launch_split_as<2, KV, kPaged>(a, part, dp, vec, grid, st)
-                  : rows <= 4 ? launch_split_as<4, KV, kPaged>(a, part, dp, vec, grid, st)
-                  : rows <= 8 ? launch_split_as<8, KV, kPaged>(a, part, dp, vec, grid, st)
-                              : launch_split_as<16, KV, kPaged>(a, part, dp, vec, grid, st);
+  const int err = dp <= 128 ? launch_split_rows<2, KV, kPaged>(a, part, dp, vec, rows, grid, st)
+                            : launch_split_rows<3, KV, kPaged>(a, part, dp, vec, rows, grid, st);
   if (err != 0) return err;
   flash_split_merge<<<dim3(a.hkv, b), 4 * kWarp, 0, st>>>(a, part, splits);
   return (int)cudaGetLastError();
@@ -1281,7 +1308,7 @@ extern "C" int flash_attention_dense(const void* q, const void* k, const void* v
   return launch<float, float, false>(a, grid_x, hq, b, static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core body: bf16 q, k, v, o; any d <= 128.
+// The tensor-core body: bf16 q, k, v, o; any d <= 160.
 extern "C" int flash_attention_dense_tc(const void* q, const void* k, const void* v, void* o,
                                         const int* kv_lens, const int* q_offset,
                                         const int* window, int b, int hq, int hkv, int sq,
@@ -1300,7 +1327,10 @@ extern "C" int flash_attention_dense_tc(const void* q, const void* k, const void
     case 5: return launch_tc<80>(a, b, vec, st);
     case 6: return launch_tc<96>(a, b, vec, st);
     case 7: return launch_tc<112>(a, b, vec, st);
-    default: return launch_tc<128>(a, b, vec, st);
+    case 8: return launch_tc<128>(a, b, vec, st);
+    case 9: return launch_tc<144>(a, b, vec, st);
+    case 10: return launch_tc<160>(a, b, vec, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -47,7 +47,7 @@ import torch
 from repro_torch.kernels._build import Library, raise_on
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 160     # stablelm-12b's 5120 / 32, in every body
 _DTYPES = (torch.float32, torch.bfloat16)
 _POOL_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
@@ -335,7 +335,7 @@ def flash_paged_quant_cuda(q, k_pool, v_pool, k_scale, v_scale, page_table,
     (P,Hkv,ps,D) int8 or float8_e4m3fn; scales (P,Hkv,ps) f32; page_table
     (B,n_pages) int32 -> (B,Hq,Sq,D) in q's dtype.  Each K/V element widens
     to ``float(x) * scale[page, head, slot]`` in f32.  D must be a multiple
-    of 16 (64, 80 and 128 on the serving path).  The body is
+    of 16 (64, 80, 128 and 160 on the serving path).  The body is
     ``plan_paged``'s, counted as in ``flash_paged_cuda``."""
     b, hq, sq, d = q.shape
     _check_common(q, {}, {"kv_lens": kv_lens, "q_offset": q_offset,

@@ -31,9 +31,9 @@ the chaos harness (``serve.chaos``), with the JAX launcher's meaning, and a
 ``[robustness]`` line reports them.  An encdec arch streams each request
 with its own random encoder input (``--src-len`` frames at most, default
 ``--prompt-len``); the VLM arch serves one static batch with random image
-embeddings, as the JAX launcher does.  What is not ported yet exits naming
-the ROADMAP item that ports it: ``--mesh`` (Queue 1 item 14) and
-stablelm-12b (item 18: its head dim of 160 is past the flash kernels' 128).
+embeddings, as the JAX launcher does.  Every arch of ``repro.configs`` is
+served (stablelm-12b with its head dim of 160).  What is not ported yet
+exits naming the ROADMAP item that ports it: ``--mesh`` (Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -68,12 +68,6 @@ REDUCE_FAMILY = {
 }
 # the JAX launcher's depth for the vlm variant (two groups of 5)
 REDUCE_VLM = dict(n_layers=10)
-
-# the JAX launcher's archs that the port cannot serve yet -> ROADMAP item
-PENDING_ARCHS = {
-    "stablelm_12b": "Queue 1 item 18 (head dim 160 > the flash kernels' "
-                    "MAX_HEAD_DIM 128)",
-}
 
 # the JAX launcher's options that are not ported yet -> (flag, ROADMAP item)
 PENDING_OPTIONS = (
@@ -183,9 +177,6 @@ def main(argv=None):
                          "every stream is reproducible per request")
     args = ap.parse_args(argv)
 
-    if args.arch in PENDING_ARCHS:
-        sys.exit(f"arch {args.arch} is not ported yet: ROADMAP "
-                 f"{PENDING_ARCHS[args.arch]}")
     if args.arch not in all_arch_names():
         ap.error(f"unknown arch {args.arch!r}")
     for dest, flag, item in PENDING_OPTIONS:

@@ -1,4 +1,5 @@
-"""Serving: the batched engine and the continuous-batching scheduler."""
+"""Serving: the batched engine, the continuous-batching scheduler and
+batched speculative decoding."""
 
 from repro_torch.sample import SamplingParams  # noqa: F401
 
@@ -12,3 +13,4 @@ from .scheduler import (  # noqa: F401
     Request,
     RequestRejected,
 )
+from .speculative import speculative_decode  # noqa: F401

@@ -1,9 +1,11 @@
-"""Port parity of two dense configs at reduced dims: gemma3-27b (5:1
+"""Port parity of three dense configs at reduced dims: gemma3-27b (5:1
 local:global sliding windows, the local window smaller than the prompts,
-qk-norm, geglu, the sqrt(d) embedding scale) and command-r-plus-104b (the
-parallel attention + MLP block, layernorm, tied embeddings).  Each config
-module of ``repro_torch.configs`` against ``repro.configs``, then prefill
-and decode logits on the dense and the paged cache against
+qk-norm, geglu, the sqrt(d) embedding scale), command-r-plus-104b (the
+parallel attention + MLP block, layernorm, tied embeddings) and
+stablelm-12b (its head dim of 160, d 640 over 4 query heads and 1 KV head,
+25% partial rotary).  Each config module of ``repro_torch.configs`` against
+``repro.configs``, then prefill and decode logits on the dense and the
+paged cache (and, for stablelm-12b, the int8 paged cache) against
 ``repro.models.dense`` with its Pallas kernels in interpret mode (f32, atol
 = rtol = 1e-4), and greedy ``generate`` tokens against the JAX engine on
 its plain XLA path; inside the port, paged decode == dense bit for bit."""
@@ -34,8 +36,11 @@ from repro_torch.serve import ServeEngine
 # global) with a window of 4, under every prompt's length
 REDUCE = dict(d_model=64, d_ff=128, vocab_size=256, n_heads=4, n_kv_heads=2,
               head_dim=16, param_dtype="float32", compute_dtype="float32")
+# stablelm-12b keeps its head dim of 160 (no head_dim: d 640 / 4 heads)
 ARCHS = {"gemma3_27b": dict(n_layers=6, local_window=4),
-         "command_r_plus_104b": dict(n_layers=2)}
+         "command_r_plus_104b": dict(n_layers=2),
+         "stablelm_12b": dict(n_layers=2, d_model=640, n_heads=4, n_kv_heads=1,
+                              head_dim=None, vocab_size=512)}
 LENS = np.array([9, 5, 7], np.int32)
 MAX_NEW, MAX_LEN = 6, 24
 
@@ -87,9 +92,11 @@ def test_prefill_and_decode_match_jax(arch, paged):
     if arch == "gemma3_27b":
         assert cfg_t.qk_norm and cfg_t.embed_scale and cfg_t.activation == "geglu"
         assert int(LENS.min()) > cfg_t.local_window
-    else:
+    elif arch == "command_r_plus_104b":
         assert cfg_t.parallel_block and cfg_t.tie_embeddings
         assert model.embed.unembed is None
+    else:
+        assert cfg_t.resolved_head_dim == 160 and cfg_t.partial_rotary_factor == 0.25
     batch = _batch(cfg_j)
     cj = jdense.make_cache(cfg_j, 3, MAX_LEN)
     lj, cj = jdense.prefill(params, cfg_j,
@@ -124,3 +131,28 @@ def test_generate_matches_jax(arch, page_size):
     if page_size is not None:
         # inside the port the paged cache decodes the dense cache's bits
         assert torch.equal(rt["tokens"], eng.generate(batch)["tokens"])
+
+
+def test_stablelm_12b_int8_pages_match_jax():
+    """stablelm-12b's head dim of 160 over int8 pages: the prefilled cache
+    truncated by both packages' ``to_paged``, then 6 teacher-forced decode
+    steps, logits against JAX's within 1e-4."""
+    cfg_j, params, cfg_t, model = _twins("stablelm_12b", "kernel")
+    batch = _batch(cfg_j, seed=2)
+    cj = jdense.make_cache(cfg_j, 3, MAX_LEN)
+    lj, cj = jdense.prefill(params, cfg_j,
+                            {k: jnp.asarray(v) for k, v in batch.items()}, cj)
+    ct = tdense.make_cache(cfg_t, 3, MAX_LEN, device="cpu")
+    lt, ct = tdense.prefill(model, cfg_t,
+                            {k: torch.from_numpy(v) for k, v in batch.items()},
+                            ct)
+    _close(lt, lj)
+    cj = j_to_paged(cfg_j, cj, page_size=4, page_dtype="int8")
+    ct = to_paged(cfg_t, ct, page_size=4, page_dtype="int8")
+    assert ct["k_pages"].dtype == torch.int8
+    tok = np_(lj).argmax(-1)[:, None].astype(np.int32)
+    for _ in range(6):
+        lj, cj = jdense.decode(params, cfg_j, {"token": jnp.asarray(tok)}, cj)
+        lt, ct = tdense.decode(model, cfg_t, {"token": torch.from_numpy(tok)}, ct)
+        _close(lt, lj)
+        tok = np_(lj).argmax(-1)[:, None].astype(np.int32)

@@ -250,8 +250,9 @@ def test_plan_paged_routes_by_dtype_and_rows(dtype, pool, sq, group, body):
 
 
 def test_plan_paged_refuses_what_no_body_takes():
+    # past the widest head dim (stablelm-12b's 160)
     with pytest.raises(ValueError):
-        K.plan_paged(torch.bfloat16, torch.bfloat16, 1, 2, 2, 1, 4, 16, 160, decode=True)
+        K.plan_paged(torch.bfloat16, torch.bfloat16, 1, 2, 2, 1, 4, 16, 176, decode=True)
     with pytest.raises(ValueError):
         K.plan_paged(torch.bfloat16, torch.float32, 1, 2, 2, 1, 4, 16, 64, decode=True)
     with pytest.raises(ValueError):
@@ -260,7 +261,7 @@ def test_plan_paged_refuses_what_no_body_takes():
 
 def test_plan_refuses_what_no_body_takes():
     with pytest.raises(ValueError):
-        K.plan_dense(torch.bfloat16, 1, 2, 2, 1, 8, 160, decode=True)
+        K.plan_dense(torch.bfloat16, 1, 2, 2, 1, 8, 176, decode=True)
     with pytest.raises(ValueError):
         K.plan_dense(torch.bfloat16, 1, 3, 2, 1, 8, 64, decode=True)
     with pytest.raises(ValueError):

@@ -251,7 +251,6 @@ def test_launcher_page_dtype_needs_page_size(capsys):
 @pytest.mark.parametrize("argv,item", [
     (["--static", "--mesh", "1x1"], "Queue 1 item 14"),
     (["--mesh", "1x1"], "Queue 1 item 14"),
-    (["--static", "--arch", "stablelm_12b"], "Queue 1 item 18"),
 ])
 def test_launcher_names_the_roadmap_item_of_unported_modes(argv, item):
     from repro_torch.launch import serve
@@ -275,16 +274,9 @@ def _run_jax_launcher(argv):
     return [ln for ln in buf.getvalue().splitlines() if ln.startswith("req")]
 
 
-@pytest.mark.parametrize("argv", [
-    ["--arch", "llama_3_2_vision_11b", "--static", "--batch", "2",
-     "--max-new", "3"],
-    ["--arch", "seamless_m4t_large_v2", "--src-len", "12", "--batch", "2",
-     "--requests", "3", "--max-new", "3", "--prompt-len", "8"],
-])
-def test_launcher_serves_the_cross_attention_archs(argv, capsys, monkeypatch):
-    """The VLM (one static batch with image embeddings) and encdec (the
-    scheduler, each request with its own encoder input) on the CPU, with
-    the JAX launcher's weights carried across: the JAX launcher's tokens."""
+def _serves_like_jax(argv, capsys, monkeypatch):
+    """The port's launcher on the CPU with the JAX launcher's weights carried
+    across prints the JAX launcher's request lines."""
     import dataclasses
 
     import jax
@@ -315,4 +307,30 @@ def test_launcher_serves_the_cross_attention_archs(argv, capsys, monkeypatch):
     serve.main(argv + ["--device", "cpu"])
     got = [ln for ln in capsys.readouterr().out.splitlines()
            if ln.startswith("req")]
-    assert got == want and len(got) in (2, 3)
+    assert got == want
+    return got
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "llama_3_2_vision_11b", "--static", "--batch", "2",
+     "--max-new", "3"],
+    ["--arch", "seamless_m4t_large_v2", "--src-len", "12", "--batch", "2",
+     "--requests", "3", "--max-new", "3", "--prompt-len", "8"],
+])
+def test_launcher_serves_the_cross_attention_archs(argv, capsys, monkeypatch):
+    """The VLM (one static batch with image embeddings) and encdec (the
+    scheduler, each request with its own encoder input) on the CPU, with
+    the JAX launcher's weights carried across: the JAX launcher's tokens."""
+    assert len(_serves_like_jax(argv, capsys, monkeypatch)) in (2, 3)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "stablelm_12b", "--static", "--batch", "2", "--max-new", "3"],
+    ["--arch", "stablelm_12b", "--batch", "2", "--requests", "3",
+     "--max-new", "3", "--prompt-len", "8"],
+])
+def test_launcher_serves_stablelm_12b(argv, capsys, monkeypatch):
+    """stablelm-12b, once listed as pending (its head dim of 160), serves
+    like any dense arch: one static batch and the scheduler, on the CPU at
+    the launcher's reduced dims, the JAX launcher's tokens."""
+    assert len(_serves_like_jax(argv, capsys, monkeypatch)) in (2, 3)
