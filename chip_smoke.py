@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 1. Builds the hand-written CUDA kernels from the sources in the checkout:
-   one ``nvcc`` per source, all started together.
+   one ``nvcc`` per library (flash attention's forward source as four
+   libraries, one per group of entry points), all started together.
 2. Holds each kernel against its plain PyTorch version on the card (flash
    attention in f32 at atol = rtol = 1e-5; in bf16 each body on the cases
    its plan routes to it: the split-KV body, dense and paged over bf16,
@@ -27,7 +28,9 @@
    beside the launch floor: the time of one empty kernel).
 3. Serves 8 greedy requests through ``ServeEngine.generate`` at the full
    width of stablelm-3b (dense family), zamba2-1.2b (hybrid), mamba2-130m
-   (ssm) and olmoe-1b-7b (moe), random weights from seed 0, with the dense
+   (ssm) and olmoe-1b-7b (moe), the first, second and fourth at about half
+   depth (``SERVE_DEPTH``; the scheduler's legs too), random weights from
+   seed 0, with the dense
    and (where the family pages) the paged KV cache, full precision and
    int8/fp8, then one mixed batch (4 greedy, 4 stochastic lanes) on the
    dense cache, counting kernel launches in each run, and checks the
@@ -106,7 +109,23 @@
    the target's greedy ``generate`` tokens bit for bit; the mixed batch
    twice, the same tokens).
 4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
-5. Prints the ``kernels`` JSON line, the card's name and power limit, and
+5. Trains (``repro_torch.train``): holds the flash backward
+   (``flash_attention_bwd.cu``: its tensor-core body for bf16, its
+   CUDA-core body for f32) and the forward's lse against the plain
+   versions over the mask matrix, head dims 64/80/128/160 and GQA groups
+   1 and 4 (``check_flash_bwd``: f32, bf16 at ``TOL["bwd"]``, fully masked
+   rows 0, two calls equal bit for bit), then holds and times it at
+   stablelm-3b's and stablelm-12b's training shapes beside the plain and
+   SDPA backwards (``time_flash_bwd``); holds
+   one train step of the VLM, encdec and MoE at reduced dims on the card
+   against the CPU (``check_train_families``); trains stablelm-3b at full
+   width (``train_stablelm_3b``: seq 4096 x batch 2, remat full, 5 steps,
+   the loss falling, launches per layer and step; at 4 layers two first
+   steps and remat full == none bit for bit, the plain path at seq 512),
+   and mamba2-130m through ``repro_torch.launch.train`` with an injected
+   step fault (``train_mamba2_130m``: the final loss bit for bit against an
+   uninterrupted run); one profiled step each.
+6. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without a result.
@@ -116,6 +135,12 @@ fails.
     python3 chip_smoke.py --scheduler
 
 builds the kernels and runs only the continuous-batching phase.
+
+    python3 chip_smoke.py --train
+
+builds the kernels and runs only the training phases (5. above), after
+ptxas's registers and spills of the flash libraries (the serving groups,
+the training forward's lse instances, the backward).
 
     python3 chip_smoke.py --cross
 
@@ -176,6 +201,7 @@ import contextlib
 import ctypes
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -246,6 +272,26 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
                        "the spin: device time is not isolated")
 
 
+def time_wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median time of one call between CUDA events with no spin and no L2
+    flush: for a plain version whose host issues thousands of launches and
+    allocations (``time_ms``'s spin cannot hold the stream long enough), so
+    it includes the host's time where the host is slower than the device."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 EMPTY_KERNEL = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -297,6 +343,7 @@ def kernel_wrappers():
     return {"flash_attention_dense": K.flash_dense_cuda,
             "flash_attention_paged": K.flash_paged_cuda,
             "flash_attention_paged_quant": K.flash_paged_quant_cuda,
+            "flash_attention_bwd": K.flash_bwd_cuda,
             "ssd_scan": SK.ssd_scan_cuda,
             "moe_positions": MK.moe_positions_cuda,
             "fadda": FK.fadda_rows_cuda,
@@ -344,7 +391,10 @@ def build_all():
     from repro_torch.kernels.moe_dispatch import kernel as MK
     from repro_torch.kernels.ssd_scan import kernel as SK
 
-    libs = {"flash_attention": K.LIBRARY, "ssd_scan": SK.LIBRARY,
+    libs = {**{f"flash_attention{lib.defines[0].removeprefix('FLASH_BUILD')
+                                    .lower()}": lib for lib in K.LIBRARIES},
+            "flash_attention_bwd": K.BWD_LIBRARY,
+            "ssd_scan": SK.LIBRARY,
             "moe_dispatch": MK.LIBRARY, "fadda": FK.LIBRARY,
             "daxpy": DK.LIBRARY, "launch_floor": empty_library()}
     t0 = time.perf_counter()
@@ -352,6 +402,7 @@ def build_all():
         futures = {name: pool.submit(lib.build) for name, lib in libs.items()}
         paths = {name: f.result() for name, f in futures.items()}
     for name, lib in libs.items():
+        lib.get()          # loads it: every entry point of its group is there
         b = lib.last_build
         what = (f"{b['cmd']} ({b['seconds']:.1f} s)" if b
                 else f"cached: {paths[name]}")
@@ -418,8 +469,14 @@ PAGED_MASKS = ((False, None), (True, None), (True, 37))
 # printed per case), and a kernel that drops one 64-key tile fails it.  The
 # paged CUDA-core body in bf16 (chunks of more than 16 rows) is held as
 # since it was written.
+# The backward (``check_flash_bwd``, ``time_flash_bwd``) in bf16: its
+# tensor-core body computes in f32 from the same bf16 values as the plain
+# backward (P and dS enter its products as hi + lo bf16 halves) and rounds
+# each gradient once to bf16, so they may differ by one bf16 step (2^-7 of
+# the value) plus the f32 sums' disagreement near 0 (atol).
 TOL = {"f32": (1e-5, 1e-5), "tensor_core": (1e-5, 2 ** -7),
-       "split_kv": (1e-5, 2 ** -7), "paged_cuda_core": (2e-2, 2e-2)}
+       "split_kv": (1e-5, 2 ** -7), "paged_cuda_core": (2e-2, 2e-2),
+       "bwd": (1e-3, 2 ** -7)}
 
 
 def tol_ratio(got, want, atol, rtol) -> float:
@@ -1874,6 +1931,25 @@ WIDTHS = {
                         resolved_head_dim=128, d_ff=1024, n_experts=64,
                         top_k=8, vocab_size=50304),
 }
+# the depth each model runs at in ``serve_model`` and ``serve_scheduler``:
+# about half its published layers (zamba2: 3 of its 6 shared-attention
+# groups and its 2-layer tail), so that the whole script ends inside its
+# time limit on a slower host; widths, heads and vocab stay published
+SERVE_DEPTH = {"stablelm_3b": 16, "zamba2_1_2b": 20, "olmoe_1b_7b": 8}
+
+
+def served_config(arch):
+    """``arch``'s config at its published widths (held to ``WIDTHS``), its
+    depth cut to ``SERVE_DEPTH``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    widths = WIDTHS[arch]
+    got = {k: getattr(cfg, k) for k in widths}
+    check(got == widths, f"{arch} widths {got}, published {widths}")
+    return cfg.replace(n_layers=SERVE_DEPTH.get(arch, cfg.n_layers))
+
+
 # the caches each model is served with: (run, page_size, page_dtype)
 RUNS = {
     "stablelm_3b": (("dense", None, None), ("paged", PAGE_SIZE, None),
@@ -2454,17 +2530,14 @@ def serve_model(arch, gpu):
     8 prompts, 64 new tokens each, with each cache of ``RUNS[arch]``, graphed
     and held against the eager body (``served_graphed``); every kernel's
     launches counted in each run."""
-    from repro_torch.configs import get_config
     from repro_torch.models import get_model, paged_view, to_paged
     from repro_torch.sample import greedy_tokens
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.engine import BURST
 
-    cfg = get_config(arch)
+    cfg = served_config(arch)
     fam = get_model(cfg)
     widths = WIDTHS[arch]
-    got = {k: getattr(cfg, k) for k in widths}
-    check(got == widths, f"{arch} widths {got}, published {widths}")
     pages = bool(fam.paged_cache_spec(cfg))
     quant = [dt for _, _, dt in RUNS[arch] if dt]
     seed0 = lambda: torch.Generator(device="cuda").manual_seed(0)
@@ -2474,7 +2547,8 @@ def serve_model(arch, gpu):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[full] {cfg.name} ({cfg.family}): "
-          + " ".join(f"{k}={v}" for k, v in widths.items())
+          + " ".join(f"{k}={getattr(cfg, k)}" for k in widths)
+          + f" (of {widths['n_layers']} layers)"
           + f" {cfg.compute_dtype}: {n_params / 1e9:.3f}B params, init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3972,13 +4046,13 @@ def _events_by_rid(obs) -> dict:
 
 
 def serve_scheduler(gpu) -> dict:
-    """The continuous-batching scheduler on the card at full width: the
+    """The continuous-batching scheduler on the card at full width (depth
+    cut to ``SERVE_DEPTH``): the
     ``sched_workload`` traffic through four legs (stablelm-3b dense and
     paged with prefix sharing, host swap and chunked prefill, zamba2-1.2b
     paged int8 with chunked prefill, olmoe-1b-7b dense), each held to its
     budgets in vocab ids, its launches per body, and its numbers printed.
     Returns each leg's launches (its warm run's)."""
-    from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.obs import Obs, Tracer, validate_trace
 
@@ -3989,7 +4063,7 @@ def serve_scheduler(gpu) -> dict:
                              f" s into the phase", flush=True)
 
     # ---- stablelm-3b, dense cache ----
-    cfg = get_config("stablelm_3b")
+    cfg = served_config("stablelm_3b")
     model = get_model(cfg).init(cfg, seed0(), "cuda")
     work = sched_workload(cfg.vocab_size)
     eng, sched, res, log, st, counts, caps = sched_leg(
@@ -4185,7 +4259,7 @@ def serve_scheduler(gpu) -> dict:
     check(not bad, f"stablelm-3b scheduler comparisons failed: {bad}")
 
     # ---- zamba2-1.2b, paged int8, chunked prefill on the SSD grid ----
-    cfg = get_config("zamba2_1_2b")
+    cfg = served_config("zamba2_1_2b")
     model = get_model(cfg).init(cfg, seed0(), "cuda")
     work = sched_workload(cfg.vocab_size)
     eng, sched, res, log, st, counts, caps = sched_leg(
@@ -4198,7 +4272,7 @@ def serve_scheduler(gpu) -> dict:
     torch.cuda.empty_cache()
 
     # ---- olmoe-1b-7b, dense cache (full-width bursts) ----
-    cfg = get_config("olmoe_1b_7b")
+    cfg = served_config("olmoe_1b_7b")
     model = get_model(cfg).init(cfg, seed0(), "cuda")
     work = sched_workload(cfg.vocab_size)
     eng, sched, res, log, st, counts, caps = sched_leg(cfg, model, work, gpu,
@@ -5100,27 +5174,35 @@ MOE_NO_PREFIX = ("    count_ids(ids, q * part, part, share, e, vec);\n", "")
 
 
 def ptxas_report(sources) -> None:
-    """What ptxas says of each kernel of ``sources`` (registers, spills,
+    """What ptxas says of each kernel of ``sources`` (source paths, or
+    ``Library`` objects, built with their defines) (registers, spills,
     stack), from a build with ``-Xptxas -v`` into build/, where the
     library's SASS (cuobjdump) is also written, beside it."""
     from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, nvcc_path
 
-    def one(src):
-        out = BUILD_DIR / f"ptxas_{Path(src).stem}.so"
-        res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                              str(out), str(src)], capture_output=True, text=True)
-        return src, res.stdout + res.stderr
+    def so_of(item):
+        tag = "".join(f"_{d.lower()}" for d in getattr(item, "defines", ()))
+        return BUILD_DIR / f"ptxas_{Path(getattr(item, 'source', item)).stem}{tag}.so"
+
+    def one(item):
+        src = getattr(item, "source", item)
+        flags = item.flags() if hasattr(item, "flags") else []
+        res = subprocess.run([nvcc_path(), *NVCC_FLAGS, *flags, "-Xptxas", "-v",
+                              "-o", str(so_of(item)), str(src)],
+                             capture_output=True, text=True)
+        return item, res.stdout + res.stderr
     with ThreadPoolExecutor(len(sources)) as pool:
-        for src, text in pool.map(one, sources):
-            so = BUILD_DIR / f"ptxas_{Path(src).stem}.so"
+        for item, text in pool.map(one, sources):
+            src, so = getattr(item, "source", item), so_of(item)
             sass = subprocess.run([str(Path(nvcc_path()).parent / "cuobjdump"),
                                    "-sass", str(so)], capture_output=True, text=True)
             so.with_suffix(".sass").write_text(sass.stdout + sass.stderr)
             lines = [ln.strip() for ln in text.splitlines()
                      if "Compiling entry" in ln or "registers" in ln
                      or "spill" in ln or "stack frame" in ln]
+            name = " ".join([Path(src).name, *getattr(item, "flags", list)()])
             for ln in lines:
-                print(f"[probe] ptxas {Path(src).name}: {ln}", flush=True)
+                print(f"[probe] ptxas {name}: {ln}", flush=True)
 
 
 def _replace_once(src: str, old: str, new: str) -> str:
@@ -5437,6 +5519,616 @@ def fadda_probes(gpu, parent=None):
           f"[{gpu}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# training (--train, and in the full run): the flash backward, stablelm-3b's
+# train step at full width, and mamba2-130m through the training launcher
+# ---------------------------------------------------------------------------
+
+SRC_BWD = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+# The backward's cases (b, hkv, group, sq, skv, causal, window, q_offset),
+# each at every head dim of BWD_HEAD_DIMS: causal square (suffix alignment,
+# the training shape), a ragged last tile, causal with a window and Sq < Skv
+# (suffix aligned), non-causal with Sq < Skv (a decoder over encoder
+# frames, an image) and Sq > Skv (an encoder over fewer keys), and an
+# explicit q_offset (lane 1 starts 5 rows before key 0: its first 5 rows
+# attend no key).  Lanes hold kv_lens (skv, skv // 2, 0): ragged and one
+# empty lane (every row fully masked).
+BWD_CASES = (
+    (2, 2, 1, 64, 64, True, None, None),
+    (3, 1, 4, 100, 100, True, None, None),
+    (3, 2, 1, 37, 90, True, 9, None),
+    (3, 1, 4, 70, 130, False, None, None),
+    (2, 2, 1, 300, 128, False, None, None),
+    (3, 1, 4, 50, 200, True, None, (150, -5, 0)),
+)
+BWD_HEAD_DIMS = (64, 80, 128, 160)
+# The backward against the plain backward in f32 (both sum in f32 in other
+# orders; bf16 at TOL["bwd"]), and the forward's lse, f32 and bf16 alike:
+# both forwards sum the same products of the same (bf16) values and their
+# exponentials in f32, in other orders
+BWD_F32_TOL, LSE_TOL = (1e-4, 1e-4), (1e-5, 1e-5)
+
+
+def _bwd_inputs(gen, b, hkv, group, sq, skv, d, dtype, causal, q_off):
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    q, k, v = rnd(b, hkv * group, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)
+    dout = rnd(b, hkv * group, sq, d)
+    kv_lens = torch.tensor([skv, skv // 2, 0][:b], dtype=torch.int32, device="cuda")
+    if q_off is None:
+        q_off = [skv - sq if causal else 0] * b
+    q_off = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    return q, k, v, dout, kv_lens, q_off
+
+
+def check_flash_bwd() -> dict:
+    """The CUDA backward (``flash_bwd_cuda``) and the forward's lse
+    (``flash_dense_lse_cuda``) against the plain ``ref.flash_bwd`` /
+    ``ref.flash_fwd_lse`` on the same inputs over ``BWD_CASES`` x
+    ``BWD_HEAD_DIMS``, f32 and bf16: f32 at ``BWD_F32_TOL``, bf16 at
+    ``TOL["bwd"]`` with each case's ratio printed, the lse at ``LSE_TOL``
+    (f32 and bf16); fully masked rows' gradients exactly 0 and every
+    gradient finite; two calls equal bit for bit.  Then the autograd route
+    (``flash_attention`` on tensors that require grad) against autograd
+    through the plain attention."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    from repro_torch.kernels.flash_attention.ops import NO_WINDOW
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = {"f32": 0.0, "bwd": 0.0, "lse f32": 0.0, "lse bf16": 0.0}
+    ratios = {}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "f32" if dtype == torch.float32 else "bwd"
+        atol, rtol = BWD_F32_TOL if kind == "f32" else TOL["bwd"]
+        for d in BWD_HEAD_DIMS:
+            for (b, hkv, group, sq, skv, causal, window, q_off) in BWD_CASES:
+                q, k, v, dout, kv_lens, qo = _bwd_inputs(
+                    gen, b, hkv, group, sq, skv, d, dtype, causal, q_off)
+                win = torch.tensor([NO_WINDOW if window is None else window],
+                                   dtype=torch.int32, device="cuda")
+                scale = d ** -0.5
+                where = f"bwd {dtype} d={d} {(b, hkv, group, sq, skv, causal, window, q_off)}"
+                out, lse = K.flash_dense_lse_cuda(q, k, v, kv_lens, qo, win,
+                                                  causal=causal, scale=scale)
+                kw = dict(kv_lens=kv_lens, q_offset=qo, window=window,
+                          causal=causal, scale=scale)
+                out_p, lse_p = R.flash_fwd_lse(q, k, v, **kw)
+                torch.testing.assert_close(lse, lse_p, atol=LSE_TOL[0],
+                                           rtol=LSE_TOL[1],
+                                           msg=lambda m: f"{where} lse: {m}")
+                lkey = "lse f32" if dtype == torch.float32 else "lse bf16"
+                worst[lkey] = max(worst[lkey], float((lse - lse_p).abs().max()))
+                # both backwards on the same (kernel) forward
+                K.reset_flash_counts()
+                got = K.flash_bwd_cuda(q, k, v, out, dout, lse, kv_lens, qo, win,
+                                       causal=causal, scale=scale)
+                again = K.flash_bwd_cuda(q, k, v, out, dout, lse, kv_lens, qo, win,
+                                         causal=causal, scale=scale)
+                body = K.plan_bwd(dtype, d)
+                check(K.flash_bwd_cuda.body_launches[body] == 2,
+                      f"{where} took {K.flash_bwd_cuda.body_launches}, planned {body}")
+                want = R.flash_bwd(q, k, v, out, dout, lse, **kw)
+                torch.cuda.synchronize()
+                for name, g, w, g2 in zip("qkv", got, want, again):
+                    torch.testing.assert_close(
+                        g, w, atol=atol, rtol=rtol,
+                        msg=lambda m: f"{where} {body} d{name}: {m}")
+                    check(torch.equal(g, g2), f"{where} {body}: d{name} "
+                          "differs between two calls")
+                    check(bool(torch.isfinite(g).all()),
+                          f"{where} {body}: d{name} finite")
+                    worst[kind] = max(worst[kind],
+                                      float((g.float() - w.float()).abs().max()))
+                    if kind == "bwd":
+                        key = (b, hkv, group, sq, skv, causal, window, q_off)
+                        ratios.setdefault(key, {})[(d, name)] = \
+                            tol_ratio(g, w, atol, rtol)
+                if b >= 3:    # lane 2: kv_len 0, every row fully masked
+                    check(not got[0][2].any() and not got[1][2].any()
+                          and not got[2][2].any(), f"{where} {body}: the "
+                          "empty lane's gradients are 0")
+                if q_off is not None:   # lane 1's first 5 rows attend no key
+                    check(not got[0][1, :, :5].any(), f"{where} {body}: "
+                          "rows before key 0 get dq 0")
+                n += 1
+    for key, rs in ratios.items():
+        print(f"[train] flash bwd bf16 {key}: tol_ratio at ({TOL['bwd'][0]:g}, "
+              f"{TOL['bwd'][1]:g}) by (head dim, grad) "
+              + ", ".join(f"{d}{g}: {r:.3f}" for (d, g), r in rs.items()),
+              flush=True)
+    # the autograd route against autograd through the plain attention
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout, kv_lens, qo = _bwd_inputs(gen, 3, 2, 2, 96, 96, 80,
+                                                 dtype, True, None)
+        grads = []
+        for impl in ("kernel", "naive"):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            K.reset_flash_counts()
+            out = flash_attention(*leaves, kv_lens=kv_lens, causal=True,
+                                  window=40, impl=impl)
+            grads.append(torch.autograd.grad(out, leaves, dout))
+            if impl == "kernel":
+                check(K.flash_dense_cuda.launches == 1
+                      and K.flash_bwd_cuda.launches == 1
+                      and K.flash_bwd_cuda.body_launches[K.plan_bwd(dtype, 80)] == 1,
+                      f"the autograd route launched the forward "
+                      f"{K.flash_dense_cuda.launches} and the backward "
+                      f"{K.flash_bwd_cuda.launches} times, 1 each expected")
+        # bf16: the two forwards' outputs already differ by a bf16 step (the
+        # forward's tensor-core limit), and delta = rowsum(dO * O) carries
+        # that into every dS
+        lim = BWD_F32_TOL if dtype == torch.float32 else (2e-2, 2e-2)
+        for g, w in zip(*grads):
+            torch.testing.assert_close(g, w, atol=lim[0], rtol=lim[1])
+    print(f"[train] flash backward held against the plain backward: {n} cases "
+          f"({len(BWD_CASES)} masks x {len(BWD_HEAD_DIMS)} head dims x f32/bf16), "
+          f"max |err| f32 {worst['f32']:.3g}, bf16 {worst['bwd']:.3g}, lse f32 "
+          f"{worst['lse f32']:.3g}, lse bf16 {worst['lse bf16']:.3g}; limits f32 "
+          f"{BWD_F32_TOL}, bf16 {TOL['bwd']}, lse {LSE_TOL}; deterministic, finite, fully "
+          f"masked rows 0; the autograd route == autograd through the plain "
+          "attention", flush=True)
+    return worst
+
+
+def time_flash_bwd(gpu) -> dict:
+    """The backward at stablelm-3b's training shape (q/k/v (2, 32, 4096,
+    80) bf16, causal) and at stablelm-12b's head dim 160 (32 query heads
+    over 8 KV heads), held there against the plain backward at
+    ``TOL["bwd"]`` and the forward's lse against the plain forward's at
+    ``LSE_TOL`` (each ratio printed), and timed beside the plain backward
+    (``time_wall_ms``: its host is the slower side), the bound (5 products of
+    S x S x D over the live pairs at the bf16 peak, or the bytes: q, k, v,
+    O, dO and lse read once, dQ, dK, dV written once) and the backward of
+    ``scaled_dot_product_attention`` (causal) on the same inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    from repro_torch.kernels.flash_attention.ops import NO_WINDOW
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = {}
+    for name, (b, h, hkv, s, d) in (("bwd_stablelm_3b", (2, 32, 32, 4096, 80)),
+                                    ("bwd_stablelm_12b", (2, 32, 8, 4096, 160))):
+        bf = torch.bfloat16
+        rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
+        q, k, v, dout = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), rnd(b, h, s, d)
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        zero = torch.zeros(b, dtype=torch.int32, device="cuda")
+        win = torch.tensor([NO_WINDOW], dtype=torch.int32, device="cuda")
+        scale = d ** -0.5
+        out, lse = K.flash_dense_lse_cuda(q, k, v, lens, zero, win, causal=True,
+                                          scale=scale)
+        kern = lambda: K.flash_bwd_cuda(q, k, v, out, dout, lse, lens, zero, win,
+                                        causal=True, scale=scale)
+        plain = lambda: R.flash_bwd(q, k, v, out, dout, lse, kv_lens=lens,
+                                    q_offset=zero, causal=True, scale=scale)
+        got, want = kern(), plain()
+        lse_p = R.flash_fwd_lse(q, k, v, kv_lens=lens, q_offset=zero, causal=True,
+                                scale=scale)[1]
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        ratios = {f"d{n}": tol_ratio(g, w, *TOL["bwd"])
+                  for n, g, w in zip("qkv", got, want)}
+        ratios["lse"] = tol_ratio(lse, lse_p, *LSE_TOL)
+        del got, want, lse_p
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale,
+                                              enable_gqa=h != hkv)
+        lib = lambda: torch.autograd.grad(sdpa, leaves, dout, retain_graph=True)
+        K.reset_flash_counts()
+        kern()
+        launches = K.flash_bwd_cuda.launches
+        body = K.plan_bwd(q.dtype, d)
+        pairs = b * h * s * (s + 1) // 2
+        rows[name] = dict(
+            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+            body=body, ms=time_ms(kern, 5), plain_ms=time_wall_ms(plain, 2),
+            library_ms=time_ms(lib, 5), flops=2 * 5 * d * pairs,
+            bytes=2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+            max_abs_err=err, launches_per_call=launches, tol_ratio=ratios)
+        del sdpa, leaves, out, lse, q, k, v, dout
+        torch.cuda.empty_cache()
+    print_rows(rows, gpu)
+    for name, r in rows.items():
+        print(f"[time] {name}: {r['launches_per_call']} wrapper call = 3 kernel "
+              f"launches (delta, dQ, dK/dV; 4 past D 128, dV and dK apart) on the "
+              f"{r['body']} body; kernel / bound "
+              f"{r['ms'] / r['bound_ms']:.1f}x, kernel / library "
+              f"{r['ms'] / r['library_ms']:.1f}x; against the plain versions "
+              f"tol_ratio (dq, dk, dv at {TOL['bwd']}, lse at {LSE_TOL}) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["tol_ratio"].items())
+              + f"  [{gpu}]", flush=True)
+    for name, r in rows.items():
+        for k, v in r["tol_ratio"].items():
+            check(v <= 1.0, f"{name}: {k} against the plain version at "
+                  f"{v:.3f} of its limit")
+    return rows
+
+
+# The training legs: stablelm-3b at full width (32 x d 2560) on the
+# train_4k sequence of configs/shapes.py (4096), its global batch of 256
+# cut to 2 on one card, full remat, random weights from seed 0, 5 AdamW
+# steps on one repeated batch; the checks of bits and of the plain path at
+# 4 of its 32 layers (the plain path at seq 512: its attention builds S x S
+# scores); mamba2-130m through the training launcher at 2048 x 8.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 5
+# the schedule of the 5 steps: the launcher's (make_train_step's defaults:
+# peak 3e-4 after 100 warmup steps, so 3e-6 .. 1.5e-5 here).  Faster ramps
+# took the random-init loss from 11.0 to ~5.9 in one step and then up
+# (peak 3e-4 in 2 steps: 7.2 at step 3; peak 1e-4 in 5: 13.4 at step 5)
+TRAIN_3B = dict(peak_lr=3e-4, warmup=100, total=10000)
+TRAIN_CHECK_LAYERS, PLAIN_TRAIN_SEQ = 4, 512
+# the first step through the kernels against the plain path (bf16 weights,
+# impl="naive": autograd through the plain attention), relative: the loss,
+# the gradients' global norm, and each leaf's gradient by its L2 norm
+# (|g - g_plain| <= leaf * |g_plain| + floor * the global norm, the floor
+# for a leaf whose gradient is near 0).  bf16 activations and gradients
+# rounded to bf16 in other places; readings on an H100: loss 3.8e-5,
+# global norm 1.8e-5 to 8.2e-5, the worst leaf 0.275 of its limit; held
+# at a few times that
+TRAIN_LIMITS = {"loss": 2e-4, "grad_norm": 3e-4, "leaf": 2e-2, "floor": 1e-4}
+# the loss curve of TRAIN_STEPS steps at full depth and seq 512, through the
+# kernels and through the plain path from the same state: both bf16, the
+# roundings compound over the steps (AdamW's first steps move each weight
+# by about lr whatever |g|, so a gradient near 0 may move it either way).
+# Reading on an H100: 6.1e-5 at the first step growing to 1.3e-3 at the
+# fifth; held at a few times that
+CURVE_LIMIT = 5e-3
+MAMBA_TRAIN = ["--arch", "mamba2_130m", "--steps", "20", "--batch", "8",
+               "--seq", "2048"]
+MAMBA_FAULT_STEP = 11
+
+
+def _train_batch(cfg, seq, b):
+    from repro_torch.data import SyntheticLM
+
+    tokens, labels, lens = SyntheticLM(cfg.vocab_size, seq, seed=0).batch(0, b)
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            (("tokens", tokens), ("labels", labels), ("lens", lens))}
+
+
+def _same_tree(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a) and sorted(a) == sorted(b)
+
+
+def _global_norm(grads) -> float:
+    return float(torch.sqrt(sum(g.float().square().sum() for g in grads.values())))
+
+
+def _causal_pairs(lens, s: int) -> int:
+    """Live (query, key) pairs of one head under the causal mask and the
+    rows' kv_lens: query i attends keys j <= i with j < len."""
+    i = torch.arange(s, device=lens.device)
+    return int(torch.minimum(i[None] + 1, lens[:, None].long()).sum())
+
+
+# kernel name -> its part of a train step, for ``profile_train_step``
+TRAIN_PARTS = (("flash backward", ("flash_bwd",)),
+               ("flash forward", ("flash_dense_tc", "flash_fwd")),
+               ("SSD scan", ("ssd_",)),
+               ("matmuls", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")),
+               ("reductions, norms, softmax", ("reduce", "norm", "softmax",
+                                               "logsumexp")))
+
+
+def profile_train_step(name, step, state, batch, gpu):
+    """One more step under ``torch.profiler`` (device events): its wall
+    time, the device's busy time (the union of its kernels' intervals) and
+    idle share, and device time by part (``TRAIN_PARTS``; the rest is the
+    elementwise kernels, casts and copies).  Returns the state."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        print(f"[profile] {name} train step: wall {wall:.1f} ms; device time not "
+              f"measured (the profiler saw no device events)  [{gpu}]", flush=True)
+        return state
+    parts, names = collections.Counter(), collections.Counter()
+    for e in dev:
+        low = e.name.lower()
+        part = next((p for p, keys in TRAIN_PARTS if any(k in low for k in keys)),
+                    "elementwise, casts, copies")
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        parts[part] += ms
+        names[e.name[:60]] += ms
+    busy = busy_ms(dev)
+    print(f"[profile] {name} train step (profiled): wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle {1 - busy / wall:.1%}, {len(dev)} device events; "
+          f"device ms by part "
+          + ", ".join(f"{p} {ms:.1f}" for p, ms in parts.most_common())
+          + "; top kernels " + "; ".join(f"{n} {ms:.1f}" for n, ms in
+                                         names.most_common(6))
+          + f"  [{gpu}]", flush=True)
+    return state
+
+
+def train_stablelm_3b(gpu) -> dict:
+    """stablelm-3b's train step (``repro_torch.train``) at full width.  At 4
+    of its 32 layers (seq 4096): two first steps from the same state equal
+    bit for bit (metrics and every updated parameter), remat full == none
+    bit for bit (loss and every gradient), and at seq 512 the first step's
+    loss, gradient norm and each leaf's gradient against the plain path at
+    ``TRAIN_LIMITS``.  At full depth and seq 512: ``TRAIN_STEPS`` steps'
+    losses through the kernels against the plain path's from the same state
+    at ``CURVE_LIMIT``.  At full depth: ``TRAIN_STEPS`` steps on one batch,
+    the loss finite and
+    falling, each step launching the flash forward twice per layer (the
+    forward and remat's re-run, tensor-core body) and the backward once;
+    the step time by CUDA events, tokens/s, the peak of
+    ``max_memory_allocated`` and the model-FLOP share of the bf16 peak
+    (8 N T with full remat, plus the attention's 18 D pairs a layer).
+    Returns the launches of the full-depth run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.train.step import (copy_state, init_state, make_grads,
+                                        make_train_step)
+
+    cfg = get_config("stablelm_3b")
+    widths = WIDTHS["stablelm_3b"]
+    got = {k: getattr(cfg, k) for k in widths}
+    check(got == widths, f"stablelm_3b widths {got}, published {widths}")
+    cfg = cfg.replace(remat="full")
+    batch = _train_batch(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+
+    cfg4 = cfg.replace(n_layers=TRAIN_CHECK_LAYERS)
+    state = init_state(cfg4, gen(), "cuda")
+    twin = copy_state(state)
+    step4 = make_train_step(cfg4, **TRAIN_3B)
+    state, m1 = step4(state, batch)
+    twin, m2 = step4(twin, batch)
+    check(_same_tree(m1, m2) and _same_tree(state["params"], twin["params"])
+          and _same_tree(state["opt"]["m"], twin["opt"]["m"]),
+          "two first steps from one state differ")
+    del twin
+    params = state["params"]
+    (l_full, _), g_full = make_grads(cfg4)(params, batch)
+    (l_none, _), g_none = make_grads(cfg4.replace(remat="none"))(params, batch)
+    check(torch.equal(l_full, l_none) and _same_tree(g_full, g_none),
+          "remat full != none")
+    del g_full, g_none
+    short = _train_batch(cfg, PLAIN_TRAIN_SEQ, TRAIN_BATCH)
+    (l_k, _), g_k = make_grads(cfg4)(params, short)
+    (l_p, _), g_p = make_grads(cfg4.replace(attn_impl="naive"))(params, short)
+    n_k, n_p = _global_norm(g_k), _global_norm(g_p)
+    leaf = {n: float((g_k[n].float() - g_p[n].float()).norm())
+            / (TRAIN_LIMITS["leaf"] * float(g_p[n].float().norm())
+               + TRAIN_LIMITS["floor"] * n_p) for n in g_p}
+    worst_leaf = max(leaf, key=leaf.get)
+    del g_k, g_p, params, state
+    err = {"loss": abs(float(l_k) - float(l_p)) / abs(float(l_p)),
+           "grad_norm": abs(n_k - n_p) / n_p}
+    print(f"[train] stablelm-3b at {TRAIN_CHECK_LAYERS} layers: two first steps "
+          f"equal bit for bit (loss {float(m1['loss']):.6f}, grad norm "
+          f"{float(m1['grad_norm']):.6f}); remat full == none bit for bit (loss "
+          f"{float(l_full):.6f} and every gradient); first step at seq "
+          f"{PLAIN_TRAIN_SEQ}, kernels against the plain path: loss {float(l_k):.6f} "
+          f"vs {float(l_p):.6f} (rel {err['loss']:.2e}), grad norm {n_k:.6f} vs "
+          f"{n_p:.6f} (rel {err['grad_norm']:.2e}), {len(leaf)} leaves' gradients "
+          f"at most {leaf[worst_leaf]:.3f} of their limit ({worst_leaf}); limits "
+          f"{TRAIN_LIMITS}", flush=True)
+    for k in ("loss", "grad_norm"):
+        check(err[k] <= TRAIN_LIMITS[k], f"stablelm-3b first-step {k} against "
+              f"the plain path: rel {err[k]:.3g} > {TRAIN_LIMITS[k]}")
+    check(leaf[worst_leaf] <= 1.0, f"stablelm-3b first-step gradient of "
+          f"{worst_leaf} against the plain path at {leaf[worst_leaf]:.3f} of its limit")
+    torch.cuda.empty_cache()
+
+    curves = {}
+    for impl, cfg_i in (("kernel", cfg), ("naive", cfg.replace(attn_impl="naive"))):
+        state = init_state(cfg_i, gen(), "cuda")
+        step = make_train_step(cfg_i, **TRAIN_3B)
+        curves[impl] = []
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, short)
+            curves[impl].append(float(m["loss"]))
+        del state, m, step
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(curves["kernel"], curves["naive"])]
+    print(f"[train] stablelm-3b full depth, seq {PLAIN_TRAIN_SEQ}, {TRAIN_STEPS} "
+          f"steps from one state: losses through the kernels "
+          f"{[round(x, 4) for x in curves['kernel']]}, through the plain path "
+          f"{[round(x, 4) for x in curves['naive']]}; rel {[f'{x:.1e}' for x in rel]} "
+          f"(limit {CURVE_LIMIT})", flush=True)
+    check(max(rel) <= CURVE_LIMIT, f"stablelm-3b loss curve through the kernels "
+          f"against the plain path: rel {max(rel):.3g} > {CURVE_LIMIT}")
+
+    t0 = time.perf_counter()
+    state = init_state(cfg, gen(), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].values())
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, **TRAIN_3B)
+    losses, norms, times = [], [], []
+    reset_counts()
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts, bodies = read_counts(), read_bodies()
+    bwd_bodies = dict(K.flash_bwd_cuda.body_launches)
+    peak = torch.cuda.max_memory_allocated()
+    del m
+    state = profile_train_step("stablelm-3b", step, state, batch, gpu)
+    del state
+    torch.cuda.empty_cache()
+    layers = cfg.n_layers
+    ms = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = cfg.n_heads * _causal_pairs(batch["lens"], TRAIN_SEQ)
+    flops = 8 * n_params * tokens + 18 * cfg.resolved_head_dim * pairs * layers
+    print(f"[train] stablelm-3b full width ({layers} x d {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params, f32 masters, bf16 compute, remat "
+          f"full), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: init {init_s:.1f} s; "
+          f"losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 4) for x in norms]}; step times ms {[round(t, 1) for t in times]}",
+          flush=True)
+    print(f"[train] stablelm-3b step {ms:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+          f"{tokens / ms * 1e3:.0f} tokens/s, peak max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB, model FLOPs {flops / 1e12:.1f} TFLOP a step "
+          f"= {flops / (ms * 1e-3) / PEAK_BF16_FLOPS:.3f} of {PEAK_BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s; launches over {TRAIN_STEPS} steps "
+          f"{ {k: v for k, v in counts.items() if v} }  [{gpu}]", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"stablelm-3b losses {losses}: not finite and falling")
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update(flash_attention_dense=2 * layers * TRAIN_STEPS,
+                flash_attention_bwd=layers * TRAIN_STEPS)
+    check(counts == want, f"stablelm-3b training launches {counts}, expected {want}")
+    check(bodies["flash_attention_dense"]["tensor_core"] == 2 * layers * TRAIN_STEPS,
+          f"the training forward's bodies {bodies['flash_attention_dense']}")
+    check(bwd_bodies["tensor_core"] == layers * TRAIN_STEPS,
+          f"the training backward's bodies {bwd_bodies}")
+    return counts
+
+
+# Small f32 twins of the families whose training does not run at full width
+# on one card here (the VLM branch, encdec, MoE): the launcher's reduced dims
+# (launch.train.reduced), one step's loss and gradients on the card (the
+# flash forward with lse and backward in f32, moe_positions on the card)
+# against the same step on the CPU (the plain versions), relative to each
+# leaf's largest gradient
+FAMILY_TRAIN_ARCHS = ("llama_3_2_vision_11b", "seamless_m4t_large_v2", "olmoe_1b_7b")
+FAMILY_TRAIN_TOL = 1e-4
+
+
+def check_train_families() -> None:
+    """One train step's gradients of ``FAMILY_TRAIN_ARCHS`` at reduced dims
+    (f32) on the card against the CPU, the MoE router's included (the gates
+    keep their graph through ``build_dispatch``, whose ranks come from the
+    kernel on the card); and the launcher refusing an arch whose f32 state
+    does not fit the card, naming the bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as T
+    from repro_torch.train.step import init_state, make_grads
+
+    for arch in FAMILY_TRAIN_ARCHS:
+        cfg = T.reduced(get_config(arch))
+        runs = []
+        for dev in ("cuda", "cpu"):
+            state = init_state(cfg, torch.Generator(device="cpu").manual_seed(0), "cpu")
+            params = {k: v.detach().to(dev).requires_grad_() for k, v in
+                      state["params"].items()}
+            batch = T.make_batch_fn(cfg, SyntheticLM(cfg.vocab_size, 32, seed=0),
+                                    2, 32, dev)(0)
+            reset_counts()
+            (loss, aux), grads = make_grads(cfg)(params, batch)
+            runs.append((loss, aux, grads, read_counts()))
+        (lc, ac, gc, counts), (lp, ap, gp, _) = runs
+        check(counts["flash_attention_bwd"] > 0 and counts["flash_attention_dense"] > 0,
+              f"{arch}: the card's step launched {counts}")
+        check(abs(float(lc) - float(lp)) <= FAMILY_TRAIN_TOL * abs(float(lp)),
+              f"{arch} loss {float(lc)} on the card, {float(lp)} on the CPU")
+        worst = 0.0
+        for n, g in gp.items():
+            # a leaf whose exact gradient is 0 (a cross-attention key bias:
+            # softmax ignores a shift of every key) is held to 1e-7
+            lim = FAMILY_TRAIN_TOL * float(g.abs().max()) + 1e-7
+            err = float((gc[n].cpu() - g).abs().max())
+            worst = max(worst, err / lim)
+            check(err <= lim, f"{arch} gradient {n}: {err:.3g} over {lim:.3g}")
+        if "lb_loss" in ap:
+            router = [n for n in gp if n.endswith("moe.router")]
+            check(router and all(float(gc[n].abs().max()) > 0 for n in router),
+                  f"{arch}: the router gets no gradient on the card")
+        print(f"[train] {cfg.name} reduced (f32): one step's loss and every "
+              f"gradient on the card against the CPU, worst {worst:.3f} of the limit "
+              f"({FAMILY_TRAIN_TOL} of the leaf's largest + 1e-7); launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    cfg = get_config("olmoe_1b_7b")
+    try:
+        T.check_fits(cfg, torch.device("cuda"))
+        check(False, "olmoe-1b-7b's f32 state was taken to fit one card")
+    except RuntimeError as e:
+        print(f"[train] the launcher refuses olmoe-1b-7b: {e}", flush=True)
+
+
+def train_mamba2_130m(gpu) -> dict:
+    """mamba2-130m through ``repro_torch.launch.train``'s main path (the
+    launcher's default arch) at full width (24 x d 768), seq 2048 x batch 8:
+    20 steps with ``FaultTolerantLoop``, checkpoints every 10, one injected
+    step fault at step ``MAMBA_FAULT_STEP`` recovered from step 10's
+    checkpoint; the final loss and every parameter equal, bit for bit, to
+    an uninterrupted run's, which launches the SSD scan once per layer per
+    step.  Returns the uninterrupted run's launches."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as T
+    from repro_torch.train import make_train_step
+
+    cfg = get_config("mamba2_130m")
+    widths = WIDTHS["mamba2_130m"]
+    got = {k: getattr(cfg, k) for k in widths}
+    check(got == widths, f"mamba2_130m widths {got}, published {widths}")
+    fired = []
+
+    def inject(step):
+        if step == MAMBA_FAULT_STEP and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected step fault at step {step}")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        state_f, hist_f, loop_f = T.main(MAMBA_TRAIN + ["--ckpt-dir", f"{d}/faulty"],
+                                         fault_injector=inject)
+        torch.cuda.synchronize()
+        faulty_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        state_c, hist_c, loop_c = T.main(MAMBA_TRAIN + ["--ckpt-dir", f"{d}/clean"])
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
+        counts = read_counts()
+        kept = sorted(os.listdir(f"{d}/clean"))
+    steps = int(MAMBA_TRAIN[MAMBA_TRAIN.index("--steps") + 1])
+    check(loop_f.recoveries == 1 and loop_c.recoveries == 0,
+          f"recoveries {loop_f.recoveries}, {loop_c.recoveries}")
+    check([s for s, _ in hist_f] == list(range(MAMBA_FAULT_STEP))
+          + list(range(10, steps)), f"faulty run's steps {[s for s, _ in hist_f]}")
+    check(hist_f[-1] == hist_c[-1] and _same_tree(state_f["params"], state_c["params"]),
+          f"final loss {hist_f[-1]} after the fault, {hist_c[-1]} uninterrupted")
+    check(hist_c[-1][1] < hist_c[0][1], f"mamba2 loss {hist_c[0][1]} -> {hist_c[-1][1]}")
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want["ssd_scan"] = cfg.n_layers * steps
+    check(counts == want, f"mamba2 training launches {counts}, expected {want}")
+    print(f"[train] mamba2-130m through launch.train: {steps} steps of 8 x 2048, "
+          f"checkpoints {kept}; a fault at step {MAMBA_FAULT_STEP} restored step "
+          f"10 and the final loss {hist_f[-1][1]!r} equals the uninterrupted run's "
+          f"{hist_c[-1][1]!r} bit for bit (every parameter too); loss "
+          f"{hist_c[0][1]:.4f} -> {hist_c[-1][1]:.4f}; {clean_s:.1f} s "
+          f"uninterrupted ({clean_s / steps * 1e3:.0f} ms a step with checkpoints), "
+          f"{faulty_s:.1f} s with the fault; step EWMA "
+          f"{loop_c.watchdog.ewma * 1e3:.0f} ms; launches "
+          f"{ {k: v for k, v in counts.items() if v} }  [{gpu}]", flush=True)
+    del state_f
+    batch = T.make_batch_fn(cfg, SyntheticLM(cfg.vocab_size, 2048, seed=0), 8,
+                            2048, "cuda")(steps)
+    state_c = profile_train_step("mamba2-130m", make_train_step(cfg), state_c,
+                                 batch, gpu)
+    del state_c
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5484,6 +6176,15 @@ def main() -> int:
         for arch in CROSS_ARCHS:
             phase(f"serve {arch}", serve_cross, arch, gpu)
         phase("serve encdec scheduler", serve_encdec_scheduler, gpu)
+        return 0
+    if "--train" in args:
+        from repro_torch.kernels.flash_attention import kernel as K
+        phase("ptxas flash", ptxas_report, [*K.LIBRARIES, K.BWD_LIBRARY])
+        phase("check flash bwd", check_flash_bwd)
+        phase("time flash bwd", time_flash_bwd, gpu)
+        phase("check train families", check_train_families)
+        phase("train stablelm_3b", train_stablelm_3b, gpu)
+        phase("train mamba2_130m", train_mamba2_130m, gpu)
         return 0
     if "--spec" in args:
         from repro_torch.kernels.flash_attention import kernel as K
@@ -5535,19 +6236,27 @@ def main() -> int:
     daxpy_rows = phase("time daxpy", time_daxpy, gpu)
     phase("time cross", time_cross, gpu)
     quick = phase("quickstart", run_quickstart)
+    torch.cuda.empty_cache()
+    phase("check flash bwd", check_flash_bwd)
+    bwd_rows = phase("time flash bwd", time_flash_bwd, gpu)
+    phase("check train families", check_train_families)
+    train_counts = [phase("train stablelm_3b", train_stablelm_3b, gpu),
+                    phase("train mamba2_130m", train_mamba2_130m, gpu)]
 
     every_run = ([r for *_, runs in served.values() for r in runs.values()]
                  + [r for runs in cross.values() for r in runs.values()]
                  + spec)
     launches = {k: sum(r["counts"][k] for r in every_run) + quick[k]
                 + sum(c[k] for c in sched_launches.values())
+                + sum(c[k] for c in train_counts)
                 for k in kernel_wrappers()}
     bodies = {k: {body: sum(r["bodies"][k][body] for r in every_run)
                   for body in v}
               for k, v in read_bodies().items()}
     print(f"[full] launches over every generate (the cross-attention models', "
           f"gemma3's and stablelm-12b's included), the speculative legs, the "
-          f"scheduler legs' warm runs and the quickstart: {launches}; the flash "
+          f"scheduler legs' warm runs, the quickstart and the training legs' "
+          f"counted runs: {launches}; the flash "
           f"kernels by body over every generate and speculative leg: {bodies}; "
           f"the cross-attention roles' check: {cross_bodies}", flush=True)
     entries = []
@@ -5565,7 +6274,9 @@ def main() -> int:
             ("fadda", fadda_times["scan"], SRC_FADDA,
              "src/repro/kernels/fadda/kernel.py:47"),
             ("daxpy", daxpy_rows["f32"], SRC_DAXPY,
-             "src/repro/kernels/daxpy/kernel.py:32")):
+             "src/repro/kernels/daxpy/kernel.py:32"),
+            ("flash_attention_bwd", bwd_rows["bwd_stablelm_3b"], SRC_BWD,
+             "src/repro/kernels/flash_attention/xla_impl.py:110")):
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -16,8 +16,8 @@ def counted_wrappers() -> tuple:
     from .moe_dispatch import kernel as MK
     from .ssd_scan import kernel as SK
     return (K.flash_dense_cuda, K.flash_paged_cuda, K.flash_paged_quant_cuda,
-            SK.ssd_scan_cuda, MK.moe_positions_cuda, FK.fadda_rows_cuda,
-            DK.daxpy_cuda)
+            K.flash_bwd_cuda, SK.ssd_scan_cuda, MK.moe_positions_cuda,
+            FK.fadda_rows_cuda, DK.daxpy_cuda)
 
 
 def read_counts() -> dict:

@@ -42,9 +42,12 @@ class Library:
     ``signatures`` maps each exported C function to its ``argtypes``; every
     one returns an int (``cudaGetLastError()`` after its launch)."""
 
-    def __init__(self, source: Path, signatures: dict):
+    def __init__(self, source: Path, signatures: dict, defines=()):
         self.source = Path(source)
         self.signatures = signatures
+        # preprocessor names set for this build (``-D``); a library with
+        # defines is named after them too
+        self.defines = tuple(defines)
         self.last_build = {}   # the nvcc command and seconds of this process's build
         self._lock = threading.Lock()
         self._lib = None
@@ -52,12 +55,14 @@ class Library:
     def build(self) -> Path:
         """Compile the source (once per source hash); return the library."""
         digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
+        tag = "".join(f"_{d.lower()}" for d in self.defines)
+        out = BUILD_DIR / f"lib{self.source.stem}{tag}_{digest}.so"
         if out.is_file():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *self.flags(), "-o", str(tmp),
+               str(self.source)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
@@ -66,6 +71,10 @@ class Library:
         os.replace(tmp, out)
         self.last_build.update(cmd=" ".join(cmd), seconds=time.perf_counter() - t0)
         return out
+
+    def flags(self) -> list:
+        """The nvcc flags of this build beyond ``NVCC_FLAGS``."""
+        return [f"-D{d}" for d in self.defines]
 
     def get(self):
         """The loaded library, built on first use."""

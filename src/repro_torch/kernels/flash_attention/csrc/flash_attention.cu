@@ -114,12 +114,31 @@
 // memory.  f32 paged decode stays on this template with f32 dense decode,
 // so the two agree bit for bit.
 //
+// Training's forward (flash_attention_dense_lse) is the CUDA-core body (f32)
+// or the tensor-core body (bf16) with a template flag that also writes each
+// row's log-sum-exp for the backward (flash_attention_bwd.cu).
+//
+// Builds.  The entry points fall in four groups, each built from this
+// source as a library of its own, all compiled in parallel (kernel.py):
+// FLASH_BUILD_DENSE (flash_attention_dense, _dense_tc, _dense_split),
+// FLASH_BUILD_PAGED_SPLIT (flash_attention_paged_split), FLASH_BUILD_PAGED
+// (flash_attention_paged, _paged_quant) and FLASH_BUILD_LSE (training's
+// flash_attention_dense_lse).  With none defined the three serving groups
+// compile together.  A group's instances are the same code in any build.
+//
 // C interface for ctypes: pointers and the stream are void*, every entry
 // point returns cudaGetLastError() as an int (0 = launched).
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#if !defined(FLASH_BUILD_DENSE) && !defined(FLASH_BUILD_PAGED_SPLIT) && \
+    !defined(FLASH_BUILD_PAGED) && !defined(FLASH_BUILD_LSE)
+#define FLASH_BUILD_DENSE
+#define FLASH_BUILD_PAGED_SPLIT
+#define FLASH_BUILD_PAGED
+#endif
 
 #include <climits>
 #include <cmath>
@@ -189,6 +208,7 @@ struct Args {
   const float* v_scale;
   int split_keys;        // split-KV body: keys per split, before doubling
   int max_splits;        // split-KV body: most splits of one lane
+  float* lse;            // training's dense forward only: (B, Hq, Sq) f32
 };
 
 // How a tile of K/V reaches shared memory: one element of type T per load,
@@ -342,7 +362,10 @@ __device__ __forceinline__ void stage_kv(const Args& a, const KV* kg, const KV* 
 // lane), walking every (head of the group, query row) in chunks.  q and the
 // output are T; K/V are stored as KV (T itself, or a narrow type).  Each
 // lane keeps NI head dims (lane + 32 i): 4 up to D 128, 5 up to D 160.
-template <typename T, typename KV, bool kPaged, bool kVec, int NI>
+// kLse (training's dense f32 forward) also writes each row's log-sum-exp,
+// m + log(max(l, 1e-30)), to a.lse: -1e30 for a row with no live key, as
+// the JAX forward's; the serving instances compile without it.
+template <typename T, typename KV, bool kPaged, bool kVec, int NI, bool kLse = false>
 __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
   extern __shared__ float smem[];
   const int d = a.d;
@@ -500,6 +523,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
             }
           }
           l[r] = lt;
+          if constexpr (kLse) m[r] = mx;
 #pragma unroll
           for (int i = 0; i < NI; ++i) acc[r][i] = at[i];
         }
@@ -519,6 +543,11 @@ __global__ void __launch_bounds__(kWarps * kWarp) flash_fwd(const Args a) {
           // an empty predicate row (l == 0) writes 0, as zeroing predication
           if (dd < d) store(orow + dd, l[r] > 0.f ? acc[r][i] * inv : 0.f);
         }
+        if constexpr (kLse) {
+          if (lane == 0)
+            a.lse[((size_t)b * a.hq + head_of(rr)) * a.sq + qrow_of(rr)] =
+                m[r] + logf(fmaxf(l[r], 1e-30f));
+        }
       }
     }
   }
@@ -531,29 +560,29 @@ int splits_for(int rows) {
   return 1;
 }
 
-template <typename T, typename KV, bool kPaged, bool kVec, int NI>
+template <typename T, typename KV, bool kPaged, bool kVec, int NI, bool kLse>
 int launch_ni(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, KV, kPaged, kVec, NI>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, KV, kPaged, kVec, NI, kLse>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  flash_fwd<T, KV, kPaged, kVec, NI><<<grid, kWarps * kWarp, smem, stream>>>(a);
+  flash_fwd<T, KV, kPaged, kVec, NI, kLse><<<grid, kWarps * kWarp, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename KV, bool kPaged, bool kVec>
+template <typename T, typename KV, bool kPaged, bool kVec, bool kLse>
 int launch_as(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
-  return a.d <= 4 * kWarp ? launch_ni<T, KV, kPaged, kVec, 4>(a, grid, smem, stream)
-                          : launch_ni<T, KV, kPaged, kVec, kMaxNI>(a, grid, smem, stream);
+  return a.d <= 4 * kWarp ? launch_ni<T, KV, kPaged, kVec, 4, kLse>(a, grid, smem, stream)
+                          : launch_ni<T, KV, kPaged, kVec, kMaxNI, kLse>(a, grid, smem, stream);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // 16-byte K/V loads need every key row to start on a 16-byte boundary.
 // Narrow pools are read only so (D a multiple of 16, aligned pools).
-template <typename T, typename KV, bool kPaged>
+template <typename T, typename KV, bool kPaged, bool kLse = false>
 int launch(const Args& a, int grid_x, int grid_y, int grid_z, cudaStream_t stream) {
   const int bq = (kWarps / a.splits) * kRows;
   const int tile = a.splits * kBK;
@@ -561,11 +590,11 @@ int launch(const Args& a, int grid_x, int grid_y, int grid_z, cudaStream_t strea
   const dim3 grid(grid_x, grid_y, grid_z);
   const bool vec = a.d % Loader<KV, true>::n == 0 && aligned16(a.k) && aligned16(a.v);
   if constexpr (Narrow<KV>::value) {
-    return vec ? launch_as<T, KV, kPaged, true>(a, grid, smem, stream)
+    return vec ? launch_as<T, KV, kPaged, true, kLse>(a, grid, smem, stream)
                : (int)cudaErrorInvalidValue;
   } else {
-    return vec ? launch_as<T, KV, kPaged, true>(a, grid, smem, stream)
-               : launch_as<T, KV, kPaged, false>(a, grid, smem, stream);
+    return vec ? launch_as<T, KV, kPaged, true, kLse>(a, grid, smem, stream)
+               : launch_as<T, KV, kPaged, false, kLse>(a, grid, smem, stream);
   }
 }
 
@@ -659,7 +688,8 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src, i
 // cp.async; S = Q.K^T and O += P.V run on mma.sync m16n8k16 with f32
 // accumulators; the online softmax lives in the accumulator fragments.  DP
 // is the head dim rounded up to 16 (the mma k-step); columns d..DP are zero.
-template <int DP>
+// kLse (training) also writes each row's log-sum-exp to a.lse, as flash_fwd.
+template <int DP, bool kLse = false>
 __global__ void __launch_bounds__(kTcThreads) flash_dense_tc(const Args a, int vec) {
   constexpr int LD = DP + 8;       // row stride: ldmatrix rows hit distinct banks
   constexpr int KS = DP / 16;      // mma k-steps over the head dim
@@ -842,6 +872,13 @@ __global__ void __launch_bounds__(kTcThreads) flash_dense_tc(const Args a, int v
   // an empty predicate row (l == 0) writes 0
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   const int r0 = w_lo + g, r1 = r0 + 8;
+  if constexpr (kLse) {
+    if (t == 0) {
+      float* lrow = a.lse + ((size_t)b * a.hq + h) * a.sq;
+      if (r0 < a.sq) lrow[r0] = m0 + logf(fmaxf(l0, 1e-30f));
+      if (r1 < a.sq) lrow[r1] = m1 + logf(fmaxf(l1, 1e-30f));
+    }
+  }
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = n * 8 + 2 * t;
@@ -1234,15 +1271,33 @@ __global__ void __launch_bounds__(4 * kWarp) flash_split_merge(const Args a, con
   }
 }
 
-template <int DP>
+template <int DP, bool kLse = false>
 int launch_tc(const Args& a, int b, int vec, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (size_t)(DP + 8) * (kTcRows + 2 * kStages * kTile);
-  cudaError_t err = cudaFuncSetAttribute(flash_dense_tc<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_dense_tc<DP, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.sq + kTcRows - 1) / kTcRows, a.hq, b);
-  flash_dense_tc<DP><<<grid, kTcThreads, smem, stream>>>(a, vec);
+  flash_dense_tc<DP, kLse><<<grid, kTcThreads, smem, stream>>>(a, vec);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core body's instance for head dim d (rounded up to 16).
+template <bool kLse>
+int launch_tc_d(const Args& a, int b, int vec, cudaStream_t st) {
+  switch ((a.d + 15) / 16) {
+    case 1: return launch_tc<16, kLse>(a, b, vec, st);
+    case 2: return launch_tc<32, kLse>(a, b, vec, st);
+    case 3: return launch_tc<48, kLse>(a, b, vec, st);
+    case 4: return launch_tc<64, kLse>(a, b, vec, st);
+    case 5: return launch_tc<80, kLse>(a, b, vec, st);
+    case 6: return launch_tc<96, kLse>(a, b, vec, st);
+    case 7: return launch_tc<112, kLse>(a, b, vec, st);
+    case 8: return launch_tc<128, kLse>(a, b, vec, st);
+    case 9: return launch_tc<144, kLse>(a, b, vec, st);
+    case 10: return launch_tc<160, kLse>(a, b, vec, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // R: the most rows the instance serves (registers per row: acc, m, l, s, p);
@@ -1294,6 +1349,7 @@ bool dense_vec(const void* q, const void* k, const void* v, int d) {
 
 }  // namespace
 
+#ifdef FLASH_BUILD_DENSE
 // The CUDA-core body, f32 only (bf16 takes the two bodies below).
 extern "C" int flash_attention_dense(const void* q, const void* k, const void* v, void* o,
                                      const int* kv_lens, const int* q_offset,
@@ -1317,21 +1373,7 @@ extern "C" int flash_attention_dense_tc(const void* q, const void* k, const void
   if (sq == 0) return (int)cudaGetLastError();
   Args a{q, k, v, o, kv_lens, q_offset, window, nullptr,
          hq, hkv, sq, skv, d, 0, 0, 0, causal, 1, scale};
-  const int vec = dense_vec(q, k, v, d);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16) {
-    case 1: return launch_tc<16>(a, b, vec, st);
-    case 2: return launch_tc<32>(a, b, vec, st);
-    case 3: return launch_tc<48>(a, b, vec, st);
-    case 4: return launch_tc<64>(a, b, vec, st);
-    case 5: return launch_tc<80>(a, b, vec, st);
-    case 6: return launch_tc<96>(a, b, vec, st);
-    case 7: return launch_tc<112>(a, b, vec, st);
-    case 8: return launch_tc<128>(a, b, vec, st);
-    case 9: return launch_tc<144>(a, b, vec, st);
-    case 10: return launch_tc<160>(a, b, vec, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_tc_d<false>(a, b, dense_vec(q, k, v, d), static_cast<cudaStream_t>(stream));
 }
 
 // The split-KV body over dense K/V: bf16 q, k, v, o; (Hq / Hkv) * sq <= 16
@@ -1357,6 +1399,9 @@ extern "C" int flash_attention_dense_split(const void* q, const void* k, const v
                                    b, static_cast<cudaStream_t>(stream));
 }
 
+#endif  // FLASH_BUILD_DENSE
+
+#ifdef FLASH_BUILD_PAGED_SPLIT
 // The split-KV body over pools read through the page table: bf16 q and o;
 // bf16 (kv_kind 0), int8 (1) or fp8 e4m3 (2) pools (P, Hkv, ps, d), the
 // narrow ones with f32 scale pools (P, Hkv, ps), d a multiple of 16 and
@@ -1389,6 +1434,9 @@ extern "C" int flash_attention_paged_split(const void* q, const void* k_pool,
                       : launch_split<__nv_fp8_e4m3, true>(a, pf, 1, splits, b, st);
 }
 
+#endif  // FLASH_BUILD_PAGED_SPLIT
+
+#ifdef FLASH_BUILD_PAGED
 extern "C" int flash_attention_paged(const void* q, const void* k_pool, const void* v_pool,
                                      void* o, const int* page_table, const int* kv_lens,
                                      const int* q_offset, const int* window, int b, int hq,
@@ -1432,3 +1480,30 @@ extern "C" int flash_attention_paged_quant(const void* q, const void* k_pool,
   return is_bf16 ? launch<__nv_bfloat16, int8_t, true>(a, 1, hkv, b, st)
                  : launch<float, int8_t, true>(a, 1, hkv, b, st);
 }
+#endif  // FLASH_BUILD_PAGED
+
+#ifdef FLASH_BUILD_LSE
+// Training's dense forward: the CUDA-core body (f32, is_bf16 = 0) or the
+// tensor-core body (bf16, 1), each also writing the rows' log-sum-exp to
+// lse, (B, Hq, Sq) f32, for the backward (flash_attention_bwd.cu).
+extern "C" int flash_attention_dense_lse(const void* q, const void* k, const void* v, void* o,
+                                         float* lse, const int* kv_lens, const int* q_offset,
+                                         const int* window, int b, int hq, int hkv, int sq,
+                                         int skv, int d, int causal, float scale, int is_bf16,
+                                         void* stream) {
+  if (bad_shape(b, hq, hkv, sq, d) || skv < 0) return (int)cudaErrorInvalidValue;
+  if (sq == 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    Args a{q, k, v, o, kv_lens, q_offset, window, nullptr,
+           hq, hkv, sq, skv, d, 0, 0, 0, causal, 1, scale};
+    a.lse = lse;
+    return launch_tc_d<true>(a, b, dense_vec(q, k, v, d), st);
+  }
+  Args a{q, k, v, o, kv_lens, q_offset, window, nullptr,
+         hq, hkv, sq, skv, d, 0, 0, 0, causal, splits_for(sq < 16 ? sq : 16), scale};
+  a.lse = lse;
+  const int bq = (kWarps / a.splits) * kRows;
+  return launch<float, float, false, true>(a, (sq + bq - 1) / bq, hq, b, st);
+}
+#endif  // FLASH_BUILD_LSE

@@ -4,7 +4,8 @@
 kernel each replaces, what bounds it and what the design does about it).
 ``kernels._build`` compiles it at first use with ``nvcc`` for ``sm_90a``
 into ``build/`` at the repo root, named by the hash of the source so an
-edited source rebuilds, and loads it with ``ctypes``.
+edited source rebuilds, and loads it with ``ctypes``: one library for each
+group of entry points (``LIBRARIES``), so the groups compile in parallel.
 
 Each kernel has several bodies, chosen per call by ``plan_dense`` and
 ``plan_paged`` (plain Python, so the CPU tests see the route) from the
@@ -28,12 +29,24 @@ the prompt was cut.
   16 rows per KV head): the first design, f32 products on the CUDA cores (tensor cores
   would round f32 to TF32).
 
+Training (``ops._FlashAttention``) runs the dense kernel through
+``flash_dense_lse_cuda``, the ``cuda_core`` (f32) or ``tensor_core`` (bf16)
+body compiled with a flag that also writes each row's log-sum-exp (the
+serving instances compile without it; ``LSE_LIBRARY`` builds the training
+instances from the same source on their own: ``LIBRARIES``), and
+differentiates through
+``flash_bwd_cuda``, the backward of ``csrc/flash_attention_bwd.cu``
+(a source and a library of its own, ``BWD_LIBRARY``).
+
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, raise on anything the kernel does not take, allocate the output
 with ``torch.empty`` and launch on the current stream.  Each keeps a plain
 integer launch count (``flash_dense_cuda.launches``,
-``flash_paged_cuda.launches``, ``flash_paged_quant_cuda.launches``) that
-grows by one per call, and the calls per body in ``body_launches``.
+``flash_paged_cuda.launches``, ``flash_paged_quant_cuda.launches``,
+``flash_bwd_cuda.launches``) that grows by one per call, and the calls per
+body in ``body_launches`` (``flash_dense_lse_cuda`` counts as a call of
+``flash_dense_cuda``).  The backward has two bodies (``plan_bwd``):
+``tensor_core`` (bf16, ``mma.sync``) and ``cuda_core`` (f32).
 """
 
 from __future__ import annotations
@@ -47,13 +60,19 @@ import torch
 from repro_torch.kernels._build import Library, raise_on
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 MAX_HEAD_DIM = 160     # stablelm-12b's 5120 / 32, in every body
 _DTYPES = (torch.float32, torch.bfloat16)
 _POOL_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-LIBRARY = Library(SOURCE, {
+# The source's entry points in four groups, each built as a library of its
+# own (a define selects the group; a group's instances are the same code in
+# any build), all four compiled in parallel: the dense serving bodies, the
+# split-KV body over pools, the CUDA-core body over pools, and training's
+# forward with the rows' lse.
+DENSE_LIBRARY = Library(SOURCE, {
     # q, k, v, o, kv_lens, q_offset, window, b, hq, hkv, sq, skv, d, causal,
     # scale, stream: the CUDA-core body (f32) and the tensor-core body (bf16)
     "flash_attention_dense": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
@@ -63,12 +82,16 @@ LIBRARY = Library(SOURCE, {
     # body over dense bf16 K/V
     "flash_attention_dense_split": [_P] * 8 + [_I] * 7
                                    + [ctypes.c_float, _I, _I, _I, _P],
+}, defines=("FLASH_BUILD_DENSE",))
+PAGED_SPLIT_LIBRARY = Library(SOURCE, {
     # q, k_pool, v_pool, k_scale, v_scale, o, part, table, kv_lens,
     # q_offset, window, b, hq, hkv, sq, d, page_size, n_pages, n_pool,
     # causal, scale, splits, split_keys, max_splits, kv_kind, stream: the
     # split-KV body over bf16 (kv_kind 0), int8 (1) or fp8 (2) pools
     "flash_attention_paged_split": [_P] * 11 + [_I] * 9
                                    + [ctypes.c_float, _I, _I, _I, _I, _P],
+}, defines=("FLASH_BUILD_PAGED_SPLIT",))
+PAGED_LIBRARY = Library(SOURCE, {
     # q, k_pool, v_pool, o, table, kv_lens, q_offset, window, b, hq, hkv, sq,
     # d, page_size, n_pages, n_pool, causal, scale, is_bf16, stream
     "flash_attention_paged": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _P],
@@ -77,6 +100,17 @@ LIBRARY = Library(SOURCE, {
     # is_bf16, is_fp8, stream
     "flash_attention_paged_quant": [_P] * 10 + [_I] * 9
                                    + [ctypes.c_float, _I, _I, _P],
+}, defines=("FLASH_BUILD_PAGED",))
+LSE_LIBRARY = Library(SOURCE, {
+    # q, k, v, o, lse, kv_lens, q_offset, window, b, hq, hkv, sq, skv, d,
+    # causal, scale, is_bf16, stream
+    "flash_attention_dense_lse": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P],
+}, defines=("FLASH_BUILD_LSE",))
+LIBRARIES = (DENSE_LIBRARY, PAGED_SPLIT_LIBRARY, PAGED_LIBRARY, LSE_LIBRARY)
+# q, k, v, o, dout, lse, delta, dq, dk, dv, kv_lens, q_offset, window, b,
+# hq, hkv, sq, skv, d, causal, scale, is_bf16, stream
+BWD_LIBRARY = Library(BWD_SOURCE, {
+    "flash_attention_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _I, _P],
 })
 
 
@@ -107,6 +141,7 @@ def _check_common(q, tensors: dict, ints: dict, b: int):
 TENSOR_CORE, SPLIT_KV, CUDA_CORE = "tensor_core", "split_kv", "cuda_core"
 BODIES = (TENSOR_CORE, SPLIT_KV, CUDA_CORE)
 PAGED_BODIES = (SPLIT_KV, CUDA_CORE)
+BWD_BODIES = (TENSOR_CORE, CUDA_CORE)
 SPLIT_ROWS = 16        # most rows (group * Sq) the split-KV body serves
 SPLIT_KEYS = 128       # keys per split while a lane holds <= 64 splits of it
 MAX_SPLITS = 64        # most splits of one lane: past it the span doubles
@@ -214,6 +249,26 @@ def plan_paged(dtype, pool_dtype, b: int, hq: int, hkv: int, sq: int,
     return Plan(CUDA_CORE, 1, None)
 
 
+def plan_bwd(dtype, d: int) -> str:
+    """The backward's body: ``tensor_core`` (``mma.sync``) for bf16, at
+    every head dim (past 128 dK and dV take a launch each), ``cuda_core``
+    for f32 (the tensor cores would round it to TF32)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype {dtype} not in {_DTYPES}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
+
+
+def _check_dense(q, k, v, kv_lens, q_offset, window):
+    b, hq, sq, d = q.shape
+    _check_common(q, {"k": k, "v": v},
+                  {"kv_lens": kv_lens, "q_offset": q_offset, "window": window}, b)
+    _check(k.dim() == 4 and k.shape == v.shape, "k, v must be equal (B,Hkv,Skv,D)")
+    _check(k.shape[0] == b and k.shape[3] == d, "k/v batch or head dim != q's")
+    _check(hq % k.shape[1] == 0, f"Hq={hq} is not a multiple of Hkv={k.shape[1]}")
+
+
 def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
                      scale: float, decode: bool = False):
     """Dense kernel: q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) -> (B,Hq,Sq,D) in q's
@@ -221,15 +276,11 @@ def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
     body is ``plan_dense``'s; each call adds one to ``launches`` and to its
     body's count in ``body_launches``."""
     b, hq, sq, d = q.shape
-    _check_common(q, {"k": k, "v": v},
-                  {"kv_lens": kv_lens, "q_offset": q_offset, "window": window}, b)
-    _check(k.dim() == 4 and k.shape == v.shape, "k, v must be equal (B,Hkv,Skv,D)")
-    _check(k.shape[0] == b and k.shape[3] == d, "k/v batch or head dim != q's")
+    _check_dense(q, k, v, kv_lens, q_offset, window)
     hkv, skv = k.shape[1], k.shape[2]
-    _check(hq % hkv == 0, f"Hq={hq} is not a multiple of Hkv={hkv}")
     plan = plan_dense(q.dtype, b, hq, hkv, sq, skv, d, decode=decode)
     out = torch.empty_like(q)
-    lib = LIBRARY.get()
+    lib = DENSE_LIBRARY.get()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     ints = (kv_lens.data_ptr(), q_offset.data_ptr(), window.data_ptr(),
             b, hq, hkv, sq, skv, d, int(causal), float(scale))
@@ -252,9 +303,76 @@ def flash_dense_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
     return out
 
 
+def flash_dense_lse_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
+                         scale: float):
+    """Training's dense forward: ``flash_dense_cuda``'s prefill body (the
+    CUDA-core body for f32, the tensor-core body for bf16) with the rows'
+    log-sum-exp written out.  Returns (out (B,Hq,Sq,D) in q's dtype, lse
+    (B,Hq,Sq) f32; -1e30 on a row with no live key).  Counted as a call of
+    ``flash_dense_cuda``, in its body's ``body_launches``."""
+    b, hq, sq, d = q.shape
+    _check_dense(q, k, v, kv_lens, q_offset, window)
+    hkv, skv = k.shape[1], k.shape[2]
+    plan = plan_dense(q.dtype, b, hq, hkv, sq, skv, d, decode=False)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    err = LSE_LIBRARY.get().flash_attention_dense_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
+        window.data_ptr(), b, hq, hkv, sq, skv, d, int(causal), float(scale),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on(err, "flash_attention_dense_lse")
+    flash_dense_cuda.launches += 1
+    flash_dense_cuda.body_launches[plan.body] += 1
+    return out, lse
+
+
+def flash_bwd_cuda(q, k, v, out, dout, lse, kv_lens, q_offset, window, *,
+                   causal: bool, scale: float):
+    """The flash backward: q/out/dout (B,Hq,Sq,D), k/v (B,Hkv,Skv,D), all f32
+    or all bf16; lse (B,Hq,Sq) f32 from ``flash_dense_lse_cuda`` ->
+    (dq, dk, dv) in the inputs' dtype (f32 accumulation).  The body is
+    ``plan_bwd``'s.  Three launches of ``BWD_LIBRARY`` per call (delta =
+    rowsum(dO * O), the dQ pass, the dK/dV pass; four on the tensor-core
+    body past head dim 128, dV and dK apart), no atomics: the same bits
+    every call.  Each call adds one to ``launches`` and to its body's count
+    in ``body_launches``."""
+    b, hq, sq, d = q.shape
+    _check_dense(q, k, v, kv_lens, q_offset, window)
+    _check_common(q, {"out": out, "dout": dout}, {"kv_lens": kv_lens,
+                  "q_offset": q_offset, "window": window}, b)
+    _check(out.shape == q.shape and dout.shape == q.shape,
+           "out and dout must have q's shape")
+    _check(lse.dtype == torch.float32 and tuple(lse.shape) == (b, hq, sq)
+           and lse.is_contiguous() and lse.device == q.device,
+           "lse must be contiguous (B, Hq, Sq) f32 on q's device")
+    hkv, skv = k.shape[1], k.shape[2]
+    body = plan_bwd(q.dtype, d)
+    if sq == 0 or skv == 0:
+        dq = torch.zeros_like(q)
+        dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    else:
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    err = BWD_LIBRARY.get().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
+        window.data_ptr(), b, hq, hkv, sq, skv, d, int(causal), float(scale),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on(err, "flash_attention_bwd")
+    flash_bwd_cuda.launches += 1
+    flash_bwd_cuda.body_launches[body] += 1
+    return dq, dk, dv
+
+
 def reset_flash_counts():
     """Set the flash kernels' launch counts, total and per body, to 0."""
     flash_dense_cuda.launches = 0
+    flash_bwd_cuda.launches = 0
+    flash_bwd_cuda.body_launches = dict.fromkeys(BWD_BODIES, 0)
     flash_dense_cuda.body_launches = dict.fromkeys(BODIES, 0)
     for fn in (flash_paged_cuda, flash_paged_quant_cuda):
         fn.launches = 0
@@ -285,7 +403,7 @@ def _paged_split(q, k_pool, v_pool, k_scale, v_scale, page_table, kv_lens,
     kind = {torch.bfloat16: 0, torch.int8: 1,
             torch.float8_e4m3fn: 2}[k_pool.dtype]
     scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if kind else (None, None))
-    err = LIBRARY.get().flash_attention_paged_split(
+    err = PAGED_SPLIT_LIBRARY.get().flash_attention_paged_split(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
         out.data_ptr(), part.data_ptr(), page_table.data_ptr(),
         kv_lens.data_ptr(), q_offset.data_ptr(), window.data_ptr(), b, hq,
@@ -316,7 +434,7 @@ def flash_paged_cuda(q, k_pool, v_pool, page_table, kv_lens, q_offset, window,
                            q_offset, window, plan, causal, scale)
     else:
         out = torch.empty_like(q)
-        err = LIBRARY.get().flash_attention_paged(
+        err = PAGED_LIBRARY.get().flash_attention_paged(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
             page_table.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
             window.data_ptr(), b, hq, hkv, sq, d, ps, n_pages, n_pool,
@@ -366,7 +484,7 @@ def flash_paged_quant_cuda(q, k_pool, v_pool, k_scale, v_scale, page_table,
                            kv_lens, q_offset, window, plan, causal, scale)
     else:
         out = torch.empty_like(q)
-        err = LIBRARY.get().flash_attention_paged_quant(
+        err = PAGED_LIBRARY.get().flash_attention_paged_quant(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
             page_table.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),

@@ -7,6 +7,15 @@ nothing falls back), a CPU tensor to the plain PyTorch version in ``ref``.
 comparison); ``"kernel"`` and ``"xla"`` (the config default, kept so config
 files read as in the JAX package) both route by device.  The CUDA kernels
 mask their own ragged edges, so nothing is padded to block sizes here.
+
+Gradients: when grad mode is on and q, k or v requires grad, a dense call
+(``impl`` other than ``"naive"``) goes through ``_FlashAttention``, the port
+of the JAX package's custom VJP (``xla_impl._flash``): its forward also
+keeps each row's log-sum-exp (the CUDA kernel's ``lse`` instance on the
+card, ``ref.flash_fwd_lse`` on the CPU) and its backward is the two-pass
+``flash_bwd_cuda`` on the card, ``ref.flash_bwd`` on the CPU.  Serving runs
+under ``torch.inference_mode()`` and never takes it; paged mode is
+forward-only, as in JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +52,43 @@ def _window_vec(window, device):
     # host-to-device copy on every call
     w = NO_WINDOW if window is None else int(window)
     return torch.full((1,), w, dtype=torch.int32, device=device)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Dense flash attention with the JAX package's flash backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, q_offset, window, causal, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if q.is_cuda:
+            out, lse = _kernel.flash_dense_lse_cuda(
+                q, k, v, kv_lens, q_offset, window, causal=causal, scale=scale)
+        else:
+            out, lse = _ref.flash_fwd_lse(q, k, v, kv_lens=kv_lens,
+                                          q_offset=q_offset, window=window[0],
+                                          causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens, q_offset, window)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_lens, q_offset, window = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        if q.is_cuda:
+            dq, dk, dv = _kernel.flash_bwd_cuda(
+                q, k, v, out, dout, lse, kv_lens, q_offset, window,
+                causal=ctx.causal, scale=ctx.scale)
+        else:
+            dq, dk, dv = _ref.flash_bwd(q, k, v, out, dout, lse,
+                                        kv_lens=kv_lens, q_offset=q_offset,
+                                        window=window[0], causal=ctx.causal,
+                                        scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _use_plain(q, impl):
@@ -82,13 +128,17 @@ def flash_attention(q, k, v, *, kv_lens=None, causal: bool = False,
     skv = k.shape[2]
     kv_lens, q_offset = _defaults(b, sq, skv, kv_lens, q_offset, causal,
                                   q.device)
+    scale_f = float(d ** -0.5) if scale is None else float(scale)
+    if impl in IMPLS and impl != "naive" and _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, kv_lens, q_offset,
+                                     _window_vec(window, q.device), causal,
+                                     scale_f)
     if _use_plain(q, impl):
         return _ref.mha_ref(q, k, v, kv_lens=kv_lens, causal=causal,
                             window=window, q_offset=q_offset, scale=scale)
     return _kernel.flash_dense_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(), kv_lens, q_offset,
-        _window_vec(window, q.device), causal=causal,
-        scale=float(d ** -0.5) if scale is None else float(scale),
+        _window_vec(window, q.device), causal=causal, scale=scale_f,
         decode=decode)
 
 

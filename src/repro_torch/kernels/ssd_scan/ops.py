@@ -9,6 +9,13 @@ plain ``ssd_chunked_ref``.  ``impl="naive"`` always takes the plain version
 default, kept so config files read as in the JAX package) both route by
 device.  The plain path pads S to a multiple of ``chunk`` as the JAX op
 does; the kernel masks its own ragged edge, with the same result.
+
+Gradients: when grad mode is on and an input requires grad, a call other
+than ``impl="naive"`` goes through ``_SSDScan``.  Its forward is the route
+above (the CUDA kernel on the card); its backward recomputes the plain
+chunked scan under ``torch.enable_grad()`` and takes that graph's gradient,
+the gradient JAX takes (autodiff of ``ssd_chunked_ref``).  A hand-written
+SSD backward is later work (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -48,26 +55,67 @@ def ssd_scan(x, dt, A, B, C, D=None, *, seq_lens=None, h0=None,
         h0 = torch.zeros((bz, h, p, B.shape[-1]), dtype=torch.float32,
                          device=x.device)
 
-    if impl == "naive" or not x.is_cuda:
-        s_p = vla.pad_to_vl(s, chunk)
-        xp, dtp, Bp, Cp = x, dt, B, C
-        if s_p != s:
-            pad = s_p - s                                # dt = 0: inert steps
-            xp = F.pad(x, (0, 0, 0, 0, 0, pad))
-            dtp = F.pad(dt, (0, 0, 0, pad))
-            Bp = F.pad(B, (0, 0, 0, pad))
-            Cp = F.pad(C, (0, 0, 0, pad))
-        y, hT = ssd_chunked_ref(xp, dtp, A, Bp, Cp, None, h0=h0, chunk=chunk)
-        y = y[:, :s]
+    if impl == "naive":
+        y, hT = _plain(x, dt, A, B, C, h0, chunk)
+    elif torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C, h0)):
+        y, hT = _SSDScan.apply(x, dt, A, B, C, h0, chunk)
     else:
-        y, hT = _kernel.ssd_scan_cuda(
-            _aligned(x), dt.contiguous(), A.float().contiguous(),
-            _aligned(B.to(x.dtype)), _aligned(C.to(x.dtype)),
-            _aligned(h0.float()), chunk=chunk)
+        y, hT = _scan(x, dt, A, B, C, h0, chunk)
 
     if D is not None:
         y = (y.float() + D.float()[None, None, :, None] * x.float()).to(y.dtype)
     return y, hT
+
+
+def _plain(x, dt, A, B, C, h0, chunk):
+    """The plain chunked scan, S padded to a multiple of ``chunk`` with
+    inert (dt = 0) steps."""
+    s = x.shape[1]
+    pad = vla.pad_to_vl(s, chunk) - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    y, hT = ssd_chunked_ref(x, dt, A, B, C, None, h0=h0, chunk=chunk)
+    return y[:, :s], hT
+
+
+def _scan(x, dt, A, B, C, h0, chunk):
+    """The forward route: the kernel for a CUDA tensor, else the plain scan."""
+    if not x.is_cuda:
+        return _plain(x, dt, A, B, C, h0, chunk)
+    return _kernel.ssd_scan_cuda(
+        _aligned(x), dt.contiguous(), A.float().contiguous(),
+        _aligned(B.to(x.dtype)), _aligned(C.to(x.dtype)),
+        _aligned(h0.float()), chunk=chunk)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan with JAX's gradient: forward by ``_scan``, backward by
+    autograd through the recomputed plain scan."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, h0, chunk):
+        ctx.save_for_backward(x, dt, A, B, C, h0)
+        ctx.chunk = chunk
+        return _scan(x, dt, A, B, C, h0, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors
+        want = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w) for t, w in zip(saved, want)]
+            y, hT = _plain(*ins, ctx.chunk)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad((y, hT), wrt, (gy, gh),
+                                             allow_unused=True))
+        out = [next(grads) if w else None for w in want]
+        out = [torch.zeros_like(t) if w and g is None else g
+               for t, w, g in zip(saved, want, out)]
+        return (*out, None)
 
 
 def _aligned(t):

@@ -47,27 +47,12 @@ import torch
 
 from repro_torch.configs import all_arch_names, get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.launch.train import reduced
 from repro_torch.models import get_model
 from repro_torch.obs import Obs, Tracer
 from repro_torch.sample import SamplingParams
 from repro_torch.serve import ContinuousBatchingScheduler, ServeEngine
 from repro_torch.serve.chaos import ChaosConfig, ChaosMonkey
-
-# the reduced dims of repro.launch.train (training is not ported)
-REDUCE = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=256, n_heads=4,
-              n_kv_heads=2, head_dim=16, n_cross_tokens=16,
-              param_dtype="float32", compute_dtype="float32")
-
-# the JAX launcher's per-family extras on top of REDUCE
-REDUCE_FAMILY = {
-    "ssm": dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16),
-    "hybrid": dict(ssm_state=16, ssm_headdim=16, ssm_chunk=16, n_layers=5,
-                   shared_attn_period=2),
-    "moe": dict(n_experts=8, top_k=2, d_ff_dense=128),
-    "encdec": dict(n_enc_layers=2, n_dec_layers=2),
-}
-# the JAX launcher's depth for the vlm variant (two groups of 5)
-REDUCE_VLM = dict(n_layers=10)
 
 # the JAX launcher's options that are not ported yet -> (flag, ROADMAP item)
 PENDING_OPTIONS = (
@@ -192,8 +177,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:
-        cfg = cfg.replace(**{**REDUCE, **REDUCE_FAMILY.get(cfg.family, {}),
-                             **(REDUCE_VLM if cfg.cross_attn_group else {})})
+        cfg = reduced(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = get_model(cfg).init(cfg, gen, device)
     rng = np.random.RandomState(args.seed)

@@ -298,3 +298,45 @@ def decode(model: DenseLM, cfg, batch, cache):
     h = L.apply_norm(model.final_norm, h, cfg)
     logits = L.unembed(model.embed, h, cfg)[:, 0]
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _self_body(blk, h, positions, cfg, window, kv_lens):
+    return L.block_apply(blk, h, positions, cfg, causal=True, window=window,
+                         kv_lens=kv_lens)[0]
+
+
+def _vlm_group(self_blocks, cross_blk, h, positions, cfg, kv_lens, cross_emb):
+    """One vlm group: ``g - 2`` self layers, the cross layer over the image
+    embeddings (non-causal, no rope), the last self layer."""
+    pre = cfg.cross_attn_group - 2
+    for blk in list(self_blocks)[:pre]:
+        h = _self_body(blk, h, positions, cfg, None, kv_lens)
+    h, _ = L.block_apply(cross_blk, h, positions, cfg, kv_x=cross_emb,
+                         causal=False, use_rope=False)
+    return _self_body(self_blocks[pre], h, positions, cfg, None, kv_lens)
+
+
+def train_logits(model: DenseLM, cfg, batch):
+    """batch: tokens (B, S) [+ lens (B,)] [+ cross_emb (B, N, d)].  Returns
+    (logits (B, S, V), {}); each layer (each vlm group) under
+    ``layers.remat_wrap``, as in JAX."""
+    tokens = batch["tokens"]
+    positions = L.train_positions(tokens)
+    kv_lens = batch.get("lens")
+    h = L.embed(model.embed, tokens, cfg)
+    if cfg.cross_attn_group:
+        group = L.remat_wrap(_vlm_group, cfg)
+        for gi, cross in enumerate(model.groups["cross"]):
+            h = group(model.groups["self"][gi], cross, h, positions, cfg,
+                      kv_lens, batch["cross_emb"])
+    else:
+        body = L.remat_wrap(_self_body, cfg)
+        wins = layer_windows(cfg, tokens.device)
+        for li, blk in enumerate(model.blocks):
+            h = body(blk, h, positions, cfg, wins[li], kv_lens)
+    h = L.apply_norm(model.final_norm, h, cfg)
+    return L.unembed(model.embed, h, cfg), {}

@@ -145,15 +145,21 @@ def _dec_block_apply(p: DecBlock, x, positions, cfg, memory, *, src_lens=None,
 
 def encode(model: EncDecLM, cfg, src_emb, src_lens=None):
     """The encoder over the frame embeddings: non-causal self-attention
-    over each row's ``src_lens`` frames, then ``enc_norm``."""
+    over each row's ``src_lens`` frames, then ``enc_norm``; in training
+    each layer under ``layers.remat_wrap``."""
     b, s_src, _ = src_emb.shape
     positions = torch.arange(s_src, dtype=torch.int32,
                              device=src_emb.device)[None].expand(b, s_src)
     h = src_emb.to(L.cdt(cfg))
+    body = L.remat_wrap(_enc_body, cfg)
     for blk in model.enc_blocks:
-        h, _ = L.block_apply(blk, h, positions, cfg, causal=False,
-                             kv_lens=src_lens)
+        h = body(blk, h, positions, cfg, src_lens)
     return L.apply_norm(model.enc_norm, h, cfg)
+
+
+def _enc_body(blk, h, positions, cfg, src_lens):
+    return L.block_apply(blk, h, positions, cfg, causal=False,
+                         kv_lens=src_lens)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -299,3 +305,28 @@ def decode(model: EncDecLM, cfg, batch, cache):
     cache["pos"] = pos + 1
     h = L.apply_norm(model.final_norm, h, cfg)
     return L.unembed(model.embed, h, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _dec_body(blk, h, positions, cfg, memory, src_lens, lens):
+    return _dec_block_apply(blk, h, positions, cfg, memory, src_lens=src_lens,
+                            kv_lens=lens, causal=True)[0]
+
+
+def train_logits(model: EncDecLM, cfg, batch):
+    """batch: src_emb (B, Ss, d) [+ src_lens (B,)], tokens (B, St) [+ lens
+    (B,)].  Returns (logits (B, St, V), {}): ``encode``, then each decoder
+    layer under ``layers.remat_wrap``, as in JAX."""
+    src_lens = batch.get("src_lens")
+    memory = encode(model, cfg, batch["src_emb"], src_lens)
+    tokens = batch["tokens"]
+    positions = L.train_positions(tokens)
+    h = L.embed(model.embed, tokens, cfg)
+    body = L.remat_wrap(_dec_body, cfg)
+    for blk in model.dec_blocks:
+        h = body(blk, h, positions, cfg, memory, src_lens, batch.get("lens"))
+    h = L.apply_norm(model.final_norm, h, cfg)
+    return L.unembed(model.embed, h, cfg), {}

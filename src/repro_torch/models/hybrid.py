@@ -195,3 +195,31 @@ def decode(model: HybridLM, cfg, batch, cache):
     cache["pos"] = pos + 1
     h = L.apply_norm(model.final_norm, h, cfg)
     return L.unembed(model.embed, h, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _group_body(blocks, shared, h, positions, cfg, lens):
+    for blk in blocks:
+        h = S.mamba_block(blk, h, cfg, seq_lens=lens)[0]
+    return L.block_apply(shared, h, positions, cfg, causal=True,
+                         kv_lens=lens)[0]
+
+
+def train_logits(model: HybridLM, cfg, batch):
+    """batch: tokens (B, S) [+ lens (B,)].  Returns (logits (B, S, V), {});
+    each group (its Mamba blocks and the shared block) under
+    ``layers.remat_wrap``, the tail not, as in JAX."""
+    tokens = batch["tokens"]
+    lens = batch.get("lens")
+    positions = L.train_positions(tokens)
+    h = L.embed(model.embed, tokens, cfg)
+    group = L.remat_wrap(_group_body, cfg)
+    for blocks in model.main:
+        h = group(blocks, model.shared, h, positions, cfg, lens)
+    for blk in model.tail:
+        h = S.mamba_block(blk, h, cfg, seq_lens=lens)[0]
+    h = L.apply_norm(model.final_norm, h, cfg)
+    return L.unembed(model.embed, h, cfg), {}

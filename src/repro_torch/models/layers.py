@@ -18,13 +18,19 @@ Conventions
   over more threads) and round a row otherwise.  So a lane decodes the same bits in a burst of any width,
   and a prompt prefills the same bits whole, in a batch or in chunks — the
   contract ``LANE_INDEPENDENT_DECODE`` and chunked prefill rest on.
+* Training (``repro_torch.train``) runs the same functions on f32 master
+  weights cast to these dtypes per step (the embedding table stays f32: the
+  gather casts its rows), with each layer body under ``remat_wrap``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import paging as PG
 from repro_torch.kernels.flash_attention import flash_attention
@@ -166,8 +172,9 @@ class Embed(nn.Module):
 
 
 def embed(p: Embed, ids, cfg):
-    x = torch.index_select(p.tok, 0, ids.reshape(-1)).reshape(
-        ids.shape + (cfg.d_model,)).to(cdt(cfg))
+    # the gather of index_select, with a backward that sums each row's
+    # gradients in a fixed order (index_select's adds them by atomics)
+    x = F.embedding(ids, p.tok).to(cdt(cfg))
     if cfg.embed_scale:
         # a 0-d host tensor: rounded to the compute dtype as in JAX, and
         # passed to the kernel as a scalar (no host-to-device copy)
@@ -176,7 +183,7 @@ def embed(p: Embed, ids, cfg):
 
 
 def unembed(p: Embed, x, cfg):
-    w = p.tok.t() if cfg.tie_embeddings else p.unembed
+    w = (p.tok.t() if cfg.tie_embeddings else p.unembed).to(cdt(cfg))
     logits = linear(x.to(cdt(cfg)), w)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
@@ -410,3 +417,46 @@ def block_apply(p: Block, x, positions, cfg, *, causal=True, window=None,
         h2 = x + attn_out
         out = h2 + mlp(p.mlp, apply_norm(p.ln2, h2, cfg), cfg)
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing (training)
+# ---------------------------------------------------------------------------
+
+def train_positions(tokens):
+    """(B, S) int32 positions 0..S-1 of a training batch."""
+    b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32,
+                        device=tokens.device)[None].expand(b, s)
+
+
+#: the matmuls whose outputs ``remat="dots"`` keeps (JAX's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, cfg):
+    """Activation checkpointing of a layer body, as ``repro.models.layers.
+    remat_wrap``: ``cfg.remat`` "none" runs ``fn`` as is; "full" keeps only
+    the body's inputs and re-runs it in the backward
+    (``torch.utils.checkpoint``, non-reentrant); "dots" also keeps the
+    outputs of its matmuls (a selective checkpoint).  Outside grad mode
+    (serving) ``fn`` always runs as is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+    extra = ({} if cfg.remat == "full" else dict(context_fn=functools.partial(
+        _ckpt.create_selective_checkpoint_contexts, _dots_policy)))
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kw)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **extra, **kw)
+    return wrapped

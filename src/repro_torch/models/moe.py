@@ -1,5 +1,5 @@
 """MoE decoder LMs (olmoe-1b-7b, moonshot-v1-16b-a3b / Moonlight), mirroring
-``repro.models.moe`` without training.
+``repro.models.moe``.
 
 GShard-style grouped dispatch: tokens are reshaped to (G groups, Tg, d),
 routed to their top-k experts, ranked within each expert by the dispatch
@@ -129,21 +129,32 @@ def capacity(cfg, tokens_per_group: int) -> int:
     return max(8, ((c + 7) // 8) * 8)
 
 
-def route(p: MoEFFN, xt, cfg):
-    """xt (..., d) -> (gates (..., K) f32 renormalised, ids (..., K)
-    int32): softmax of the f32 router logits, then top-k."""
+def _router(p: MoEFFN, xt):
+    """The f32 router logits of xt (..., d) and their softmax."""
     logits = xt.float() @ p.router.float()                 # (..., E)
-    probs = torch.softmax(logits, dim=-1)
+    return logits, torch.softmax(logits, dim=-1)
+
+
+def _top_k(probs, cfg):
     gates, ids = torch.topk(probs, cfg.top_k, dim=-1)       # sorted, as lax.top_k
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     return gates, ids.to(torch.int32)
 
 
-def moe_ffn(p: MoEFFN, x, cfg):
+def route(p: MoEFFN, xt, cfg):
+    """xt (..., d) -> (gates (..., K) f32 renormalised, ids (..., K)
+    int32): softmax of the f32 router logits, then top-k."""
+    return _top_k(_router(p, xt)[1], cfg)
+
+
+def moe_ffn(p: MoEFFN, x, cfg, *, aux: bool = False):
     """x (B, S, d) -> y (B, S, d): all B*S positions form one dispatch
     group.  (The JAX function splits them into ``cfg.moe_groups`` groups,
-    one per data shard, and also returns the router's aux metrics; the port
-    has no mesh, and serving discards the metrics.)"""
+    one per data shard; the port has no mesh.)  With ``aux`` (training)
+    returns (y, metrics): the Switch load-balance loss ``lb_loss``, the
+    router z-loss ``router_z`` and ``dropped_frac``, as JAX computes them.
+    The gates keep their graph through the dispatch: only the integer
+    ranks come from the kernel."""
     if cfg.moe_groups != 1:
         raise NotImplementedError(
             "moe_groups > 1 splits tokens over data shards; the port has no "
@@ -155,7 +166,8 @@ def moe_ffn(p: MoEFFN, x, cfg):
     cd = L.cdt(cfg)
 
     xt = x.reshape(t, d)
-    gates, ids = route(p, xt, cfg)
+    logits, probs = _router(p, xt)
+    gates, ids = _top_k(probs, cfg)
     disp = build_dispatch(ids, gates, e, cap)
 
     # gather tokens into expert buffers (E, C, d); row T is zero
@@ -171,7 +183,15 @@ def moe_ffn(p: MoEFFN, x, cfg):
     y = (contrib * disp["gates"][..., None].to(contrib.dtype)).sum(dim=1)
     if p.shared is not None:
         y = y + L.mlp(p.shared, xt, cfg).to(y.dtype)
-    return y.reshape(b, s, d).to(x.dtype)
+    y = y.reshape(b, s, d).to(x.dtype)
+    if not aux:
+        return y
+    # Switch load balance (top-1 fraction x mean prob) and router z-loss
+    f_e = F.one_hot(ids[:, 0].long(), e).float().mean(0)
+    lb = e * (f_e * probs.mean(0)).sum()
+    z = torch.logsumexp(logits, dim=-1).square().mean()
+    return y, {"lb_loss": lb, "router_z": z,
+               "dropped_frac": disp["dropped"].float() / float(t * k)}
 
 
 def moe_block_apply(p: MoEBlock, x, positions, cfg, *, kv_lens=None,
@@ -294,3 +314,41 @@ def decode(model: MoELM, cfg, batch, cache):
     cache["pos"] = pos + 1
     h = L.apply_norm(model.final_norm, h, cfg)
     return L.unembed(model.embed, h, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _dense_body(blk, h, positions, cfg, kv_lens):
+    return L.block_apply(blk, h, positions, cfg, causal=True,
+                         kv_lens=kv_lens)[0]
+
+
+def _moe_body(blk: MoEBlock, h, positions, cfg, kv_lens):
+    attn_out, _ = L.attention(blk.attn, L.apply_norm(blk.ln1, h, cfg),
+                              positions, cfg, causal=True, kv_lens=kv_lens)
+    h2 = h + attn_out
+    y, metrics = moe_ffn(blk.moe, L.apply_norm(blk.ln2, h2, cfg), cfg, aux=True)
+    return h2 + y, metrics
+
+
+def train_logits(model: MoELM, cfg, batch):
+    """batch: tokens (B, S) [+ lens (B,)].  Returns (logits (B, S, V), aux):
+    aux holds each router metric's mean over the MoE layers; each layer
+    under ``layers.remat_wrap``, as in JAX."""
+    tokens = batch["tokens"]
+    kv_lens = batch.get("lens")
+    positions = L.train_positions(tokens)
+    h = L.embed(model.embed, tokens, cfg)
+    dense_body = L.remat_wrap(_dense_body, cfg)
+    for blk in model.dense_blocks:
+        h = dense_body(blk, h, positions, cfg, kv_lens)
+    body = L.remat_wrap(_moe_body, cfg)
+    metrics = []
+    for blk in model.blocks:
+        h, m = body(blk, h, positions, cfg, kv_lens)
+        metrics.append(m)
+    aux = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+    h = L.apply_norm(model.final_norm, h, cfg)
+    return L.unembed(model.embed, h, cfg), aux

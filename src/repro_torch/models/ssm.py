@@ -332,3 +332,23 @@ def decode(model: SSMLM, cfg, batch, cache):
     cache["pos"] = cache["pos"] + 1
     h = L.apply_norm(model.final_norm, h, cfg)
     return L.unembed(model.embed, h, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _block_body(blk, h, cfg, seq_lens):
+    return mamba_block(blk, h, cfg, seq_lens=seq_lens)[0]
+
+
+def train_logits(model: SSMLM, cfg, batch):
+    """batch: tokens (B, S) [+ lens (B,)].  Returns (logits (B, S, V), {});
+    each block under ``layers.remat_wrap``, as in JAX."""
+    seq_lens = batch.get("lens")
+    h = L.embed(model.embed, batch["tokens"], cfg)
+    body = L.remat_wrap(_block_body, cfg)
+    for blk in model.blocks:
+        h = body(blk, h, cfg, seq_lens)
+    h = L.apply_norm(model.final_norm, h, cfg)
+    return L.unembed(model.embed, h, cfg), {}
