@@ -110,13 +110,14 @@
    twice, the same tokens).
 4. Runs the port's quickstart (daxpy, Fig. 2; fadda, §2.4) on the card.
 5. Trains (``repro_torch.train``): holds the flash backward
-   (``flash_attention_bwd.cu``: its tensor-core body for bf16, its
-   CUDA-core body for f32) and the forward's lse against the plain
-   versions over the mask matrix, head dims 64/80/128/160 and GQA groups
-   1 and 4 (``check_flash_bwd``: f32, bf16 at ``TOL["bwd"]``, fully masked
+   (``flash_attention_bwd.cu``: its wgmma body for bf16, its CUDA-core
+   body for f32) and the forward's lse against the plain versions over the
+   mask matrix, head dims 64/80/100/128/160 (100 zero-padded) and GQA
+   groups 1 and 4 (``check_flash_bwd``: f32, bf16 at ``TOL["bwd"]``, fully masked
    rows 0, two calls equal bit for bit), then holds and times it at
-   stablelm-3b's and stablelm-12b's training shapes beside the plain and
-   SDPA backwards (``time_flash_bwd``); holds
+   stablelm-3b's and stablelm-12b's training shapes, and at stablelm-3b's
+   training batch's own lengths, beside the plain and SDPA backwards
+   (``time_flash_bwd``); holds
    one train step of the VLM, encdec and MoE at reduced dims on the card
    against the CPU (``check_train_families``); trains stablelm-3b at full
    width (``train_stablelm_3b``: seq 4096 x batch 2, remat full, 5 steps,
@@ -192,6 +193,18 @@ moe_positions blocks' redundant counting and its rounds per warp.  With
 ``git archive <commit> src/repro_torch/kernels | tar -x -C DIR``), also the
 old fadda body's phases and both trees' kernels timed in turns, with the
 host's enqueue time per ``moe_positions_cuda`` call.
+
+    python3 chip_smoke.py --bwd-probes [--parent DIR]
+
+builds the backward and runs only the measurements behind its wgmma body
+(``bwd_probes``): ptxas's registers, shared memory and spills for every
+instance, each head dim's launch plan, and at stablelm-3b's and
+stablelm-12b's training shapes a copy of the body with P and dS as one
+bf16 operand, held against the plain backward and timed beside it.  With
+``--parent DIR``, a tree holding the kernels before the redesign (e.g.
+``git archive <commit> src/repro_torch/kernels | tar -x -C DIR``), also
+the parent's backward built beside it and both timed in turns at those
+shapes, with ``scaled_dot_product_attention``'s backward.
 """
 
 from __future__ import annotations
@@ -202,6 +215,7 @@ import ctypes
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -470,7 +484,7 @@ PAGED_MASKS = ((False, None), (True, None), (True, 37))
 # paged CUDA-core body in bf16 (chunks of more than 16 rows) is held as
 # since it was written.
 # The backward (``check_flash_bwd``, ``time_flash_bwd``) in bf16: its
-# tensor-core body computes in f32 from the same bf16 values as the plain
+# wgmma body computes in f32 from the same bf16 values as the plain
 # backward (P and dS enter its products as hi + lo bf16 halves) and rounds
 # each gradient once to bf16, so they may differ by one bf16 step (2^-7 of
 # the value) plus the f32 sums' disagreement near 0 (atol).
@@ -5176,7 +5190,8 @@ MOE_NO_PREFIX = ("    count_ids(ids, q * part, part, share, e, vec);\n", "")
 def ptxas_report(sources) -> None:
     """What ptxas says of each kernel of ``sources`` (source paths, or
     ``Library`` objects, built with their defines) (registers, spills,
-    stack), from a build with ``-Xptxas -v`` into build/, where the
+    stack, and its performance notes and warnings, such as serialized
+    wgmma), from a build with ``-Xptxas -v`` into build/, where the
     library's SASS (cuobjdump) is also written, beside it."""
     from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, nvcc_path
 
@@ -5199,7 +5214,8 @@ def ptxas_report(sources) -> None:
             so.with_suffix(".sass").write_text(sass.stdout + sass.stderr)
             lines = [ln.strip() for ln in text.splitlines()
                      if "Compiling entry" in ln or "registers" in ln
-                     or "spill" in ln or "stack frame" in ln]
+                     or "spill" in ln or "stack frame" in ln
+                     or "Performance" in ln or "warning" in ln]
             name = " ".join([Path(src).name, *getattr(item, "flags", list)()])
             for ln in lines:
                 print(f"[probe] ptxas {name}: {ln}", flush=True)
@@ -5541,7 +5557,8 @@ BWD_CASES = (
     (2, 2, 1, 300, 128, False, None, None),
     (3, 1, 4, 50, 200, True, None, (150, -5, 0)),
 )
-BWD_HEAD_DIMS = (64, 80, 128, 160)
+# the configs' head dims, and 100, which the bf16 body zero-pads to 128
+BWD_HEAD_DIMS = (64, 80, 100, 128, 160)
 # The backward against the plain backward in f32 (both sum in f32 in other
 # orders; bf16 at TOL["bwd"]), and the forward's lse, f32 and bf16 alike:
 # both forwards sum the same products of the same (bf16) values and their
@@ -5672,71 +5689,118 @@ def check_flash_bwd() -> dict:
     return worst
 
 
+# The backward's timed shapes (b, hq, hkv, s, d), causal: stablelm-3b's and
+# stablelm-12b's training shapes at full length, and stablelm-3b's at the
+# lengths of ``train_stablelm_3b``'s own batch (kv_lens from
+# ``_train_batch``, printed in the row's shape)
+BWD_SHAPES = (("bwd_stablelm_3b", (2, 32, 32, 4096, 80), False),
+              ("bwd_stablelm_12b", (2, 32, 8, 4096, 160), False),
+              ("bwd_stablelm_3b_batch", (2, 32, 32, 4096, 80), True))
+
+
+def _bwd_shape(gen, b, h, hkv, s, d, batch_lens: bool) -> dict:
+    """Random bf16 q, k, v, dout of one ``BWD_SHAPES`` row, its kv_lens
+    (full, or the training batch's), and the kernel forward's out and lse."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ops import NO_WINDOW
+
+    bf = torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
+    x = dict(q=rnd(b, h, s, d), k=rnd(b, hkv, s, d), v=rnd(b, hkv, s, d),
+             dout=rnd(b, h, s, d))
+    x["lens"] = (_train_batch(get_config("stablelm_3b"), s, b)["lens"] if batch_lens
+                 else torch.full((b,), s, dtype=torch.int32, device="cuda"))
+    x["zero"] = torch.zeros(b, dtype=torch.int32, device="cuda")
+    x["win"] = torch.tensor([NO_WINDOW], dtype=torch.int32, device="cuda")
+    x["scale"] = d ** -0.5
+    x["out"], x["lse"] = K.flash_dense_lse_cuda(
+        x["q"], x["k"], x["v"], x["lens"], x["zero"], x["win"], causal=True,
+        scale=x["scale"])
+    return x
+
+
+def _bwd_call(K, x):
+    """The backward of wrapper module ``K`` on ``_bwd_shape``'s inputs."""
+    return lambda: K.flash_bwd_cuda(x["q"], x["k"], x["v"], x["out"], x["dout"],
+                                    x["lse"], x["lens"], x["zero"], x["win"],
+                                    causal=True, scale=x["scale"])
+
+
+def _bwd_ratios(got, x) -> dict:
+    """dq, dk, dv against the plain backward at ``TOL["bwd"]``."""
+    from repro_torch.kernels.flash_attention import ref as R
+
+    want = R.flash_bwd(x["q"], x["k"], x["v"], x["out"], x["dout"], x["lse"],
+                       kv_lens=x["lens"], q_offset=x["zero"], causal=True,
+                       scale=x["scale"])
+    return {f"d{n}": tol_ratio(g, w, *TOL["bwd"]) for n, g, w in zip("qkv", got, want)}
+
+
 def time_flash_bwd(gpu) -> dict:
-    """The backward at stablelm-3b's training shape (q/k/v (2, 32, 4096,
-    80) bf16, causal) and at stablelm-12b's head dim 160 (32 query heads
-    over 8 KV heads), held there against the plain backward at
-    ``TOL["bwd"]`` and the forward's lse against the plain forward's at
-    ``LSE_TOL`` (each ratio printed), and timed beside the plain backward
-    (``time_wall_ms``: its host is the slower side), the bound (5 products of
-    S x S x D over the live pairs at the bf16 peak, or the bytes: q, k, v,
-    O, dO and lse read once, dQ, dK, dV written once) and the backward of
-    ``scaled_dot_product_attention`` (causal) on the same inputs."""
+    """The backward at ``BWD_SHAPES`` (bf16, causal), held there against the
+    plain backward at ``TOL["bwd"]`` and the forward's lse against the plain
+    forward's at ``LSE_TOL`` (each ratio printed), and timed beside the
+    plain backward (``time_wall_ms``: its host is the slower side), the
+    bound (5 products of S x S x D over the live pairs at the bf16 peak, or
+    the bytes: q, k, v, O, dO and lse read once, dQ, dK, dV written once)
+    and the backward of ``scaled_dot_product_attention`` (causal; at the
+    batch's lengths with the rows' key mask) on the same inputs; each row's
+    share of its bound printed."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
-    from repro_torch.kernels.flash_attention.ops import NO_WINDOW
 
     gen = torch.Generator(device="cuda").manual_seed(15)
     rows = {}
-    for name, (b, h, hkv, s, d) in (("bwd_stablelm_3b", (2, 32, 32, 4096, 80)),
-                                    ("bwd_stablelm_12b", (2, 32, 8, 4096, 160))):
-        bf = torch.bfloat16
-        rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(bf)
-        q, k, v, dout = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), rnd(b, h, s, d)
-        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
-        zero = torch.zeros(b, dtype=torch.int32, device="cuda")
-        win = torch.tensor([NO_WINDOW], dtype=torch.int32, device="cuda")
-        scale = d ** -0.5
-        out, lse = K.flash_dense_lse_cuda(q, k, v, lens, zero, win, causal=True,
-                                          scale=scale)
-        kern = lambda: K.flash_bwd_cuda(q, k, v, out, dout, lse, lens, zero, win,
-                                        causal=True, scale=scale)
-        plain = lambda: R.flash_bwd(q, k, v, out, dout, lse, kv_lens=lens,
-                                    q_offset=zero, causal=True, scale=scale)
+    for name, (b, h, hkv, s, d), batch_lens in BWD_SHAPES:
+        x = _bwd_shape(gen, b, h, hkv, s, d, batch_lens)
+        q, k, lens, scale = x["q"], x["k"], x["lens"], x["scale"]
+        kern = _bwd_call(K, x)
+        plain = lambda: R.flash_bwd(q, k, x["v"], x["out"], x["dout"], x["lse"],
+                                    kv_lens=lens, q_offset=x["zero"], causal=True,
+                                    scale=scale)
         got, want = kern(), plain()
-        lse_p = R.flash_fwd_lse(q, k, v, kv_lens=lens, q_offset=zero, causal=True,
-                                scale=scale)[1]
+        lse_p = R.flash_fwd_lse(q, k, x["v"], kv_lens=lens, q_offset=x["zero"],
+                                causal=True, scale=scale)[1]
         torch.cuda.synchronize()
         err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         ratios = {f"d{n}": tol_ratio(g, w, *TOL["bwd"])
                   for n, g, w in zip("qkv", got, want)}
-        ratios["lse"] = tol_ratio(lse, lse_p, *LSE_TOL)
+        ratios["lse"] = tol_ratio(x["lse"], lse_p, *LSE_TOL)
         del got, want, lse_p
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale,
-                                              enable_gqa=h != hkv)
-        lib = lambda: torch.autograd.grad(sdpa, leaves, dout, retain_graph=True)
+        leaves = [t.clone().requires_grad_() for t in (q, k, x["v"])]
+        if batch_lens:      # the rows' keys: causal and under each lane's length
+            i = torch.arange(s, device="cuda")
+            mask = (i[None, :] <= i[:, None])[None] & (i[None, None, :] < lens[:, None, None])
+            sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:, None],
+                                                  scale=scale, enable_gqa=h != hkv)
+        else:
+            sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale,
+                                                  enable_gqa=h != hkv)
+        lib = lambda: torch.autograd.grad(sdpa, leaves, x["dout"], retain_graph=True)
         K.reset_flash_counts()
         kern()
         launches = K.flash_bwd_cuda.launches
         body = K.plan_bwd(q.dtype, d)
-        pairs = b * h * s * (s + 1) // 2
+        pairs = h * _causal_pairs(lens, s)
         rows[name] = dict(
-            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+            shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"
+                  + (f", kv_lens {lens.tolist()}" if batch_lens else ""),
             body=body, ms=time_ms(kern, 5), plain_ms=time_wall_ms(plain, 2),
             library_ms=time_ms(lib, 5), flops=2 * 5 * d * pairs,
-            bytes=2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
-            max_abs_err=err, launches_per_call=launches, tol_ratio=ratios)
-        del sdpa, leaves, out, lse, q, k, v, dout
+            bytes=2 * (4 * q.numel() + 4 * k.numel()) + 4 * x["lse"].numel(),
+            max_abs_err=err, launches_per_call=launches, tol_ratio=ratios,
+            kernel_launches=K.plan_bwd_launch(d).launches)
+        del sdpa, leaves, x, q, k
         torch.cuda.empty_cache()
     print_rows(rows, gpu)
     for name, r in rows.items():
-        print(f"[time] {name}: {r['launches_per_call']} wrapper call = 3 kernel "
-              f"launches (delta, dQ, dK/dV; 4 past D 128, dV and dK apart) on the "
-              f"{r['body']} body; kernel / bound "
-              f"{r['ms'] / r['bound_ms']:.1f}x, kernel / library "
-              f"{r['ms'] / r['library_ms']:.1f}x; against the plain versions "
+        print(f"[time] {name}: {r['launches_per_call']} wrapper call = "
+              f"{r['kernel_launches']} kernel launches (delta, dQ, dK/dV) on the "
+              f"{r['body']} body; bound / kernel {r['bound_ms'] / r['ms']:.3f} "
+              f"(kernel / bound {r['ms'] / r['bound_ms']:.1f}x), kernel / library "
+              f"{r['ms'] / r['library_ms']:.2f}x; against the plain versions "
               f"tol_ratio (dq, dk, dv at {TOL['bwd']}, lse at {LSE_TOL}) "
               + ", ".join(f"{k} {v:.3f}" for k, v in r["tol_ratio"].items())
               + f"  [{gpu}]", flush=True)
@@ -5745,6 +5809,108 @@ def time_flash_bwd(gpu) -> dict:
             check(v <= 1.0, f"{name}: {k} against the plain version at "
                   f"{v:.3f} of its limit")
     return rows
+
+
+def _device_split(fn) -> dict:
+    """Device ms by kernel name of one call of ``fn`` under ``torch.profiler``
+    (after one warm call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.search(r"\w+(<[^>]*>)?(?=\()", e.name)
+            out[name.group(0) if name else e.name[:60]] += (
+                e.time_range.end - e.time_range.start) / 1e3
+    return dict(out)
+
+
+# The wgmma body with P and dS as ONE bf16 operand: its lo products dropped
+# (``--bwd-probes`` times it and holds it against ``TOL["bwd"]``)
+BWD_ONE_BF16 = (
+    "      wgmma_rs<DP>(dq, lo[kc], desc_sw128(k_a + kc * 16 * kRowBytes, KBOX));\n",
+    "      wgmma_rs<DP>(dv, plo[kc], desc_sw128(do_a + kc * 16 * kRowBytes, QBOX));\n",
+    "      wgmma_rs<DP>(dk, dlo[kc], desc_sw128(q_a + kc * 16 * kRowBytes, QBOX));\n",
+)
+
+
+def bwd_probes(gpu, parent=None):
+    """Measurements behind the wgmma backward, apart from the smoke run:
+    ptxas's registers, shared memory and spills for every instance of
+    ``flash_attention_bwd.cu`` and each head dim's launch plan
+    (``plan_bwd_launch``); at the two training shapes of ``BWD_SHAPES``, a
+    copy of the body with P and dS as one bf16 operand (``BWD_ONE_BF16``)
+    held against the plain backward and timed beside the shipped body.
+    With ``parent`` (a tree holding the kernels before the redesign, e.g.
+    ``git archive <commit> src/repro_torch/kernels | tar -x -C DIR``), the
+    parent's ``flash_attention_bwd.cu`` is built beside it and the two are
+    timed in turns (old, new, new, old) at both shapes, with
+    ``scaled_dot_product_attention``'s backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    src = K.BWD_SOURCE.read_text()
+    for old in BWD_ONE_BF16:
+        src = _replace_once(src, old, "")
+    libs = {"one_bf16": _probe_library("flash_attention_bwd_one_bf16", src,
+                                       K.BWD_LIBRARY.signatures)}
+    old_k = None
+    if parent:
+        old_k = _load_module(Path(parent) / "src" / "repro_torch" / "kernels"
+                             / "flash_attention" / "kernel.py", "parent_flash_kernel")
+        libs["old"] = old_k.BWD_LIBRARY
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(), libs.values()))
+    ptxas_report([K.BWD_LIBRARY])
+    for d in K.BWD_HEAD_DIMS:
+        print(f"[probe] plan_bwd_launch({d}): {K.plan_bwd_launch(d)}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    shipped = K.BWD_LIBRARY
+    for name, (b, h, hkv, s, d), batch_lens in BWD_SHAPES[:2]:
+        x = _bwd_shape(gen, b, h, hkv, s, d, batch_lens)
+        new = _bwd_call(K, x)
+        new_r = _bwd_ratios(new(), x)
+        try:
+            K.BWD_LIBRARY = libs["one_bf16"]
+            one_r = _bwd_ratios(new(), x)
+            turns = [time_ms(new, 5)]
+        finally:
+            K.BWD_LIBRARY = shipped
+        turns += [time_ms(new, 5)]
+        print(f"[probe] {name}: P and dS as one bf16 operand {turns[0]:.4f} ms, "
+              f"hi + lo (shipped) {turns[1]:.4f} ms; tol_ratio at {TOL['bwd']} "
+              f"one bf16 {', '.join(f'{k} {v:.3f}' for k, v in one_r.items())}; "
+              f"hi + lo {', '.join(f'{k} {v:.3f}' for k, v in new_r.items())}  "
+              f"[{gpu}]", flush=True)
+        check(max(new_r.values()) <= 1.0, f"{name}: the shipped body at {new_r}")
+        split = _device_split(new)
+        print(f"[probe] {name}: device ms by kernel (one profiled call) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f"  [{gpu}]",
+              flush=True)
+        if old_k is not None:
+            old = _bwd_call(old_k, x)
+            old_r = _bwd_ratios(old(), x)
+            leaves = [t.clone().requires_grad_() for t in (x["q"], x["k"], x["v"])]
+            sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  scale=x["scale"], enable_gqa=h != hkv)
+            lib = lambda: torch.autograd.grad(sdpa, leaves, x["dout"], retain_graph=True)
+            turns = [time_ms(fn, 5) for fn in (old, new, new, old, lib)]
+            print(f"[probe] {name}: parent's body {turns[0]:.4f} / {turns[3]:.4f} ms, "
+                  f"wgmma body {turns[1]:.4f} / {turns[2]:.4f} ms (turns: old, new, "
+                  f"new, old; {(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x), "
+                  f"scaled_dot_product_attention's backward {turns[4]:.4f} ms; the "
+                  f"parent's tol_ratio {', '.join(f'{k} {v:.3f}' for k, v in old_r.items())}"
+                  f"  [{gpu}]", flush=True)
+            del sdpa, leaves
+        del x
+        torch.cuda.empty_cache()
 
 
 # The training legs: stablelm-3b at full width (32 x d 2560) on the
@@ -5994,9 +6160,9 @@ def train_stablelm_3b(gpu) -> dict:
     check(counts == want, f"stablelm-3b training launches {counts}, expected {want}")
     check(bodies["flash_attention_dense"]["tensor_core"] == 2 * layers * TRAIN_STEPS,
           f"the training forward's bodies {bodies['flash_attention_dense']}")
-    check(bwd_bodies["tensor_core"] == layers * TRAIN_STEPS,
+    check(bwd_bodies[K.WGMMA] == layers * TRAIN_STEPS,
           f"the training backward's bodies {bwd_bodies}")
-    return counts
+    return dict(counts, bwd_bodies=bwd_bodies)
 
 
 # Small f32 twins of the families whose training does not run at full width
@@ -6170,6 +6336,10 @@ def main() -> int:
         parent = args[args.index("--parent") + 1] if "--parent" in args else None
         phase("fadda probes", fadda_probes, gpu, parent)
         return 0
+    if "--bwd-probes" in args:
+        parent = args[args.index("--parent") + 1] if "--parent" in args else None
+        phase("bwd probes", bwd_probes, gpu, parent)
+        return 0
     if "--cross" in args:
         phase("check cross roles", check_cross_roles, flash_attention)
         phase("time cross", time_cross, gpu)
@@ -6259,6 +6429,7 @@ def main() -> int:
           f"counted runs: {launches}; the flash "
           f"kernels by body over every generate and speculative leg: {bodies}; "
           f"the cross-attention roles' check: {cross_bodies}", flush=True)
+    bodies["flash_attention_bwd"] = train_counts[0]["bwd_bodies"]
     entries = []
     for name, row, source, replaces in (
             ("flash_attention_dense", rows["dense_prefill"], SRC_CU,

@@ -46,7 +46,8 @@ integer launch count (``flash_dense_cuda.launches``,
 ``flash_bwd_cuda.launches``) that grows by one per call, and the calls per
 body in ``body_launches`` (``flash_dense_lse_cuda`` counts as a call of
 ``flash_dense_cuda``).  The backward has two bodies (``plan_bwd``):
-``tensor_core`` (bf16, ``mma.sync``) and ``cuda_core`` (f32).
+``wgmma`` (bf16: warpgroup ``wgmma`` fed by a TMA ring, its launch plan
+``plan_bwd_launch``) and ``cuda_core`` (f32).
 """
 
 from __future__ import annotations
@@ -108,9 +109,9 @@ LSE_LIBRARY = Library(SOURCE, {
 }, defines=("FLASH_BUILD_LSE",))
 LIBRARIES = (DENSE_LIBRARY, PAGED_SPLIT_LIBRARY, PAGED_LIBRARY, LSE_LIBRARY)
 # q, k, v, o, dout, lse, delta, dq, dk, dv, kv_lens, q_offset, window, b,
-# hq, hkv, sq, skv, d, causal, scale, is_bf16, stream
+# hq, hkv, sq, skv, d, causal, scale, is_bf16, smem_dq, smem_kv, stream
 BWD_LIBRARY = Library(BWD_SOURCE, {
-    "flash_attention_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    "flash_attention_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _I, _I, _I, _P],
 })
 
 
@@ -139,9 +140,10 @@ def _check_common(q, tensors: dict, ints: dict, b: int):
 
 # The bodies; the wrappers pick one by ``plan_dense`` / ``plan_paged``.
 TENSOR_CORE, SPLIT_KV, CUDA_CORE = "tensor_core", "split_kv", "cuda_core"
+WGMMA = "wgmma"
 BODIES = (TENSOR_CORE, SPLIT_KV, CUDA_CORE)
 PAGED_BODIES = (SPLIT_KV, CUDA_CORE)
-BWD_BODIES = (TENSOR_CORE, CUDA_CORE)
+BWD_BODIES = (WGMMA, CUDA_CORE)
 SPLIT_ROWS = 16        # most rows (group * Sq) the split-KV body serves
 SPLIT_KEYS = 128       # keys per split while a lane holds <= 64 splits of it
 MAX_SPLITS = 64        # most splits of one lane: past it the span doubles
@@ -250,14 +252,57 @@ def plan_paged(dtype, pool_dtype, b: int, hq: int, hkv: int, sq: int,
 
 
 def plan_bwd(dtype, d: int) -> str:
-    """The backward's body: ``tensor_core`` (``mma.sync``) for bf16, at
-    every head dim (past 128 dK and dV take a launch each), ``cuda_core``
-    for f32 (the tensor cores would round it to TF32)."""
+    """The backward's body: ``wgmma`` for bf16, at every head dim
+    (``plan_bwd_launch``), ``cuda_core`` for f32 (the tensor cores would
+    round it to TF32)."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype {dtype} not in {_DTYPES}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
-    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
+    return WGMMA if dtype == torch.bfloat16 else CUDA_CORE
+
+
+# The wgmma body's instances: any other head dim is padded with zero
+# columns to the next of these
+BWD_HEAD_DIMS = (64, 80, 128, 160)
+BWD_CTA_ROWS = 128     # query rows (dQ pass) or keys (dK/dV pass) of a CTA
+BWD_TILE_KEYS = 64     # keys per tile of the dQ pass
+
+
+class BwdLaunch(NamedTuple):
+    """How the wgmma backward runs one call at head dim ``d``: the head dim
+    it pads to (``d_pad``), the 128-byte boxes of 64 columns a row takes
+    (``boxes``), the query rows of a dK/dV tile (``q_tile``), each pass's
+    ring stages and dynamic shared-memory bytes, and the kernel launches of
+    one call (delta, dQ, dK/dV).  ``csrc/flash_attention_bwd.cu``'s
+    ``WgPlan`` computes the same, and the launcher refuses a call whose
+    shared-memory sizes differ from its own."""
+    d_pad: int
+    boxes: int
+    q_tile: int
+    stages_dq: int
+    stages_kv: int
+    smem_dq: int
+    smem_kv: int
+    launches: int
+
+
+def plan_bwd_launch(d: int) -> BwdLaunch:
+    """The wgmma body's plan at head dim ``d`` (the wrapper's own): the
+    dK/dV pass walks query tiles of 64 rows, 48 at D 128 and 32 at D 160,
+    so that dK and dV of 64 keys x D fit the consumers' registers beside
+    S^T and dP^T with no spill, in one launch."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} not in 1..{MAX_HEAD_DIM}")
+    dp = next(w for w in BWD_HEAD_DIMS if w >= d)
+    boxes = -(-dp // 64)
+    q_tile = 32 if dp > 128 else (48 if dp > 80 else 64)
+    stages_dq, stages_kv = (2 if dp > 128 else 4), 4
+    rows = 2 * boxes * BWD_CTA_ROWS * 128          # the CTA's own rows, two tensors
+    smem_dq = 1024 + rows + stages_dq * 2 * boxes * BWD_TILE_KEYS * 128 + 256
+    smem_kv = (1024 + rows + stages_kv * (2 * boxes * q_tile * 128 + 2 * q_tile * 4)
+               + 256)
+    return BwdLaunch(dp, boxes, q_tile, stages_dq, stages_kv, smem_dq, smem_kv, 3)
 
 
 def _check_dense(q, k, v, kv_lens, q_offset, window):
@@ -328,16 +373,23 @@ def flash_dense_lse_cuda(q, k, v, kv_lens, q_offset, window, *, causal: bool,
     return out, lse
 
 
+def _aligned(t):
+    """``t``, or a copy of it where it does not start on 16 bytes (TMA's
+    alignment)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_bwd_cuda(q, k, v, out, dout, lse, kv_lens, q_offset, window, *,
                    causal: bool, scale: float):
     """The flash backward: q/out/dout (B,Hq,Sq,D), k/v (B,Hkv,Skv,D), all f32
     or all bf16; lse (B,Hq,Sq) f32 from ``flash_dense_lse_cuda`` ->
     (dq, dk, dv) in the inputs' dtype (f32 accumulation).  The body is
-    ``plan_bwd``'s.  Three launches of ``BWD_LIBRARY`` per call (delta =
-    rowsum(dO * O), the dQ pass, the dK/dV pass; four on the tensor-core
-    body past head dim 128, dV and dK apart), no atomics: the same bits
-    every call.  Each call adds one to ``launches`` and to its body's count
-    in ``body_launches``."""
+    ``plan_bwd``'s.  Three launches of ``BWD_LIBRARY`` per call on either
+    body (delta = rowsum(dO * O), the dQ pass, the dK/dV pass), no
+    atomics: the same bits every call.  bf16 runs ``plan_bwd_launch(D)``:
+    a head dim other than 64, 80, 128 or 160 is padded with zero columns
+    (copies) and the gradients cut back.  Each call adds one to
+    ``launches`` and to its body's count in ``body_launches``."""
     b, hq, sq, d = q.shape
     _check_dense(q, k, v, kv_lens, q_offset, window)
     _check_common(q, {"out": out, "dout": dout}, {"kv_lens": kv_lens,
@@ -349,6 +401,15 @@ def flash_bwd_cuda(q, k, v, out, dout, lse, kv_lens, q_offset, window, *,
            "lse must be contiguous (B, Hq, Sq) f32 on q's device")
     hkv, skv = k.shape[1], k.shape[2]
     body = plan_bwd(q.dtype, d)
+    smem = (0, 0)
+    if body == WGMMA:
+        plan = plan_bwd_launch(d)
+        smem = (plan.smem_dq, plan.smem_kv)
+        if plan.d_pad != d:
+            pad = lambda t: torch.nn.functional.pad(t, (0, plan.d_pad - d))
+            q, k, v, out, dout = (pad(t) for t in (q, k, v, out, dout))
+        q, k, v, dout = (_aligned(t) for t in (q, k, v, dout))
+    dp = q.shape[-1]
     if sq == 0 or skv == 0:
         dq = torch.zeros_like(q)
         dk, dv = torch.zeros_like(k), torch.zeros_like(v)
@@ -359,12 +420,14 @@ def flash_bwd_cuda(q, k, v, out, dout, lse, kv_lens, q_offset, window, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
-        window.data_ptr(), b, hq, hkv, sq, skv, d, int(causal), float(scale),
-        int(q.dtype == torch.bfloat16),
+        window.data_ptr(), b, hq, hkv, sq, skv, dp, int(causal), float(scale),
+        int(q.dtype == torch.bfloat16), *smem,
         torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(err, "flash_attention_bwd")
     flash_bwd_cuda.launches += 1
     flash_bwd_cuda.body_launches[body] += 1
+    if dp != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -152,3 +152,70 @@ def test_route_contract():
     with pytest.raises(ValueError, match="CUDA"):
         K.flash_dense_lse_cuda(tq, tk, tv, lens, zero, win, causal=True,
                                scale=1.0)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 160])
+def test_bwd_launch_plan(d):
+    """The wgmma backward's plan at the configs' head dims: no padding,
+    each pass's shared memory within one block's 227 KB, three launches a
+    call (delta, dQ, dK/dV) at every head dim, D 160 included, and query
+    tiles of 48 rows at D 128 and 32 at D 160 (dK and dV of 64 keys x D
+    beside S^T and dP^T in the consumers' registers)."""
+    plan = K.plan_bwd_launch(d)
+    assert plan.d_pad == d and plan.boxes == -(-d // 64)
+    assert max(plan.smem_dq, plan.smem_kv) <= 232448   # one H100 block's shared memory
+    assert plan.launches == 3
+    assert plan.q_tile == {64: 64, 80: 64, 128: 48, 160: 32}[d]
+    assert min(plan.stages_dq, plan.stages_kv) >= 2
+    assert K.plan_bwd(torch.bfloat16, d) == K.WGMMA
+    assert K.plan_bwd(torch.float32, d) == K.CUDA_CORE
+
+
+@pytest.mark.parametrize("d", [1, 16, 37, 72, 100, 150])
+def test_bwd_launch_plan_pads_other_head_dims(d):
+    """Any other head dim pads (zero columns) to the next instance."""
+    plan = K.plan_bwd_launch(d)
+    assert plan.d_pad == min(w for w in K.BWD_HEAD_DIMS if w >= d)
+    assert plan == K.plan_bwd_launch(plan.d_pad)
+
+
+def _bwd_rounded(p, ds, k, q, dout, mode):
+    """dq, dk, dv of the wgmma body's products with P and dS entering them
+    as ONE bf16 value ("one") or as hi + lo bf16 halves ("hilo"), f64
+    otherwise (the body's sums are f32)."""
+    r = lambda x: x.to(torch.bfloat16).double()
+    if mode == "hilo":
+        p, ds = r(p) + r(p - r(p)), r(ds) + r(ds - r(ds))
+    else:
+        p, ds = r(p), r(ds)
+    return ds @ k, ds.T @ q, p.T @ dout
+
+
+def test_one_bf16_operand_fails_the_bwd_limit():
+    """Why the wgmma body keeps P and dS as hi + lo bf16 halves: a model of
+    its rounding (bf16 inputs, f64 sums, each gradient rounded once to
+    bf16) against the exact backward rounded to bf16, at ``chip_smoke.py``'s
+    ``TOL["bwd"]`` (atol 1e-3, rtol 2^-7), one causal head of 64 x 64 keys
+    at D 64 and 80.  hi + lo stays within the limit; one bf16 operand
+    exceeds it in every gradient."""
+    atol, rtol = 1e-3, 2 ** -7
+    bf = lambda x: x.to(torch.bfloat16).double()
+    for d in (64, 80):
+        g = torch.Generator().manual_seed(d)
+        q, k, v, dout = (bf(torch.randn(64, d, generator=g)) for _ in range(4))
+        scale = d ** -0.5
+        pred = torch.ones(64, 64, dtype=torch.bool).tril()
+        s = (q @ k.T * scale).masked_fill(~pred, float("-inf"))
+        p = torch.softmax(s, -1)
+        out = bf(p @ v)
+        delta = (dout * out).sum(-1, keepdim=True)
+        ds = p * (dout @ v.T - delta) * scale
+        exact = (ds @ k, ds.T @ q, p.T @ dout)
+        ratio = {}
+        for mode in ("hilo", "one"):
+            got = _bwd_rounded(p, ds, k, q, dout, mode)
+            ratio[mode] = [float(((bf(x) - bf(w)).abs() / (atol + rtol * bf(w).abs())).max())
+                           for x, w in zip(got, exact)]
+        print(f"d {d}: tol_ratio (dq, dk, dv) hi + lo {ratio['hilo']}, one bf16 {ratio['one']}")
+        assert max(ratio["hilo"]) <= 1.0
+        assert min(ratio["one"]) > 1.0
