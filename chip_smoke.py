@@ -28,7 +28,7 @@
    beside the launch floor: the time of one empty kernel).
 3. Serves 8 greedy requests through ``ServeEngine.generate`` at the full
    width of stablelm-3b (dense family), zamba2-1.2b (hybrid), mamba2-130m
-   (ssm) and olmoe-1b-7b (moe), the first, second and fourth at about half
+   (ssm) and olmoe-1b-7b (moe), the first, second and fourth at a cut
    depth (``SERVE_DEPTH``; the scheduler's legs too), random weights from
    seed 0, with the dense
    and (where the family pages) the paged KV cache, full precision and
@@ -85,12 +85,25 @@
    TTFT, the decode step, a round's anatomy (admission and compaction
    cost, the splices' ms and bytes), captures and, for stablelm dense, the
    device's idle share over 10 profiled rounds.
+   Then tensor-parallel serving (``serve_tp``): stablelm-3b at the same
+   depth over ``TP_M`` = 2 ranks sharing the card (gloo; ``dist.serve``,
+   ``launch.mesh.run_ranks``), each rank built from seed 0 and cut to its
+   block, its parameters held to ``tp_params``; the 8 prompts through
+   ``generate`` on the dense, paged and int8 caches and the mixed batch,
+   and the scheduler's 32 dense requests, every token and n_generated held
+   to the one-device runs above bit for bit, each run's launches to
+   theirs, the first step's prefill and decode logits to the whole model's
+   bit for bit, and ``ordered``/``pairwise`` psum of card tensors to a
+   host loop and tree; a rank's failure fails the run.  Its times are of
+   ranks time-sharing one card, not of tensor parallelism.
    Then the cross-attention models and gemma3 (``serve_cross``), random
-   bf16 weights from seed 0 at full width: seamless-m4t-large-v2 (encdec;
-   8 requests, encoder inputs of 256–1024 frames, decoder prompts of 8–64
-   tokens; dense, paged, int8), llama-3.2-vision-11b (the 8 prompts above
-   with image embeddings of (8, 1024, 4096); dense, paged) and gemma3-27b
-   (24 of its 62 layers; the 8 prompts, lanes 0 and 4 past its 1024-key
+   bf16 weights from seed 0 at full width, depth cut (``CROSS_DEPTH``):
+   seamless-m4t-large-v2 (encdec, 12 + 12 of its 24 + 24 layers; 8
+   requests, encoder inputs of 256–1024 frames, decoder prompts of 8–64
+   tokens; dense, paged, int8), llama-3.2-vision-11b (20 of its 40 layers;
+   the 8 prompts above with image embeddings of (8, 1024, 4096); dense,
+   paged) and gemma3-27b
+   (12 of its 62 layers; the 8 prompts, lanes 0 and 4 past its 1024-key
    window; dense, paged), each through ``generate`` with the row checks,
    graphed == eager, paged == dense and the launches per body held; and
    seamless through the scheduler (``serve_encdec_scheduler``: 16
@@ -99,11 +112,11 @@
    held in those models' roles (``check_cross_roles``: non-causal, Sq !=
    Skv both ways, kv_lens down to 1, the split-KV body over 1024 keys) and
    timed there (``time_cross``).
-   Then stablelm-12b (``serve_stablelm_12b``: 40 x d 5120, 32 heads over 8
-   KV heads of D 160, random bf16 weights from seed 0) through the same
-   checks as the models above (dense, paged, int8), with its first step
-   through the kernels held to the plain path (bf16 and f32 weights on 8
-   of its 40 layers; bf16 at full depth reported), and speculative
+   Then stablelm-12b (``serve_stablelm_12b``: d 5120, 32 heads over 8 KV
+   heads of D 160, 8 of its 40 layers, random bf16 weights from seed 0)
+   through the same checks as the models above (dense, paged, int8), with
+   its first step through the kernels held to the plain path (bf16 and f32
+   weights), and speculative
    decoding on it (``serve_speculative``: 8 lanes, 32 tokens, k 4; the
    target as its own draft and a 2-layer draft, greedy, both committing
    the target's greedy ``generate`` tokens bit for bit; the mixed batch
@@ -143,6 +156,12 @@ builds the kernels and runs only the training phases (5. above), after
 ptxas's registers and spills of the flash libraries (the serving groups,
 the training forward's lse instances, the backward).
 
+    python3 chip_smoke.py --tp
+
+builds the kernels and runs only the tensor-parallel phase, over 2 and
+then 4 ranks sharing the card, after its own one-device runs
+(``tp_refs``).
+
     python3 chip_smoke.py --cross
 
 builds the kernels and runs only the cross-attention roles' check and
@@ -173,7 +192,11 @@ command-r-plus-104b and stablelm-12b with their unembeddings, and their
 row reductions,
 with 16 probe rows inside calls of 1 to 8192 rows (what the per-shape
 floors of ``layers.ROW_FLOORS`` cost: ``table_cost``), and at model level one decode step at widths 1/2/4/8 and one
-prompt prefilled alone, in a batch and in chunks, at several row floors.
+prompt prefilled alone, in a batch and in chunks, at several row floors;
+and first, whether stablelm-3b's column-parallel projections cut into 2 and
+4 column blocks, as a tensor-parallel rank holds them, give each block the
+whole product's columns bit for bit at every row count
+(``column_shard_probe``).
 
     python3 chip_smoke.py --ssd-probes
 
@@ -1945,11 +1968,15 @@ WIDTHS = {
                         resolved_head_dim=128, d_ff=1024, n_experts=64,
                         top_k=8, vocab_size=50304),
 }
-# the depth each model runs at in ``serve_model`` and ``serve_scheduler``:
-# about half its published layers (zamba2: 3 of its 6 shared-attention
-# groups and its 2-layer tail), so that the whole script ends inside its
-# time limit on a slower host; widths, heads and vocab stay published
-SERVE_DEPTH = {"stablelm_3b": 16, "zamba2_1_2b": 20, "olmoe_1b_7b": 8}
+# the depth each model runs at in ``serve_model``, ``serve_scheduler`` and
+# ``serve_tp``: a quarter of stablelm-3b's and olmoe-1b-7b's published
+# layers, zamba2's 2 of its 6 shared-attention groups and its 2-layer tail,
+# so that the whole script ends inside its time limit on a host 1.5x
+# slower than most; widths, heads and vocab stay published.  (At 4 layers
+# stablelm-3b's int8 native decode sits 1.06e-3 from the gather oracle's
+# f32 logits, over LIMIT_F32: one token's full-precision K/V weighs more
+# in fewer layers; 8 layers hold it)
+SERVE_DEPTH = {"stablelm_3b": 8, "zamba2_1_2b": 14, "olmoe_1b_7b": 4}
 
 
 def served_config(arch):
@@ -2846,8 +2873,16 @@ CROSS_RUNS = {
 }
 # depth cuts: gemma3-27b's 62 layers (57 GB of bf16 weights) leave the
 # 80 GB card too little for the graphed and eager runs' caches side by
-# side; 24 layers keep 4 of its 5:1 local:global periods (~25 GB)
-CROSS_DEPTH = {"gemma3_27b": dict(n_layers=24)}
+# side; 12 layers keep 2 of its 5:1 local:global periods (~13 GB).  The
+# rest are cut so that the whole script ends inside its time limit on a
+# slow host: seamless-m4t to 12 + 12 of its 24 + 24 layers, llama-vision
+# to 20 of 40 (4 of its 8 groups of 4 self layers and a cross layer),
+# stablelm-12b (and speculative decoding on it) to ``CUT_DEPTH_12B``; the
+# checks of ``serve_cross_model`` are bit for bit at any depth
+CROSS_DEPTH = {"gemma3_27b": dict(n_layers=12),
+               "seamless_m4t_large_v2": dict(n_enc_layers=12, n_dec_layers=12),
+               "llama_3_2_vision_11b": dict(n_layers=20),
+               "stablelm_12b": dict(n_layers=8)}
 # gemma3: lanes 0 and 4 get 300 more prompt tokens, so that they hold more
 # than its 1024-key local window in prefill and in decode
 GEMMA3_LONGER = (0, 4)
@@ -2998,10 +3033,11 @@ def serve_cross_model(arch, cfg, fam, model, gpu) -> dict:
 
 # stablelm-12b's first-step checks run on a depth cut to this many layers,
 # in bf16 and in f32 (48 GB of f32 weights at full depth do not fit beside
-# the 24 GB bf16 model the phase keeps for speculative decoding); at full
-# depth the bf16 figure is reported: bf16 rounding grows through 40 random
-# layers (0.0202 of the 2e-2 limit on an H100, every D-160 body within one
-# bf16 rounding step of its plain version in ``check_kernels``)
+# the 24 GB bf16 model the phase keeps for speculative decoding); at the
+# served depth (``CROSS_DEPTH``) the bf16 figure is reported: bf16 rounding
+# grows through random layers (0.0202 of the 2e-2 limit at 40 layers on an
+# H100, every D-160 body within one bf16 rounding step of its plain
+# version in ``check_kernels``)
 CUT_DEPTH_12B = 8
 # speculative decoding on the stablelm-12b target: new tokens per lane and
 # draft tokens per round
@@ -3047,7 +3083,7 @@ def serve_stablelm_12b(gpu) -> dict:
     == eager, paged == dense, launches per body), then its first step
     through the kernels against the plain path: held at ``LIMIT_BF16`` with
     bf16 weights and at ``LIMIT_F32`` with f32 weights on ``CUT_DEPTH_12B``
-    layers, reported with bf16 weights at full depth; paged decode == dense
+    layers, reported with bf16 weights at a deeper served depth; paged decode == dense
     decode bit for bit in all three.  Returns the runs, and the bf16 model
     for ``serve_speculative``."""
     arch = "stablelm_12b"
@@ -3056,8 +3092,11 @@ def serve_stablelm_12b(gpu) -> dict:
     batch, lens = cross_batch(cfg)
     max_len = int(lens.max()) + MAX_NEW
     seed0 = lambda: torch.Generator(device="cuda").manual_seed(0)
-    cut = f"depth cut to {CUT_DEPTH_12B} of {cfg.n_layers} layers"
-    firsts = [(lambda: model, cfg, None, "bf16 weights, full depth")]
+    cut = (f"depth cut to {CUT_DEPTH_12B} of "
+           f"{CROSS_WIDTHS[arch]['n_layers']} layers")
+    # the served model is the bf16 check's own when it is cut as far
+    firsts = ([] if cfg.n_layers == CUT_DEPTH_12B else
+              [(lambda: model, cfg, None, f"bf16 weights, {cfg.n_layers} layers")])
     for dt, limit in (("bfloat16", LIMIT_BF16), ("float32", LIMIT_F32)):
         c = cfg.replace(compute_dtype=dt, n_layers=CUT_DEPTH_12B)
         firsts.append((lambda c=c: fam.init(c, seed0(), "cuda"), c, limit,
@@ -3881,9 +3920,14 @@ def sched_leg(cfg, model, work, gpu, name, *, keep=False, follow=None,
 # what 8 lanes of 1088 tokens hold, so pages run short; every 3rd request
 # at priority 5, every 4th from 1 with a finish deadline of its arrival
 # plus half its budget, a queue of at most 14 (the last 2 of the 16 are
-# shed at submit) and a seeded chaos schedule
+# shed at submit) and a seeded chaos schedule.  Its cancels are drawn once
+# per live request a round, about 200 draws over the leg's ~27 rounds: at
+# 0.03 about 6 cancels are expected, so that the leg's "every mechanism
+# fired" check does not hang on one or two draws when the model's tokens,
+# and so the rounds, change (at 0.004 it drew 1 at 16 layers; at 0.004 and
+# 0.01 none at 8)
 CP_REQ, CP_POOL, CP_MAX_QUEUE = 16, 192, 14
-CP_CHAOS = dict(seed=21, alloc_fail_rate=0.05, cancel_rate=0.004,
+CP_CHAOS = dict(seed=21, alloc_fail_rate=0.05, cancel_rate=0.03,
                 swap_corrupt_rate=0.5)
 
 
@@ -4298,7 +4342,238 @@ def serve_scheduler(gpu) -> dict:
     sched_report(cfg, "dense", work, res, log, sched, caps, gpu)
     del eng, sched, model
     torch.cuda.empty_cache()
-    return launches, soft
+    return launches, soft, {i: r["tokens"] for i, r in dense_res.items()}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+# ranks of the serve tp phase, on one card: each holds its block of
+# stablelm-3b (``dist.serve``); ``--tp`` also runs 4
+TP_M = 2
+
+
+def tp_params(cfg, m: int) -> int:
+    """The parameters one of ``m`` ranks holds: wq, wk, wv, w_up, w_gate,
+    the table's vocab rows and the unembed's columns cut ``m`` ways; wo,
+    w_down and the norms whole (SERVE_RULES)."""
+    d, hd, f, v = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab
+    qo, kvo = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    norm = d * (2 if cfg.norm == "layernorm" else 1)
+    ups = 2 if cfg.activation in ("swiglu", "geglu") else 1
+    layer = ((d * qo + 2 * d * kvo) // m + qo * d + ups * d * f // m + f * d
+             + norm * (1 if cfg.parallel_block else 2))
+    emb = v * d // m * (1 if cfg.tie_embeddings else 2)
+    return cfg.n_layers * layer + emb + norm
+
+
+def serve_batch(cfg) -> dict:
+    """``serve_model``'s prompts: ``N_REQ`` of ``RandomState(0)`` lengths
+    128–1024, on the card."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(128, 1025, N_REQ).astype(np.int32)
+    tokens = rng.randint(1, cfg.vocab_size, (N_REQ, int(lens.max())))
+    return {"tokens": torch.from_numpy(tokens).cuda(),
+            "lens": torch.from_numpy(lens).cuda()}
+
+
+def tp_refs(gpu) -> dict:
+    """``--tp`` alone: the one-device runs the serve tp phase is held to,
+    made as ``serve_model`` and ``serve_scheduler`` make them (graphed
+    ``generate`` on the dense, paged and int8 caches and the mixed batch;
+    the dense scheduler leg's traffic)."""
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = served_config("stablelm_3b")
+    model = get_model(cfg).init(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "cuda")
+    batch = serve_batch(cfg)
+    runs = {}
+    for name, page_size, page_dtype, sampling in (
+            ("dense", None, None, None), ("paged", PAGE_SIZE, None, None),
+            ("int8", PAGE_SIZE, "int8", None),
+            ("mixed", None, None, mixed_specs())):
+        eng = ServeEngine(cfg, model, max_new_tokens=MAX_NEW, stop_token=-1,
+                          page_dtype=page_dtype)
+        reset_counts()
+        res = eng.generate(batch, page_size=page_size, sampling=sampling)
+        runs[name] = dict(tokens=res["tokens"].cpu().numpy(),
+                          n_generated=res["n_generated"].cpu().numpy(),
+                          counts=read_counts())
+        del eng, res
+    work = sched_workload(cfg.vocab_size)
+    res, _ = drive(new_sched(sched_engine(cfg, model)), work)
+    del model
+    torch.cuda.empty_cache()
+    return {"runs": runs, "sched": {i: r["tokens"] for i, r in res.items()}}
+
+
+def tp_rank(mesh, refs):
+    """One rank of the serve tp phase (importable: the ranks are spawned).
+    Builds stablelm-3b at ``SERVE_DEPTH`` from seed 0 on the card; rank 0
+    first takes the one-device first-step logits of the whole model.  Then
+    every rank keeps its block and serves, through ``generate``, the
+    8 prompts on the dense, paged and int8 caches and the mixed batch, and
+    the scheduler's dense traffic; rank 0 holds tokens and n_generated to
+    the one-device runs (``refs``) bit for bit, each run's launches to
+    theirs, the first-step logits (prefill and one decode step) bit for
+    bit and the rank's parameters to ``tp_params``; every rank holds
+    ``ordered``/``pairwise`` psum of card tensors to a host loop and tree
+    bit for bit.  Returns rank 0's numbers and each rank's launches."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import get_model
+    from repro_torch.sample import greedy_tokens
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, lead = mesh.shape["model"], mesh.rank == 0
+    cfg = served_config("stablelm_3b")
+    fam = get_model(cfg)
+    model = fam.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     "cuda")
+    batch = serve_batch(cfg)
+    max_len = batch["tokens"].shape[1] + MAX_NEW
+
+    def first_step(cache_cfg, under):
+        """The prompts' prefill logits and one greedy decode step's."""
+        with torch.inference_mode(), under:
+            cache = fam.make_cache(cache_cfg, N_REQ, max_len, device="cuda")
+            lp, cache = fam.prefill(model, cfg, batch, cache)
+            ld, _ = fam.decode(model, cfg, {"token": greedy_tokens(lp)[:, None]},
+                               cache)
+            torch.cuda.synchronize()
+        return lp, ld
+
+    if lead:                                   # the one-device reference
+        one = first_step(cfg, contextlib.nullcontext())
+    out = {"counts": {}, "ms": {}}
+    t0 = time.perf_counter()
+    engines = {dt: ServeEngine(cfg, model, max_new_tokens=MAX_NEW,
+                               stop_token=-1, page_dtype=dt, mesh=mesh)
+               for dt in (None, "int8")}
+    local = sum(p.numel() for p in model.parameters())
+    check(local == tp_params(cfg, m), f"rank {mesh.rank}: {local} parameters, "
+          f"the reckoning {tp_params(cfg, m)}")
+    out["params"] = local
+    local_cfg = engines[None]._cache_cfg
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tp = first_step(local_cfg, SH.use_mesh_rules(mesh, SH.SERVE_RULES))
+    # the per-step times subtract it: the rank's first forward, the gathers'
+    # first connections included
+    out["ms"]["prefill + 1 step"] = (time.perf_counter() - t1) * 1e3
+    if lead:
+        for what, a, b in zip(("prefill", "decode"), tp, one):
+            check(torch.equal(_bits(a), _bits(b)),
+                  f"tp {m}: first-step {what} logits equal one device's bit "
+                  f"for bit (max |d| {(a.float() - b.float()).abs().max()})")
+        del one
+    for name, dt, page_size, sampling in (
+            ("dense", None, None, None), ("paged", None, PAGE_SIZE, None),
+            ("int8", "int8", PAGE_SIZE, None),
+            ("mixed", None, None, mixed_specs())):
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = engines[dt].generate(batch, page_size=page_size,
+                                   sampling=sampling)
+        torch.cuda.synchronize()
+        out["ms"][name] = (time.perf_counter() - t1) * 1e3
+        counts = out["counts"][name] = read_counts()
+        if lead:
+            ref = refs["runs"][name]
+            check(np.array_equal(res["tokens"].cpu().numpy(), ref["tokens"])
+                  and np.array_equal(res["n_generated"].cpu().numpy(),
+                                     ref["n_generated"]),
+                  f"tp {m} {name}: tokens and n_generated equal one device's")
+            check(counts == ref["counts"], f"tp {m} {name}: launches {counts},"
+                  f" one device's {ref['counts']}")
+        del res
+    work = sched_workload(cfg.vocab_size)
+    sched = new_sched(engines[None])
+    for w in work:
+        sched.submit(w["prompt"], max_new_tokens=w["budget"],
+                     arrival=w["arrival"], sampling=w["sampling"])
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = sched.run()
+    out["ms"]["scheduler"] = (time.perf_counter() - t1) * 1e3
+    out["counts"]["scheduler"] = read_counts()
+    out["sched"] = {k: sched.stats[k] for k in ("steps", "dispatches",
+                                                 "host_syncs", "decode_steps")}
+    if lead:
+        bad = [i for i in range(len(work))
+               if not np.array_equal(res[i]["tokens"], refs["sched"][i])]
+        check(not bad, f"tp {m} scheduler: requests {bad} differ from the "
+              f"one-device dense leg")
+    # the deterministic orderings on card tensors
+    g = mesh.groups["model"]
+    xs = [torch.randn(4096, generator=torch.Generator().manual_seed(r))
+          for r in range(m)]
+    mine = xs[mesh.coords["model"]].cuda()
+    loop = torch.zeros(4096)
+    for x in xs:
+        loop = loop + x
+    tree = list(xs)
+    while len(tree) > 1:
+        tree = ([tree[i] + tree[i + 1] for i in range(0, len(tree) - 1, 2)]
+                + tree[len(tree) - len(tree) % 2:])
+    check(torch.equal(C.psum(mine, g, "ordered").cpu(), loop)
+          and torch.equal(C.psum(mine, g, "pairwise").cpu(), tree[0]),
+          f"tp {m}: ordered / pairwise psum of card tensors equal the host "
+          "loop and tree bit for bit")
+    out["wall_s"] = time.perf_counter() - t0
+    out["mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def serve_tp(gpu, refs, ms=(TP_M,)) -> dict:
+    """Tensor-parallel serving of stablelm-3b over ``m`` ranks sharing the
+    card (gloo, its collectives through the host), for each ``m`` of
+    ``ms``; each rank's checks in ``tp_rank``.  Returns every rank's
+    launches over its served runs."""
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = served_config("stablelm_3b")
+    torch.cuda.empty_cache()
+    launches = collections.Counter()
+    for m in ms:
+        t0 = time.perf_counter()
+        ranks = run_ranks(tp_rank, (1, m), ("data", "model"), refs,
+                          device="cuda", timeout=900)
+        r0 = ranks[0]
+        for r in ranks:
+            for counts in r["counts"].values():
+                launches.update(counts)
+        local = r0["params"]
+        steps = MAX_NEW - 1
+        pre = r0["ms"]["prefill + 1 step"]
+        per_step = {k: (r0["ms"][k] - pre) / steps
+                    for k in ("dense", "paged", "int8", "mixed")}
+        print(f"[tp] stablelm-3b ({cfg.n_layers} of 32 layers) over {m} ranks "
+              f"sharing one card (gloo): rank 0 holds {local / 1e9:.3f}B "
+              f"parameters ({local * 2 / 2 ** 30:.2f} GiB bf16; the reckoning "
+              f"held), peak {r0['mem_gib']:.2f} GiB allocated; tokens and "
+              f"n_generated of generate on the dense, paged and int8 caches "
+              f"and the mixed batch, and the scheduler's 32 dense requests, "
+              f"equal one device's bit for bit (held); first-step prefill and "
+              f"decode logits bit for bit (held); launches per run equal one "
+              f"device's (held); ordered / pairwise psum of card tensors bit "
+              f"for bit (held)  [{gpu}]", flush=True)
+        print(f"[tp] stablelm-3b over {m} ranks time-sharing one card: "
+              f"generate wall "
+              + ", ".join(f"{k} {r0['ms'][k]:.1f} ms" for k in per_step)
+              + f"; prefill + one step (the first call) {pre:.1f} ms; decode "
+              + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items())
+              + f" ms/step (eager, {steps} steps); scheduler 32 requests "
+              f"{r0['ms']['scheduler'] / 1e3:.2f} s ({r0['sched']}); rank 0's "
+              f"phase {r0['wall_s']:.1f} s, the phase "
+              f"{time.perf_counter() - t0:.1f} s  [{gpu}]", flush=True)
+    return dict(launches)
 
 
 @torch.inference_mode()
@@ -4543,6 +4818,56 @@ def table_cost(gpu, rnd) -> None:
         del w, x
 
 
+# the model axes whose column shards the serve tp phase runs (``TP_M``) and
+# ``--tp`` adds: stablelm-3b's column-parallel weights cut into M blocks
+PROBE_TP_MS = (2, 4)
+
+
+def column_shard_probe(gpu, rnd, found) -> None:
+    """Part 3 of ``gemm_probe``: stablelm-3b's column-parallel projections
+    (wq / wk / wv 2560 -> 2560, w_up / w_gate 2560 -> 6912, the unembed
+    2560 -> 50304) cut into M column blocks, as a rank of a tensor-parallel
+    mesh holds them (a contiguous copy): at every row count of
+    ``PROBE_MS``, through ``layers.linear`` as the model runs them, does
+    each block's product equal the same columns of the whole product, bit
+    for bit?  And the shard shape's row classes (``_row_classes``), which
+    lane independence rests on as it does for the whole shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("stablelm_3b")
+    d = cfg.d_model
+    named = (("attn.wq/wk/wv", d, cfg.n_heads * cfg.resolved_head_dim),
+             ("mlp.w_up/w_gate", d, cfg.d_ff),
+             ("embed.unembed", d, cfg.padded_vocab))
+    for m in PROBE_TP_MS:
+        for name, k_in, n_out in named:
+            w = rnd(k_in, n_out)
+            n = n_out // m
+            blocks = [w[:, i * n:(i + 1) * n].contiguous() for i in range(m)]
+            differ = []
+            for rows in PROBE_MS:
+                x = rnd(rows, k_in)
+                whole = L.linear(x, w)
+                for i, b in enumerate(blocks):
+                    if not torch.equal(_bits(L.linear(x, b)),
+                                       _bits(whole[:, i * n:(i + 1) * n])):
+                        differ.append((rows, i))
+            found[("stablelm_3b", f"{name} /{m}")] = not differ
+            classes, floor = _row_classes(rows_in(rnd, rnd(16, k_in)),
+                                          lambda x, w=blocks[0]: (x @ w,))
+            print(f"[gemm] stablelm_3b {name} column block of {m} ({k_in}, "
+                  f"{n}): each block's product equals the whole product's "
+                  f"columns at every row count of {PROBE_MS[0]}-{PROBE_MS[-1]}"
+                  f" (through layers.linear): {not differ}"
+                  + (f" (differs at (rows, block) {differ})" if differ else "")
+                  + f"; row counts by a row's bits {classes}, every call from "
+                  f"M = {floor} on gives M = {PROBE_MS[-1]}'s bits; layers "
+                  f"floor {L.row_floor(k_in, n)}  [{gpu}]", flush=True)
+            del w, blocks
+            torch.cuda.empty_cache()
+
+
 @torch.inference_mode()
 def gemm_probe(gpu) -> dict:
     """Which row counts give a row the same bits, at the full width of
@@ -4561,8 +4886,11 @@ def gemm_probe(gpu) -> dict:
        a short chunk, each with ``layers.ROW_FLOOR`` and
        ``NORM_ROW_FLOOR`` at each pair of ``PROBE_FLOORS`` (1: no floor),
        the sampler's draw at those widths too; and what the shipped floors
-       cost stablelm-3b (``floor_cost``).  Prints what it finds; holds
-       nothing."""
+       cost stablelm-3b (``floor_cost``).
+    3. stablelm-3b's column-parallel projections cut into blocks as a
+       tensor-parallel rank holds them: each block's product against the
+       whole product's columns (``column_shard_probe``).
+    Prints what it finds; holds nothing."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan.ops import ssd_decode_step
     from repro_torch.models import get_model
@@ -4573,6 +4901,7 @@ def gemm_probe(gpu) -> dict:
         *shape, generator=gen, device="cuda").to(dt)
     shipped = L.ROW_FLOOR, L.NORM_ROW_FLOOR
     found = {}
+    column_shard_probe(gpu, rnd, found)
     shape_probe(gpu, gen, rnd, found)
     for arch in PROBE_ARCHS:
         cfg = get_config(arch)
@@ -5942,7 +6271,7 @@ TRAIN_LIMITS = {"loss": 2e-4, "grad_norm": 3e-4, "leaf": 2e-2, "floor": 1e-4}
 # Reading on an H100: 6.1e-5 at the first step growing to 1.3e-3 at the
 # fifth; held at a few times that
 CURVE_LIMIT = 5e-3
-MAMBA_TRAIN = ["--arch", "mamba2_130m", "--steps", "20", "--batch", "8",
+MAMBA_TRAIN = ["--arch", "mamba2_130m", "--steps", "12", "--batch", "8",
                "--seq", "2048"]
 MAMBA_FAULT_STEP = 11
 
@@ -6230,7 +6559,7 @@ def check_train_families() -> None:
 def train_mamba2_130m(gpu) -> dict:
     """mamba2-130m through ``repro_torch.launch.train``'s main path (the
     launcher's default arch) at full width (24 x d 768), seq 2048 x batch 8:
-    20 steps with ``FaultTolerantLoop``, checkpoints every 10, one injected
+    12 steps with ``FaultTolerantLoop``, checkpoints every 10, one injected
     step fault at step ``MAMBA_FAULT_STEP`` recovered from step 10's
     checkpoint; the final loss and every parameter equal, bit for bit, to
     an uninterrupted run's, which launches the SSD scan once per layer per
@@ -6332,6 +6661,10 @@ def main() -> int:
     if "--scheduler" in args:
         phase("serve scheduler", serve_scheduler, gpu)
         return 0
+    if "--tp" in args:
+        refs = phase("tp one-device runs", tp_refs, gpu)
+        phase("serve tp", serve_tp, gpu, refs, (TP_M, 4))
+        return 0
     if "--fadda-probes" in args:
         parent = args[args.index("--parent") + 1] if "--parent" in args else None
         phase("fadda probes", fadda_probes, gpu, parent)
@@ -6384,7 +6717,12 @@ def main() -> int:
     phase("check threefry", check_prng)
     served = {arch: phase(f"serve {arch}", serve_model, arch, gpu)
               for arch in WIDTHS}
-    sched_launches, _ = phase("serve scheduler", serve_scheduler, gpu)
+    sched_launches, _, sched_dense = phase("serve scheduler", serve_scheduler,
+                                           gpu)
+    tp_launches = phase("serve tp", serve_tp, gpu, {
+        "runs": {k: {q: r[q] for q in ("tokens", "n_generated", "counts")}
+                 for k, r in served["stablelm_3b"][3].items()},
+        "sched": sched_dense})
     cross = {arch: phase(f"serve {arch}", serve_cross, arch, gpu)
              for arch in CROSS_ARCHS}
     sched_launches.update(phase("serve encdec scheduler",
@@ -6418,14 +6756,15 @@ def main() -> int:
                  + spec)
     launches = {k: sum(r["counts"][k] for r in every_run) + quick[k]
                 + sum(c[k] for c in sched_launches.values())
-                + sum(c[k] for c in train_counts)
+                + sum(c[k] for c in train_counts) + tp_launches.get(k, 0)
                 for k in kernel_wrappers()}
     bodies = {k: {body: sum(r["bodies"][k][body] for r in every_run)
                   for body in v}
               for k, v in read_bodies().items()}
     print(f"[full] launches over every generate (the cross-attention models', "
           f"gemma3's and stablelm-12b's included), the speculative legs, the "
-          f"scheduler legs' warm runs, the quickstart and the training legs' "
+          f"scheduler legs' warm runs, the serve tp phase's runs on both "
+          f"ranks ({tp_launches}), the quickstart and the training legs' "
           f"counted runs: {launches}; the flash "
           f"kernels by body over every generate and speculative leg: {bodies}; "
           f"the cross-attention roles' check: {cross_bodies}", flush=True)

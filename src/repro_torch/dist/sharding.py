@@ -1,0 +1,267 @@
+"""Mesh-agnostic sharding resolution, the port's copy of the JAX package's
+``dist/sharding.py`` (DESIGN.md §2).
+
+Model code names every array dim with a LOGICAL axis ("embed", "heads",
+"batch", ...) and never a mesh.  The rule table below resolves each
+logical name onto the mesh axes that exist, with the discipline SVE applies
+to vector lanes:
+
+  * **divisibility fallback** — a dim that doesn't divide the mesh axis size
+    replicates instead of erroring (the VL-agnostic "partial last strip").
+  * **no axis reuse** — one mesh axis shards at most one dim per array,
+    resolved left to right.
+  * **folding** — "batch" folds all pure-DP axes present ("pod" x "data").
+  * **flash-decode fallback** — when kv_heads can't take the "model" axis
+    (GQA with few KV heads), the kv_seq dim takes it instead, which is
+    exactly the flash-decode split-K layout.
+
+A resolved spec is a tuple with one entry per dim: a mesh-axis name, a
+tuple of names (folded axes), or None (whole) — what a JAX
+``PartitionSpec`` holds, without JAX.  ``mesh`` is a
+``launch.mesh.Mesh`` (anything with ``axis_names`` and ``shape[axis]``).
+
+There is no GSPMD here: the port places and gathers by hand.  Each rank
+holds its block of every sharded tensor (``local_slice``), and where JAX
+asks the compiler for a layout with a sharding constraint, the port's
+layer seams call ``constrain``, which all-gathers the blocks when the
+active rules want the dim whole.  ``use_mesh_rules`` makes the mesh and
+the rules active for the seams.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+from . import collectives as C
+
+# logical axis -> ordered tuple of mesh axes it may occupy (folded jointly
+# when more than one is present).  Missing mesh axes are simply skipped.
+DEFAULT_RULES = {
+    "batch": ("pod", "data"),
+    "act_seq": ("model",),          # Megatron-SP residual split
+    "act_heads": ("model",),
+    "act_kv_heads": ("model",),
+    "act_experts": ("model",),      # MoE dispatch/combine expert dim
+    "act_mlp": ("model",),          # MLP intermediate stays sharded between
+                                    # up-proj and down-proj (Megatron TP pair)
+    "act_vocab": ("model",),        # logits leave the unembed dot vocab-
+                                    # sharded; sampling gathers the (tiny)
+                                    # logit row, never the head weight
+    "kv_seq": ("model",),           # flash-decode fallback target
+    "embed": ("data",),             # FSDP-ish weight split
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "mlp": ("model",),
+    # contraction-feeding weight dims (attention wo, MLP w_down) and the
+    # out-proj input: Megatron row-parallel in training — a partial dot per
+    # shard, psum after.  Serving overrides these (see SERVE_RULES).
+    "heads_in": ("model",),
+    "mlp_in": ("model",),
+    "act_attn_in": ("model",),
+    "act_mlp_in": ("model",),
+    "act_experts_in": ("model",),   # MoE dispatch-gather output
+    "act_experts_out": ("model",),  # MoE expert outputs entering combine
+    "vocab": ("model",),
+    "experts": ("model",),
+    "layers": (),                   # scanned axis: never sharded
+}
+
+# Serving variant: decode reads every weight every step, so an FSDP-style
+# "embed" split over the data axis would all-gather the full parameter set
+# per layer per token — during serving the data axis carries request LANES
+# only.  act_seq likewise stays whole (decode sequence length is 1; prefill
+# chunks are short and batch-sharded already).
+#
+# heads_in / mlp_in / act_attn_in / act_mlp_in replicate: served tokens must
+# be BYTE-identical to the 1-device engine, and a Megatron row-parallel dot
+# (split contraction + psum) reassociates the f32 sum — ulp-level logit
+# noise that top-p's sort order then amplifies into a different sampled
+# token.  Serving therefore keeps only COLUMN-parallel weights sharded
+# (qkv / mlp-up / unembed: contraction dim whole, bitwise per element),
+# replicates the row-parallel weights, and all-gathers the small
+# activations (merged attn heads, MLP intermediate) right before their
+# dots — every contraction runs whole, so logits are bitwise-identical to
+# the unsharded engine BY CONSTRUCTION, and the per-step collectives are a
+# few KB of activations instead of per-layer reductions.  act_mlp itself
+# stays SHARDED so the up/gate dot outputs land sharded; only the
+# act_mlp_in seam before the down-proj gathers.
+SERVE_RULES = dict(DEFAULT_RULES, embed=(), act_seq=(),
+                   heads_in=(), mlp_in=(), act_attn_in=(), act_mlp_in=(),
+                   act_experts_in=(), act_experts_out=())
+
+
+def _candidates(name: str, mesh, rules) -> list[tuple[str, ...]]:
+    """Orderings to try for one logical name: the full folded tuple of
+    present mesh axes first, then each single axis."""
+    want = rules.get(name, ())
+    present = tuple(a for a in want if a in mesh.axis_names)
+    if not present:
+        return []
+    cands = [present]
+    if len(present) > 1:
+        cands += [(a,) for a in present]
+    return cands
+
+
+def spec_for(shape, axes, mesh, rules: Optional[dict] = None) -> tuple:
+    """Resolve one array's logical axes tuple to a spec on ``mesh``.
+
+    ``axes``: tuple of logical names (or None) matching ``shape``'s rank, or
+    None for a fully replicated array (the empty spec).
+    """
+    if axes is None:
+        return ()
+    rules = DEFAULT_RULES if rules is None else rules
+    used: set[str] = set()
+    entries = []
+    for dim, name in zip(shape, axes):
+        placed = None
+        if name is not None:
+            for cand in _candidates(name, mesh, rules):
+                free = tuple(a for a in cand if a not in used)
+                if len(free) != len(cand):
+                    continue                      # no mesh-axis reuse
+                size = 1
+                for a in free:
+                    size *= mesh.shape[a]
+                if size > 1 and dim % size == 0:  # divisibility fallback
+                    placed = free
+                    break
+            if placed is not None:
+                used.update(placed)
+        entries.append(placed[0] if placed is not None and len(placed) == 1
+                       else placed)
+    return tuple(entries)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (and of the matching dicts
+    ``rest``), keeping the structure: the port's ``jax.tree.map`` for the
+    dicts of tensors and of axes tuples used here."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_shardings(tree, axes_tree, mesh, rules: Optional[dict] = None):
+    """The spec of every leaf of ``tree`` (nested dicts of anything with a
+    ``shape``) given the matching tree of logical-axes tuples (tuples are
+    leaves of ``axes_tree``)."""
+    if isinstance(axes_tree, dict):
+        return {k: tree_shardings(tree[k], v, mesh, rules)
+                for k, v in axes_tree.items()}
+    return spec_for(tree.shape, axes_tree, mesh, rules)
+
+
+def batch_axes_for(batch):
+    """Logical axes for an input batch dict: leading dim is the request/lane
+    axis, everything else replicated."""
+    return tree_map(lambda leaf: ("batch",) + (None,) * (len(leaf.shape) - 1),
+                    batch)
+
+
+def cache_axes_for(cache):
+    """Logical axes for a decode-cache dict (see models.cache_batch_axes for
+    the authoritative per-family lane axis; this mirrors those layouts)."""
+    out = {}
+    for key, leaf in cache.items():
+        nd = len(leaf.shape)
+        if nd == 1:
+            out[key] = ("batch",)
+        elif "conv" in key:                        # (..., B, W, D)
+            ax = [None] * nd
+            ax[nd - 3] = "batch"
+            out[key] = tuple(ax)
+        elif "state" in key:                       # (..., B, H, hd, state)
+            ax = [None] * nd
+            ax[nd - 4] = "batch"
+            out[key] = tuple(ax)
+        else:                                      # KV: (..., B, Hkv, S, D)
+            ax = [None] * nd
+            ax[nd - 4] = "batch"
+            ax[nd - 3] = "act_kv_heads"
+            ax[nd - 2] = "kv_seq"
+            out[key] = tuple(ax)
+    return out
+
+
+def block_of(entry, mesh) -> tuple[int, int]:
+    """(this rank's block index, number of blocks) of a dim resolved to
+    ``entry`` (an axis name, a tuple of names folded row-major, or None)."""
+    names = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    idx, n = 0, 1
+    for a in names:
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def local_slice(t, spec, mesh):
+    """This rank's block of ``t`` (a tensor) under ``spec``: a view of
+    ``t``."""
+    for dim, entry in enumerate(spec):
+        idx, n = block_of(entry, mesh)
+        if n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, idx * size, size)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# The active mesh of the layer seams (opt-in, none otherwise)
+# ---------------------------------------------------------------------------
+
+_ACTIVE: Optional[tuple] = None
+
+
+@contextlib.contextmanager
+def use_mesh_rules(mesh, rules: Optional[dict] = None):
+    """Within this context the layer seams (``constrain``, ``gather``) place
+    against ``mesh`` under ``rules``; outside it there is no mesh."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, (mesh, DEFAULT_RULES if rules is None else rules)
+    try:
+        yield
+    finally:
+        _ACTIVE = prev
+
+
+def rules_active() -> bool:
+    """True inside a ``use_mesh_rules`` context."""
+    return _ACTIVE is not None
+
+
+def active_mesh():
+    """The mesh of the enclosing ``use_mesh_rules``; raises outside one (a
+    tensor cut into blocks reached a seam with no mesh to gather over)."""
+    if _ACTIVE is None:
+        raise RuntimeError("a sharded tensor outside use_mesh_rules: no mesh "
+                           "to gather its blocks over")
+    return _ACTIVE[0]
+
+
+def gather(x, dim: int, axis: str = "model"):
+    """All-gather the blocks of ``x``'s dim ``dim`` over the active mesh's
+    ``axis``, concatenated in coordinate order: the whole dim on every
+    rank."""
+    return C.all_gather(x, active_mesh().groups[axis], dim)
+
+
+def constrain(x, dim: int, name: str):
+    """``x`` holds, along ``dim``, this rank's block of a dim cut over the
+    model axis (a column-parallel product's output).  Lay it out as the
+    active rules place the logical axis ``name``: where it resolves to no
+    mesh axis (serving's ``act_attn_in`` and ``act_mlp_in``), gather the
+    blocks so the next contraction runs whole.  Where it rides the model
+    axis (training's row-parallel layout: a partial product per rank and a
+    psum after it) this raises: training on a mesh is not ported."""
+    mesh, rules = active_mesh(), _ACTIVE[1]
+    if any(a in mesh.axis_names for a in rules.get(name, ())):
+        raise NotImplementedError(
+            f"{name!r} rides the model axis under these rules (row-parallel "
+            "products and their psum: training on a mesh) and is not ported "
+            "yet (ROADMAP Queue 1 item 14)")
+    return gather(x, dim)

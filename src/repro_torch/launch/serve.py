@@ -18,6 +18,8 @@ default), or one static batch through ``ServeEngine.generate`` with
         --page-size 4 --pool-pages 12 --overlap --priority-every 3 \
         --max-queue 6 --deadline-steps 40 --chaos-seed 1 \
         --chaos-alloc-fail-rate 0.2 --chaos-cancel-rate 0.05
+    python -m repro_torch.launch.serve --arch stablelm_3b --device cpu \
+        --mesh 1x2 --psum ordered
 
 Dims are reduced by default, as in ``repro.launch.serve``; ``--no-reduce``
 runs the published widths.  ``--batch`` is the scheduler's lane capacity
@@ -32,14 +34,25 @@ the chaos harness (``serve.chaos``), with the JAX launcher's meaning, and a
 with its own random encoder input (``--src-len`` frames at most, default
 ``--prompt-len``); the VLM arch serves one static batch with random image
 embeddings, as the JAX launcher does.  Every arch of ``repro.configs`` is
-served (stablelm-12b with its head dim of 160).  What is not ported yet
-exits naming the ROADMAP item that ports it: ``--mesh`` (Queue 1 item 14).
+served (stablelm-12b with its head dim of 160).
+
+``--mesh DxM`` serves tensor-parallel over M ranks on the model axis
+(``dist.serve``): the launcher starts the ranks itself (``launch.mesh.
+run_ranks``; under ``torchrun`` it joins the group it is given), each
+builds the same weights from ``--seed`` and keeps its block, and rank 0
+prints the request lines, which equal the one-device run's.  ``--psum``
+picks the ordering of ``dist.collectives.psum`` (no psum lies on the
+serving path: every contraction runs whole).  What a mesh does not cover
+yet exits before any rank starts, naming ROADMAP Queue 1 item 14: a data
+axis D > 1, a family other than dense or the VLM, and heads or KV heads
+that M does not divide.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -47,6 +60,9 @@ import torch
 
 from repro_torch.configs import all_arch_names, get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.dist import collectives as C
+from repro_torch.dist import serve as DS
+from repro_torch.launch.mesh import join_group, parse_mesh, run_ranks
 from repro_torch.launch.train import reduced
 from repro_torch.models import get_model
 from repro_torch.obs import Obs, Tracer
@@ -54,10 +70,7 @@ from repro_torch.sample import SamplingParams
 from repro_torch.serve import ContinuousBatchingScheduler, ServeEngine
 from repro_torch.serve.chaos import ChaosConfig, ChaosMonkey
 
-# the JAX launcher's options that are not ported yet -> (flag, ROADMAP item)
-PENDING_OPTIONS = (
-    ("mesh", "--mesh", "Queue 1 item 14 (mesh-sharded serving)"),
-)
+MESH_AXES = ("data", "model")
 
 
 def main(argv=None):
@@ -141,11 +154,17 @@ def main(argv=None):
                     help="probability a host-swap insert is byte-flipped "
                          "after its CRC — the next hit must degrade to a "
                          "cold prefill, never serve corrupt K/V")
-    # the JAX launcher's options still to port (PENDING_OPTIONS): each exits
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to opt out)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="tensor-parallel serving over M ranks on the model "
+                         "axis (D must be 1); the launcher starts the ranks, "
+                         "rank 0 prints, tokens equal the one-device run's")
+    ap.add_argument("--psum", choices=list(C.PSUM_MODES), default="fast",
+                    help="cross-rank reduction ordering of dist.collectives."
+                         "psum: native all-reduce, or the deterministic "
+                         "ordered (fadda) / pairwise (faddv) collectives")
     ap.add_argument("--page-dtype", choices=["int8", "fp8"], default=None)
     ap.add_argument("--temperature", type=float, default=None,
                     help="enable per-request stochastic sampling at this "
@@ -164,9 +183,6 @@ def main(argv=None):
 
     if args.arch not in all_arch_names():
         ap.error(f"unknown arch {args.arch!r}")
-    for dest, flag, item in PENDING_OPTIONS:
-        if getattr(args, dest) not in (None, False):
-            sys.exit(f"{flag} is not ported yet: ROADMAP {item}")
     if args.page_dtype is not None and args.page_size is None:
         ap.error("--page-dtype requires --page-size (quantization lives in "
                  "the page pools)")
@@ -174,10 +190,56 @@ def main(argv=None):
         ap.error("--host-swap-pages requires --page-size (the swap tier "
                  "moves pages)")
 
-    device = resolve_device(args.device)
+    resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduced(cfg)
+    if args.mesh is None:
+        return _serve(None, args, cfg)
+    # every refusal before any rank starts
+    try:
+        shape = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    try:
+        DS.check_mesh(cfg, dict(zip(MESH_AXES, shape)))
+    except NotImplementedError as e:
+        sys.exit(f"--mesh {args.mesh}: {e}")
+    if "WORLD_SIZE" in os.environ:
+        # under torchrun: join the group it describes
+        import torch.distributed as dist
+        mesh = join_group(shape, MESH_AXES, device=args.device)
+        try:
+            _serve(mesh, args, cfg)
+        finally:
+            dist.destroy_process_group()
+        return
+    run_ranks(_serve, shape, MESH_AXES, args, cfg, device=args.device,
+              timeout=None)
+
+
+def _quiet(*args, **kwargs):
+    pass
+
+
+def _serve(mesh, args, cfg):
+    """Build the engine (tensor-parallel over ``mesh``, a rank's, when not
+    None) and serve the run ``args`` ask for; only rank 0 of a mesh
+    prints."""
+    out = print if mesh is None or mesh.rank == 0 else _quiet
+    obs = Obs(tracer=Tracer() if args.trace_out else None)
+    C.set_psum_mode(args.psum)
+    if args.metrics or args.trace_out:
+        C.set_obs(obs)
+    try:
+        _serve_with(args, cfg, mesh, obs, out)
+    finally:
+        C.set_psum_mode("fast")
+        C.set_obs(None)
+
+
+def _serve_with(args, cfg, mesh, obs, out):
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = get_model(cfg).init(cfg, gen, device)
     rng = np.random.RandomState(args.seed)
@@ -191,10 +253,9 @@ def main(argv=None):
         batch["src_emb"] = rng.randn(
             args.batch, args.prompt_len, cfg.d_model).astype(np.float32)
         batch["src_lens"] = np.full((args.batch,), args.prompt_len, np.int32)
-    obs = Obs(tracer=Tracer() if args.trace_out else None)
     eng = ServeEngine(cfg, params, max_new_tokens=args.max_new, stop_token=7,
                       paged_attn=args.paged_attn, page_dtype=args.page_dtype,
-                      device=device, obs=obs)
+                      device=device, mesh=mesh, obs=obs)
 
     def _sampling(i: int):
         """Per-request SamplingParams (None = greedy) for request index i."""
@@ -212,9 +273,9 @@ def main(argv=None):
         res = eng.generate(batch, sampling=sampling, page_size=args.page_size)
         for i in range(args.batch):
             n = int(res["n_generated"][i])
-            print(f"req{i} len={int(batch['lens'][i]):2d} -> "
-                  f"{res['tokens'][i, :n].tolist()}")
-        _finish_obs(args, obs)
+            out(f"req{i} len={int(batch['lens'][i]):2d} -> "
+                f"{res['tokens'][i, :n].tolist()}")
+        _finish_obs(args, obs, out)
         return
 
     # ---- continuous batching: stream requests through the lane vector ----
@@ -254,53 +315,56 @@ def main(argv=None):
     results = monkey.run(sched) if monkey else sched.run()
     for rid in sorted(results):
         r = results[rid]
-        print(f"req{rid} len={rid_len[rid]:2d} "
-              f"[{r['finish_reason'].value}] -> {r['tokens'].tolist()}")
+        out(f"req{rid} len={rid_len[rid]:2d} "
+            f"[{r['finish_reason'].value}] -> {r['tokens'].tolist()}")
     st = sched.stats
     occ = st["occupancy_trace"]
-    print(f"[scheduler] rounds={st['steps']} dispatches={st['dispatches']} "
-          f"host syncs={st['host_syncs']} compactions={st['compactions']} "
-          f"mean occupancy={sum(occ) / max(len(occ), 1):.2f}"
-          + (f"  prefill chunks={st['prefill_chunks']}"
-             if args.prefill_chunk else ""))
+    out(f"[scheduler] rounds={st['steps']} dispatches={st['dispatches']} "
+        f"host syncs={st['host_syncs']} compactions={st['compactions']} "
+        f"mean occupancy={sum(occ) / max(len(occ), 1):.2f}"
+        + (f"  prefill chunks={st['prefill_chunks']}"
+           if args.prefill_chunk else ""))
     if (st["preemptions"] or st["cancelled"] or st["shed"]
             or st["deadline_misses"] or monkey):
-        print(f"[robustness] preemptions={st['preemptions']} "
-              f"(pages back in={st['resume_page_ins']})  "
-              f"cancelled={st['cancelled']}  shed={st['shed']}  "
-              f"deadline misses={st['deadline_misses']}"
-              + (f"  [chaos seed={args.chaos_seed}: "
-                 f"alloc fails={monkey.alloc_failures} "
-                 f"cancels={monkey.cancels} "
-                 f"corruptions={monkey.corruptions}]" if monkey else ""))
+        out(f"[robustness] preemptions={st['preemptions']} "
+            f"(pages back in={st['resume_page_ins']})  "
+            f"cancelled={st['cancelled']}  shed={st['shed']}  "
+            f"deadline misses={st['deadline_misses']}"
+            + (f"  [chaos seed={args.chaos_seed}: "
+               f"alloc fails={monkey.alloc_failures} "
+               f"cancels={monkey.cancels} "
+               f"corruptions={monkey.corruptions}]" if monkey else ""))
     if args.page_size is not None:
         pocc = st["page_occupancy_trace"]
-        print(f"[paged] pool={sched.pool_pages} pages "
-              f"(page_size={args.page_size})  "
-              f"mean pool occupancy={sum(pocc) / max(len(pocc), 1):.2f}  "
-              f"prefix hits={st['prefix_hits']} "
-              f"({st['prefix_hit_tokens']} tokens skipped)  "
-              f"page waits={st['page_waits']}"
-              + (f"  page_dtype={args.page_dtype}" if args.page_dtype
-                 else ""))
+        out(f"[paged] pool={sched.pool_pages} pages "
+            f"(page_size={args.page_size})  "
+            f"mean pool occupancy={sum(pocc) / max(len(pocc), 1):.2f}  "
+            f"prefix hits={st['prefix_hits']} "
+            f"({st['prefix_hit_tokens']} tokens skipped)  "
+            f"page waits={st['page_waits']}"
+            + (f"  page_dtype={args.page_dtype}" if args.page_dtype
+               else ""))
         if args.host_swap_pages:
-            print(f"[swap] session hits={st['session_hits']} "
-                  f"({st['session_hit_tokens']} tokens skipped)  "
-                  f"out={st['swap_out_pages']} in={st['swap_in_pages']} pages  "
-                  f"store={len(sched.host_swap)}/{args.host_swap_pages}  "
-                  f"checksum failures={st['swap_checksum_failures']}")
-    _finish_obs(args, obs)
+            out(f"[swap] session hits={st['session_hits']} "
+                f"({st['session_hit_tokens']} tokens skipped)  "
+                f"out={st['swap_out_pages']} in={st['swap_in_pages']} pages  "
+                f"store={len(sched.host_swap)}/{args.host_swap_pages}  "
+                f"checksum failures={st['swap_checksum_failures']}")
+    _finish_obs(args, obs, out)
 
 
-def _finish_obs(args, obs):
-    """Export the trace / print the metrics snapshot per the CLI flags."""
+def _finish_obs(args, obs, out=print):
+    """Export the trace / print the metrics snapshot per the CLI flags (rank
+    0 of a mesh only: ``out`` is its print)."""
+    if out is _quiet:
+        return
     if args.trace_out:
         n = obs.export(args.trace_out)
-        print(f"[obs] wrote {n} trace events to {args.trace_out} "
-              "(open in ui.perfetto.dev or chrome://tracing)")
+        out(f"[obs] wrote {n} trace events to {args.trace_out} "
+            "(open in ui.perfetto.dev or chrome://tracing)")
     if args.metrics:
-        print("[obs] " + json.dumps(obs.metrics.snapshot(), indent=2,
-                                    sort_keys=True))
+        out("[obs] " + json.dumps(obs.metrics.snapshot(), indent=2,
+                                sort_keys=True))
 
 
 if __name__ == "__main__":

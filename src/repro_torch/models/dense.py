@@ -71,6 +71,21 @@ class DenseLM(nn.Module):
                 + list(self.groups["cross"]))
 
 
+def axes(cfg):
+    """The logical-axis tree of the JAX package's dense params, stacked
+    layers first (``dist.serve.param_axes`` maps it onto the port's
+    parameter names)."""
+    ax = {"embed": L.embed_axes(cfg), "final_norm": L.norm_axes(cfg)}
+    if cfg.cross_attn_group:
+        ax["groups"] = {
+            "self": L.stack_axes(L.stack_axes(L.block_axes(cfg))),
+            "cross": L.stack_axes(L.block_axes(cfg)),
+        }
+    else:
+        ax["blocks"] = L.stack_axes(L.block_axes(cfg))
+    return ax
+
+
 def init(cfg, generator: torch.Generator | None = None, device=None) -> DenseLM:
     """Random weights with the scales of the JAX init (not its numbers):
     N(0, 1/fan_in) matmul weights and embeddings, unit norms, zero biases.

@@ -21,6 +21,16 @@ Conventions
 * Training (``repro_torch.train``) runs the same functions on f32 master
   weights cast to these dtypes per step (the embedding table stays f32: the
   gather casts its rows), with each layer body under ``remat_wrap``.
+* Tensor-parallel serving (``dist.serve``): each ``*_axes`` gives the JAX
+  package's logical axes of its module's weights, keyed by the port's
+  parameter names.  A rank of a mesh holds the column-parallel weights cut
+  into whole heads (wq, wk, wv), MLP columns (w_up, w_gate) and vocab
+  rows of the table (and unembed columns), and wo and w_down whole.  The
+  functions read head counts from the weights' shapes, and gather a cut
+  activation before the product that needs it whole (the merged heads
+  before wo, the MLP intermediate before w_down, the logits), in rank
+  order, so every contraction runs whole and a rank's results are the
+  one-device bits.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import paging as PG
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels.flash_attention import flash_attention
 
 
@@ -109,6 +120,13 @@ class Norm(nn.Module):
                      if cfg.norm == "layernorm" else None)
 
 
+def norm_axes(cfg):
+    ax = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        ax["bias"] = ("embed",)
+    return ax
+
+
 def apply_norm(p: Norm, x, cfg):
     """The block's norm in f32, on at least ``NORM_ROW_FLOOR`` rows."""
     def norm(xf):
@@ -171,10 +189,35 @@ class Embed(nn.Module):
             _normal_(self.unembed, cfg.d_model ** -0.5, generator)
 
 
+def embed_axes(cfg):
+    ax = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        ax["unembed"] = ("embed", "vocab")
+    return ax
+
+
+def _embed_cut(tok, ids):
+    """Rows ``ids`` of a table cut into vocab blocks over the model axis:
+    each rank looks up the rows it owns (zeros elsewhere), the blocks are
+    gathered, and each position takes its owner's row.  Exact: the row is
+    the owner's bits (a sum over the ranks would be exact too but for a
+    -0.0 entry, which + 0.0 turns into +0.0)."""
+    n = tok.shape[0]
+    own = ids - SH.active_mesh().coords["model"] * n
+    mine = (own >= 0) & (own < n)
+    rows = F.embedding(torch.where(mine, own, 0), tok)
+    rows = rows * mine[..., None].to(rows.dtype)
+    blocks = SH.gather(rows.unsqueeze(0), 0)          # (M,) + ids + (d,)
+    owner = (ids // n).clamp(0, blocks.shape[0] - 1).long()
+    return blocks.gather(0, owner[None, ..., None].expand(
+        (1,) + rows.shape))[0]
+
+
 def embed(p: Embed, ids, cfg):
     # the gather of index_select, with a backward that sums each row's
     # gradients in a fixed order (index_select's adds them by atomics)
-    x = F.embedding(ids, p.tok).to(cdt(cfg))
+    x = (F.embedding(ids, p.tok) if p.tok.shape[0] == cfg.padded_vocab
+         else _embed_cut(p.tok, ids)).to(cdt(cfg))
     if cfg.embed_scale:
         # a 0-d host tensor: rounded to the compute dtype as in JAX, and
         # passed to the kernel as a scalar (no host-to-device copy)
@@ -185,6 +228,9 @@ def embed(p: Embed, ids, cfg):
 def unembed(p: Embed, x, cfg):
     w = (p.tok.t() if cfg.tie_embeddings else p.unembed).to(cdt(cfg))
     logits = linear(x.to(cdt(cfg)), w)
+    if logits.shape[-1] != cfg.padded_vocab:
+        # vocab-cut columns: sampling reads the whole row
+        logits = SH.gather(logits, -1)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = (torch.tanh(logits.float() / c) * c).to(cdt(cfg))
@@ -222,6 +268,20 @@ class MLP(nn.Module):
                 b.zero_()
 
 
+def mlp_axes(cfg, d_ff=None):
+    # w_down's ff dim feeds the down-proj contraction ("mlp_in", see wo)
+    ax = {"w_down": ("mlp_in", "embed")}
+    if cfg.activation in ("swiglu", "geglu"):
+        ax["w_gate"] = ("embed", "mlp")
+        ax["w_up"] = ("embed", "mlp")
+    else:
+        ax["w_up"] = ("embed", "mlp")
+    if cfg.use_bias:
+        ax["b_up"] = ("mlp",)
+        ax["b_down"] = ("embed",)
+    return ax
+
+
 def mlp(p: MLP, x, cfg):
     xc = x.to(cdt(cfg))
     up = linear(xc, p.w_up)
@@ -233,6 +293,9 @@ def mlp(p: MLP, x, cfg):
         up = F.gelu(linear(xc, p.w_gate), approximate="tanh") * up
     else:
         up = F.gelu(up, approximate="tanh")
+    if up.shape[-1] != p.w_down.shape[0]:
+        # the down-proj input: gathered so the contraction runs whole
+        up = SH.constrain(up, -1, "act_mlp_in")
     out = linear(up, p.w_down)
     if cfg.use_bias:
         out = out + p.b_down
@@ -267,6 +330,19 @@ class Attention(nn.Module):
         if cfg.use_bias:
             for b in (self.bq, self.bk, self.bv, self.bo):
                 b.zero_()
+
+
+def attn_axes(cfg):
+    # wo's first dim feeds the out-proj CONTRACTION: it gets its own logical
+    # name so serving can replicate it (a contraction split psums partial
+    # dots, which reassociates the f32 sum — bitwise-identical serving
+    # gathers the merged heads and runs the full dot instead)
+    ax = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+          "wv": ("embed", "kv_heads"), "wo": ("heads_in", "embed")}
+    if cfg.use_bias:
+        ax.update({"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",),
+                   "bo": ("embed",)})
+    return ax
 
 
 def _split_heads(t, n_heads, hd):
@@ -335,9 +411,10 @@ def attention(p: Attention, x, positions, cfg, *, kv_x=None, causal=True,
     q, k, v = linear(xc, p.wq), linear(src, p.wk), linear(src, p.wv)
     if cfg.use_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = _split_heads(q, cfg.n_heads, hd)
-    k = _split_heads(k, cfg.n_kv_heads, hd)
-    v = _split_heads(v, cfg.n_kv_heads, hd)
+    # head counts from the widths: a rank of a mesh holds whole heads
+    q = _split_heads(q, q.shape[-1] // hd, hd)
+    k = _split_heads(k, k.shape[-1] // hd, hd)
+    v = _split_heads(v, v.shape[-1] // hd, hd)
     if cfg.qk_norm:
         q, k = _rms_headdim(q), _rms_headdim(k)
     if use_rope and kv_x is None:
@@ -380,7 +457,11 @@ def attention(p: Attention, x, positions, cfg, *, kv_x=None, causal=True,
                           window=window, q_offset=q_offset,
                           impl=cfg.attn_impl, page_table=page_table,
                           k_scale=k_sc, v_scale=v_sc, decode=decode)
-    out = linear(_merge_heads(out).to(cdt(cfg)), p.wo)
+    merged = _merge_heads(out).to(cdt(cfg))
+    if merged.shape[-1] != p.wo.shape[0]:
+        # the out-proj input: gathered so the contraction runs whole
+        merged = SH.constrain(merged, -1, "act_attn_in")
+    out = linear(merged, p.wo)
     if cfg.use_bias:
         out = out + p.bo
     return out.to(x.dtype), new_cache
@@ -401,6 +482,21 @@ class Block(nn.Module):
     def reset(self, cfg, generator):
         self.attn.reset(cfg, generator)
         self.mlp.reset(cfg, generator)
+
+
+def block_axes(cfg, d_ff=None):
+    ax = {"ln1": norm_axes(cfg), "attn": attn_axes(cfg),
+          "mlp": mlp_axes(cfg, d_ff)}
+    if not cfg.parallel_block:
+        ax["ln2"] = norm_axes(cfg)
+    return ax
+
+
+def stack_axes(axes_one):
+    """``axes_one`` with a leading stacked "layers" axis on every leaf."""
+    if isinstance(axes_one, dict):
+        return {k: stack_axes(v) for k, v in axes_one.items()}
+    return ("layers",) + tuple(axes_one)
 
 
 def block_apply(p: Block, x, positions, cfg, *, causal=True, window=None,

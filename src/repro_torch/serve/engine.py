@@ -1,7 +1,6 @@
 """Batched serving engine: prefill, a gated decode burst over request lanes,
 the scheduler's page and lane movers and the fused serve step, mirroring
-``ServeEngine`` of ``repro.serve.engine`` (its mesh variants belong to a
-later slice).
+``ServeEngine`` of ``repro.serve.engine``.
 
 A batch of requests is a VECTOR (paper §2.3.4): each lane is one request.
 The JAX engine runs a decode burst as one XLA while loop.  Here a burst is
@@ -22,11 +21,22 @@ makes one host sync per burst.  On the CPU the same body runs eagerly.
 Sampling is per lane (``repro_torch.sample``): each lane carries its own
 SamplingParams row and threefry key, greedy and stochastic lanes decode in
 one batch, and an all-greedy batch takes the plain argmax path.
+
+With a ``mesh`` (``launch.mesh.Mesh``; its model axis only, the dense
+family) the engine serves tensor-parallel: one engine per rank, each
+holding its block of the weights (``dist.serve.shard_params``) and caches
+at its head counts, every model call under the mesh's ``SERVE_RULES``.
+Logits are gathered whole before sampling, so sampling, the decode carry
+and every host decision are the same on every rank, and a rank's tokens
+are the one-device engine's bit for bit.  Under a mesh the decode bursts
+run eagerly: gloo's collectives run on the host and cannot be captured
+into a CUDA graph, and NCCL's capture is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import time
 from typing import Optional, Sequence
@@ -38,6 +48,8 @@ from repro_torch import sample as S
 from repro_torch.core import paging as PG
 from repro_torch.core import predicate as P
 from repro_torch.core.device import resolve_device
+from repro_torch.dist import serve as DS
+from repro_torch.dist import sharding as SH
 from repro_torch.models import (gather_lanes, get_model, is_paged,
                                 merge_lanes, paged_decode_ok, paged_view,
                                 paged_writeback, slot_update, to_paged)
@@ -63,6 +75,18 @@ class BurstGraph:
     counts: dict
     capture_s: float
     pool_bytes: int
+
+
+def _under_mesh(fn):
+    """Run an engine method under its mesh's serving rules (the layer
+    seams gather over it), or as it is without a mesh."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        if self.mesh is None:
+            return fn(self, *args, **kwargs)
+        with SH.use_mesh_rules(self.mesh, SH.SERVE_RULES):
+            return fn(self, *args, **kwargs)
+    return run
 
 
 def _flatten(cache, out_buf, tok, p, n_gen, lane_budget, sstate) -> dict:
@@ -122,6 +146,9 @@ class ServeEngine:
     # to every paged cache this engine allocates or converts
     page_dtype: Optional[str] = None
     device: object = None
+    # tensor-parallel serving: a ``launch.mesh.Mesh`` whose model axis cuts
+    # the weights and the caches (the dense family; ``dist.serve``)
+    mesh: Optional[object] = None
     # observability handle (repro_torch.obs.Obs): ``generate`` records its
     # prefill/decode seams here.  The scheduler does NOT inherit it — it
     # defaults to its own registry; pass the same handle to both for one
@@ -147,6 +174,24 @@ class ServeEngine:
                 self.device.index is not None and dev.index != self.device.index):
             raise ValueError(f"weights live on {dev}, engine device is "
                              f"{self.device}")
+        # caches are allocated from this config: this rank's head counts
+        # under a mesh
+        self._cache_cfg = self.cfg
+        # decode bursts replay CUDA graphs on the card, and run eagerly under
+        # a mesh: gloo's collectives run on the host, outside any graph, and
+        # capturing NCCL's is not ported (ROADMAP Queue 1 item 14)
+        self._graphs_ok = self.device.type == "cuda" and self.mesh is None
+        if self.mesh is not None:
+            DS.shard_params(self.params, self.cfg, self.mesh)
+            self._cache_cfg = DS.local_config(self.cfg, self.mesh)
+            if self.mesh.rank == 0:
+                print(f"[mesh] {self.cfg.name}: model axis "
+                      f"{self.mesh.shape.get('model', 1)}, "
+                      f"{self._cache_cfg.n_heads} heads over "
+                      f"{self._cache_cfg.n_kv_heads} KV heads a rank, "
+                      f"{self.mesh.backend}, decode bursts eager (a mesh's "
+                      "collectives are not captured into CUDA graphs)",
+                      flush=True)
         # the card's captured bursts of the current carry shapes, by their
         # static arguments, and the static carry they share
         self.graphs: dict = {}
@@ -169,7 +214,7 @@ class ServeEngine:
     def make_cache(self, b: int, max_len: int, batch: Optional[dict] = None,
                    src_len: Optional[int] = None):
         """Allocate a dense cache for ``b`` request lanes."""
-        return self.model.make_cache(self.cfg, b, max_len,
+        return self.model.make_cache(self._cache_cfg, b, max_len,
                                      **self._src_kw(batch, src_len),
                                      device=self.device)
 
@@ -178,7 +223,7 @@ class ServeEngine:
                          src_len: Optional[int] = None):
         """Allocate a paged cache: shared page pools + per-lane page table
         (narrow pools + scale pools when the engine has a ``page_dtype``)."""
-        return self.model.make_paged_cache(self.cfg, b, max_len,
+        return self.model.make_paged_cache(self._cache_cfg, b, max_len,
                                            **self._src_kw(batch, src_len),
                                            page_size=page_size,
                                            pool_pages=pool_pages,
@@ -192,6 +237,7 @@ class ServeEngine:
             return {k: self._on_device(v) for k, v in x.items()}
         return torch.as_tensor(x, device=self.device)
 
+    @_under_mesh
     @torch.inference_mode()
     def _prefill(self, params, batch, cache):
         """One prefill call (the scheduler's unfused loop): ``batch`` may
@@ -220,6 +266,7 @@ class ServeEngine:
         return S.lane_state(self.default_sampling if sampling is None
                             else sampling, b, device=self.device)
 
+    @_under_mesh
     @torch.inference_mode()
     def _decode_chunk(self, cache, out_buf, tok, p, n_gen, lane_budget,
                       sstate, *, n_steps: int, stochastic: bool = True,
@@ -227,13 +274,14 @@ class ServeEngine:
         """A decode burst of exactly ``n_steps`` gated steps (``_burst``),
         narrowed to the first ``width`` lanes when given.  On the card it
         replays the bucket's CUDA graph, captured at its first call; on the
-        CPU it runs the same body eagerly.  Returns (cache, out_buf, tok, p,
-        n_gen, sstate, steps_run), ``steps_run`` the live steps as a 0-d
+        CPU (and under a mesh) it runs the same body eagerly.  Returns
+        (cache, out_buf, tok, p, n_gen, sstate, steps_run), ``steps_run``
+        the live steps as a 0-d
         int32 on the device.  On the card the returned tensors are the
         engine's static carry: its next burst of the same shapes reads them
         in place and overwrites them."""
         kw = dict(n_steps=n_steps, stochastic=stochastic, width=width)
-        if self.device.type != "cuda":
+        if not self._graphs_ok:
             return self._burst(cache, out_buf, tok, p, n_gen, lane_budget,
                                sstate, **kw)
         flat = _flatten(cache, out_buf, tok, p, n_gen, lane_budget, sstate)
@@ -496,6 +544,7 @@ class ServeEngine:
         p = P.set_lanes(p, lanes, alive)
         return cache, out_buf, tok, p, n_gen, budget, sstate
 
+    @_under_mesh
     @torch.inference_mode()
     def _fused_step(self, cache, out_buf, tok, p, n_gen, budget, sstate,
                     admit, parts, *, n_steps: int, stochastic: bool,
@@ -646,6 +695,7 @@ class ServeEngine:
     # one-shot batch API
     # ------------------------------------------------------------------
 
+    @_under_mesh
     @torch.inference_mode()
     def generate(self, batch, *, max_len: Optional[int] = None,
                  sampling=None, page_size: Optional[int] = None,

@@ -66,8 +66,16 @@ writes them.
 
 encdec serving takes ``src_len`` and each request's encoder input as
 ``extras`` (``src_emb``, zero-padded to ``src_len`` at submit, and its true
-length ``src_lens``).  Not ported yet, raising where it is asked for: mesh
-sharding (ROADMAP Queue 1 item 14).
+length ``src_lens``).
+
+Over a mesh (an engine with a ``mesh``: the dense family, tensor-parallel
+on the model axis) every rank runs this scheduler on its own engine.  The
+page pools and scale pools hold the rank's KV heads; the page tables, the
+allocator, the prefix index and the lane state are replicated.  Every host
+decision (admission, harvest, compaction, preemption, deadlines) reads
+only replicated values — the gathered logits' tokens, counts and steps,
+never a clock — so the ranks take the same decisions and meet at every
+collective.  The host-swap tier's CRC covers each rank's own bytes.
 """
 
 from __future__ import annotations
@@ -110,10 +118,6 @@ _STAT_COUNTERS = (
     ("deadline_misses", None), ("resume_page_ins", None),
     ("swap_checksum_failures", None),
 )
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 class FinishReason(str, enum.Enum):
@@ -505,8 +509,6 @@ class ContinuousBatchingScheduler:
             raise ValueError(
                 "encdec serving needs src_len= (the padded encoder memory "
                 "length caches are allocated for)")
-        if getattr(engine, "mesh", None) is not None:
-            raise _not_ported("mesh-sharded serving", "ROADMAP Queue 1 item 14")
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")

@@ -249,8 +249,8 @@ def test_launcher_page_dtype_needs_page_size(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--static", "--mesh", "1x1"], "Queue 1 item 14"),
-    (["--mesh", "1x1"], "Queue 1 item 14"),
+    (["--static", "--mesh", "2x1"], "Queue 1 item 14"),
+    (["--arch", "mamba2_130m", "--mesh", "1x2"], "Queue 1 item 14"),
 ])
 def test_launcher_names_the_roadmap_item_of_unported_modes(argv, item):
     from repro_torch.launch import serve
