@@ -96,6 +96,20 @@
    bit for bit, and ``ordered``/``pairwise`` psum of card tensors to a
    host loop and tree; a rank's failure fails the run.  Its times are of
    ranks time-sharing one card, not of tensor parallelism.
+   Then mesh serving (``serve_mesh``): a data 2 x model 2 mesh of 4 ranks
+   sharing the card (gloo).  The one-device runs come first, in this
+   process, and are freed; then each rank builds each model of
+   ``MESH_MODELS`` from seed 0 at its one-device depth, its parameters
+   held to ``mesh_params``, and serves 4 prompts (2 a data rank) of 16 new
+   tokens through ``generate``: stablelm-3b dense and paged, olmoe-1b-7b
+   dense and int8 (32 of its 64 experts a rank), zamba2-1.2b paged int8,
+   mamba2-130m, seamless-m4t-large-v2 and llama-3.2-vision-11b dense; and
+   the scheduler: stablelm-3b's paged leg (prefix sharing, prefill chunks
+   of 32, compaction), olmoe's dense leg and seamless' encdec leg.  Tokens,
+   n_generated, finish reasons, first-step logits and the scheduler's
+   stats equal one device's bit for bit, launches per run a rank equal one
+   device's, and the data ranks' pools are equal.  Its times are of ranks
+   time-sharing one card, not of data or tensor parallelism.
    Then the cross-attention models and gemma3 (``serve_cross``), random
    bf16 weights from seed 0 at full width, depth cut (``CROSS_DEPTH``):
    seamless-m4t-large-v2 (encdec, 12 + 12 of its 24 + 24 layers; 8
@@ -161,6 +175,11 @@ the training forward's lse instances, the backward).
 builds the kernels and runs only the tensor-parallel phase, over 2 and
 then 4 ranks sharing the card, after its own one-device runs
 (``tp_refs``).
+
+    python3 chip_smoke.py --mesh
+
+builds the kernels and runs only the mesh phase (``serve_mesh``), after
+its own one-device runs (``mesh_refs``).
 
     python3 chip_smoke.py --cross
 
@@ -4576,6 +4595,396 @@ def serve_tp(gpu, refs, ms=(TP_M,)) -> dict:
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# mesh serving: data 2 x model 2, four ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+# the serve mesh phase's mesh: lanes over 2 data ranks, heads, MLP columns,
+# experts and vocab over 2 model ranks
+MESH_SHAPE = (2, 2)
+# its batches: 4 lanes (2 a data rank), 16 new tokens (fewer than
+# ``MAX_NEW``, to hold the script's time)
+MESH_LANES, MESH_NEW = 4, 16
+# arch -> (generate runs: (run, page_size, page_dtype), scheduler leg)
+MESH_MODELS = {
+    "stablelm_3b": ((("dense", None, None), ("paged", PAGE_SIZE, None)),
+                    "paged"),
+    "olmoe_1b_7b": ((("dense", None, None), ("int8", PAGE_SIZE, "int8")),
+                    "dense"),
+    "zamba2_1_2b": ((("int8", PAGE_SIZE, "int8"),), None),
+    "mamba2_130m": ((("dense", None, None),), None),
+    "seamless_m4t_large_v2": ((("dense", None, None),), "encdec"),
+    "llama_3_2_vision_11b": ((("dense", None, None),), None),
+}
+# the scheduler legs: capacity 4, bursts of 8, compaction at 0.5; the paged
+# leg on 16-token pages with prefill chunks of 32 and prefix sharing
+MESH_SCHED = dict(capacity=MESH_LANES, max_len=256, chunk=8,
+                  compact_threshold=0.5)
+MESH_SRC_LEN = 128
+
+
+def mesh_config(arch):
+    """``arch`` at its published widths and the depth its one-device phase
+    serves it at (``SERVE_DEPTH`` / ``CROSS_DEPTH``)."""
+    from repro_torch.configs import get_config
+
+    if arch in WIDTHS:
+        return served_config(arch)
+    cfg = get_config(arch)
+    widths = CROSS_WIDTHS[arch]
+    got = {k: getattr(cfg, k) for k in widths}
+    check(got == widths, f"{arch} widths {got}, published {widths}")
+    return cfg.replace(**CROSS_DEPTH.get(arch, {}))
+
+
+def mesh_batch(cfg) -> dict:
+    """``MESH_LANES`` prompts of ``RandomState(0)`` lengths 64–256 (encdec:
+    decoder prompts of 8–32 tokens over 64–128 source frames N(0, 1)), the
+    vlm with image embeddings N(0, 1); on the card."""
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = MESH_LANES
+    batch = {}
+    if cfg.family == "encdec":
+        src = rng.randint(64, MESH_SRC_LEN + 1, b).astype(np.int32)
+        lens = rng.randint(8, 33, b).astype(np.int32)
+        emb = torch.randn(b, int(src.max()), cfg.d_model, generator=gen,
+                          device="cuda")
+        emb *= (torch.arange(emb.shape[1], device="cuda")[None, :, None]
+                < torch.from_numpy(src).cuda()[:, None, None])
+        batch.update(src_emb=emb, src_lens=torch.from_numpy(src).cuda())
+    else:
+        lens = rng.randint(64, 257, b).astype(np.int32)
+        if cfg.cross_attn_group:
+            batch["cross_emb"] = torch.randn(b, cfg.n_cross_tokens,
+                                             cfg.d_model, generator=gen,
+                                             device="cuda")
+    tokens = rng.randint(1, cfg.vocab_size, (b, int(lens.max())))
+    batch.update(tokens=torch.from_numpy(tokens).cuda(),
+                 lens=torch.from_numpy(lens).cuda())
+    return batch
+
+
+def mesh_work(cfg, leg) -> list:
+    """A scheduler leg's requests from ``RandomState(30)``: 8 (the paged
+    leg: about half behind a shared 64-token prefix) or 6 prompts of 32–160
+    tokens (encdec: 8–32 over 64–128 source frames), budgets 8–16, the
+    first 4 at step 0 and one every 2 decode steps after; requests 4k+2
+    sample (``mixed_specs``' distribution, seed 200 + i)."""
+    import dataclasses
+    rs = np.random.RandomState(30)
+    n = 8 if leg == "paged" else 6
+    shared = rs.randint(1, cfg.vocab_size, 64).astype(np.int32)
+    spec = mixed_specs()[4]
+    work = []
+    for i in range(n):
+        if leg == "encdec":
+            prompt = rs.randint(1, cfg.vocab_size, rs.randint(8, 33))
+            frames = rs.standard_normal((int(rs.randint(64, MESH_SRC_LEN + 1)),
+                                         cfg.d_model)).astype(np.float32)
+            extras = {"src_emb": frames}
+        else:
+            prompt = rs.randint(1, cfg.vocab_size, rs.randint(32, 161))
+            if leg == "paged" and rs.rand() < 0.5:
+                prompt = np.concatenate([shared, prompt])
+            extras = None
+        work.append({"prompt": prompt.astype(np.int32), "extras": extras,
+                     "budget": int(rs.randint(8, 17)),
+                     "arrival": 0.0 if i < 4 else 2.0 * (i - 3),
+                     "sampling": (dataclasses.replace(spec, seed=200 + i)
+                                  if i % 4 == 2 else None)})
+    return work
+
+
+def mesh_sched(eng, cfg, leg):
+    """A scheduler for ``leg`` on ``eng``."""
+    from repro_torch.serve import ContinuousBatchingScheduler
+    kw = dict(MESH_SCHED)
+    if leg == "paged":
+        kw.update(page_size=PAGE_SIZE, prefill_chunk=32)
+    if leg == "encdec":
+        kw.update(src_len=MESH_SRC_LEN)
+    return ContinuousBatchingScheduler(eng, **kw)
+
+
+def mesh_pools(cache, spec, keep=None) -> str:
+    """sha256 of a cache's page pools and scale pools (their first ``keep``
+    pages: a scheduler's trash page, which free lanes write in any order,
+    left out)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(cache):
+        if "_pages" in k:
+            t = cache[k]
+            if keep is not None:
+                t = t.narrow(len(spec[k.split("_pages")[0]]), 0, keep)
+            h.update(_bits(t).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_params(model, cfg, m: int) -> int:
+    """The parameters one rank of a model axis of ``m`` holds, reckoned from
+    the whole model's parameter names: wq, wk, wv (and their biases), the
+    MLPs' w_up / w_gate (and b_up), the experts' three weights and the
+    vocab rows of the table (and the unembed's columns) cut ``m`` ways;
+    everything else whole (wo, w_down, routers, norms, the Mamba2 blocks)."""
+    cut = ("wq", "wk", "wv", "bq", "bk", "bv", "w_up", "w_gate", "b_up")
+    total = 0
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        leaf = parts[-1]
+        if parts[-2:-1] == ["moe"]:            # the experts and the router
+            split = (leaf in ("w_gate", "w_up", "w_down")
+                     and cfg.n_experts % m == 0)
+        elif leaf in ("tok", "unembed"):
+            split = cfg.padded_vocab % m == 0
+        else:
+            split = leaf in cut
+        total += p.numel() // m if split else p.numel()
+    return total
+
+
+def mesh_refs(gpu) -> dict:
+    """The one-device runs the serve mesh phase is held to, in this process:
+    each model of ``MESH_MODELS`` (seed 0) through ``generate`` on each of
+    its caches (graphed), its first step's prefill and decode logits, and
+    its scheduler leg; each with its launches.  Every model is freed after."""
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+
+    refs = {}
+    for arch, (runs, leg) in MESH_MODELS.items():
+        cfg = mesh_config(arch)
+        model = get_model(cfg).init(cfg, torch.Generator(device="cuda")
+                                    .manual_seed(0), "cuda")
+        batch = mesh_batch(cfg)
+        out = refs[arch] = {"runs": {}}
+        for name, page_size, page_dtype in runs:
+            eng = ServeEngine(cfg, model, max_new_tokens=MESH_NEW,
+                              stop_token=-1, page_dtype=page_dtype)
+            reset_counts()
+            res = eng.generate(batch, page_size=page_size)
+            torch.cuda.synchronize()
+            out["runs"][name] = dict(
+                tokens=res["tokens"].cpu().numpy(),
+                n_generated=res["n_generated"].cpu().numpy(),
+                counts=read_counts())
+            del eng, res
+        out["logits"] = mesh_first_step(cfg, model, batch, None)
+        if leg is not None:
+            eng = ServeEngine(cfg, model, max_new_tokens=MESH_NEW,
+                              stop_token=-1)
+            out["sched"] = mesh_leg(eng, cfg, leg)
+            del eng
+        del model
+        torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_first_step(cfg, model, batch, mesh):
+    """The batch's prefill logits and one greedy decode step's, through the
+    engine's model seams (a rank's under ``mesh``), as f32 numpy."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.sample import greedy_tokens
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, model, max_new_tokens=MESH_NEW, stop_token=-1,
+                      mesh=mesh)
+    under = (SH.use_mesh_rules(mesh, SH.SERVE_RULES) if mesh is not None
+             else contextlib.nullcontext())
+    with torch.inference_mode(), under:
+        cache = eng.make_cache(MESH_LANES, batch["tokens"].shape[1] + 1, batch)
+        lp, cache = eng._prefill(eng.params, batch, cache)
+        ld, _ = eng._cached_decode({"token": greedy_tokens(lp)[:, None]},
+                                   cache)
+    return lp.float().cpu().numpy(), ld.float().cpu().numpy()
+
+
+def mesh_leg(eng, cfg, leg) -> dict:
+    """Serve ``mesh_work(cfg, leg)``: each request's tokens and
+    n_generated, the stats, the launches and the pools' digest."""
+    work = mesh_work(cfg, leg)
+    sched = mesh_sched(eng, cfg, leg)
+    for w in work:
+        sched.submit(w["prompt"], max_new_tokens=w["budget"],
+                     arrival=w["arrival"], sampling=w["sampling"],
+                     extras=w["extras"])
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sched.run()
+    torch.cuda.synchronize()
+    out = {"tokens": {i: (r["tokens"], r["n_generated"],
+                          r["finish_reason"].value) for i, r in res.items()},
+           "stats": {k: sched.stats[k] for k in (
+               "steps", "dispatches", "host_syncs", "decode_steps",
+               "prefill_chunks", "prefix_hits", "compactions")},
+           "counts": read_counts(), "s": time.perf_counter() - t0}
+    if leg == "paged":
+        out["pools"] = mesh_pools(sched.cache,
+                                  eng.model.paged_cache_spec(cfg),
+                                  sched.trash_page)
+    return out
+
+
+def mesh_rank(mesh, refs):
+    """One rank of the serve mesh phase (importable: the ranks are
+    spawned).  For each model of ``MESH_MODELS``: builds it from seed 0 on
+    the card, reckons its block's parameters (``mesh_params``) and lets the
+    engine cut it; serves its ``generate`` runs, its first step and its
+    scheduler leg; holds its launches per run to the one-device run's, and
+    (rank 0) tokens, n_generated, finish reasons, first-step logits and the
+    scheduler's stats to the one-device runs (``refs``) bit for bit.
+    Returns the rank's pool digests, launches and times."""
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, lead = mesh.shape["model"], mesh.rank == 0
+    out = {}
+    for arch, (runs, leg) in MESH_MODELS.items():
+        ref = refs[arch]
+        cfg = mesh_config(arch)
+        model = get_model(cfg).init(cfg, torch.Generator(device="cuda")
+                                    .manual_seed(0), "cuda")
+        want = mesh_params(model, cfg, m)
+        batch = mesh_batch(cfg)
+        mine = out[arch] = {"ms": {}, "counts": {}, "pools": {}}
+        # the first step first: the rank's first forward, which makes the
+        # gathers' first connections; then again, timed (the per-step times
+        # subtract it)
+        logits = mesh_first_step(cfg, model, batch, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_first_step(cfg, model, batch, mesh)
+        mine["ms"]["first step"] = (time.perf_counter() - t0) * 1e3
+        if lead:
+            for what, a, b in zip(("prefill", "decode"), logits,
+                                  ref["logits"]):
+                check(a.tobytes() == b.tobytes(),
+                      f"mesh {arch}: first-step {what} logits equal one "
+                      f"device's bit for bit (max |d| "
+                      f"{np.abs(a - b).max()})")
+        engines = {}
+        for name, page_size, page_dtype in runs:
+            eng = engines.get(page_dtype) or ServeEngine(
+                cfg, model, max_new_tokens=MESH_NEW, stop_token=-1,
+                page_dtype=page_dtype, mesh=mesh)
+            engines[page_dtype] = eng
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.generate(batch, page_size=page_size)
+            torch.cuda.synchronize()
+            mine["ms"][name] = (time.perf_counter() - t0) * 1e3
+            counts = mine["counts"][name] = read_counts()
+            r = ref["runs"][name]
+            check(counts == r["counts"], f"mesh {arch} {name}: rank "
+                  f"{mesh.rank}'s launches {counts}, one device's "
+                  f"{r['counts']}")
+            if lead:
+                check(np.array_equal(res["tokens"].cpu().numpy(), r["tokens"])
+                      and np.array_equal(res["n_generated"].cpu().numpy(),
+                                         r["n_generated"]),
+                      f"mesh {arch} {name}: tokens and n_generated equal one "
+                      "device's")
+            if page_size is not None:
+                mine["pools"][name] = mesh_pools(
+                    res["cache"], eng.model.paged_cache_spec(cfg))
+            del res
+        local = sum(p.numel() for p in model.parameters())
+        check(local == want, f"mesh {arch}: rank {mesh.rank} holds {local} "
+              f"parameters, the reckoning {want}")
+        mine["params"] = local
+        if leg is not None:
+            got = mesh_leg(engines.get(None) or ServeEngine(
+                cfg, model, max_new_tokens=MESH_NEW, stop_token=-1,
+                mesh=mesh), cfg, leg)
+            r = ref["sched"]
+            check(got["counts"] == r["counts"], f"mesh {arch} {leg} leg: rank "
+                  f"{mesh.rank}'s launches {got['counts']}, one device's "
+                  f"{r['counts']}")
+            check(got["stats"] == r["stats"], f"mesh {arch} {leg} leg: stats "
+                  f"{got['stats']}, one device's {r['stats']}")
+            if lead:
+                bad = [i for i in r["tokens"]
+                       if got["tokens"][i][0].tobytes()
+                       != r["tokens"][i][0].tobytes()
+                       or got["tokens"][i][1:] != r["tokens"][i][1:]]
+                check(not bad, f"mesh {arch} {leg} leg: requests {bad} "
+                      "differ from one device's")
+            mine["sched"] = {k: got[k] for k in ("stats", "counts", "s")}
+            if "pools" in got:
+                mine["pools"][f"{leg} leg"] = got["pools"]
+        del engines, model
+        torch.cuda.empty_cache()
+    out["mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def serve_mesh(gpu) -> dict:
+    """Mesh serving over data 2 x model 2: the one-device runs first
+    (``mesh_refs``, freed), then four ranks sharing the card (gloo, every
+    collective through the host) serve every model of ``MESH_MODELS``
+    (``mesh_rank``'s checks); the data ranks' pools are held equal at each
+    model coordinate.  Prints each model's decode ms/step and launches per
+    rank beside one device's.  Returns every rank's launches."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    refs = mesh_refs(gpu)
+    t_refs = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_SHAPE, ("data", "model"), refs,
+                      device="cuda", timeout=900)
+    t_ranks = time.perf_counter() - t1
+    d, m = MESH_SHAPE
+    launches = collections.Counter()
+    for r in ranks:
+        for arch in MESH_MODELS:
+            for counts in r[arch]["counts"].values():
+                launches.update(counts)
+            if "sched" in r[arch]:
+                launches.update(r[arch]["sched"]["counts"])
+    steps = MESH_NEW - 1
+    for arch, (runs, leg) in MESH_MODELS.items():
+        mine = [r[arch] for r in ranks]
+        for key in mine[0]["pools"]:
+            for c in range(m):
+                digests = {mine[rank]["pools"][key]
+                           for rank in range(c, d * m, m)}
+                check(len(digests) == 1, f"mesh {arch} {key}: the data ranks' "
+                      f"pools differ at model coordinate {c}")
+        r0, ref = mine[0], refs[arch]
+        first = r0["ms"]["first step"]
+        per_run = "; ".join(
+            f"{name} generate {r0['ms'][name]:.1f} ms, decode "
+            f"{(r0['ms'][name] - first) / steps:.2f} ms/step ((generate - "
+            f"prefill and one step, {first:.1f} ms) / {steps}), launches a "
+            f"rank "
+            f"{ {k: v for k, v in r0['counts'][name].items() if v} } = one "
+            f"device's (held)" for name, *_ in runs)
+        sched = ""
+        if leg is not None:
+            s = r0["sched"]
+            sched = (f"; {leg} scheduler leg {s['s']:.2f} s ({s['stats']}, "
+                     f"one device {ref['sched']['s']:.2f} s), launches a rank "
+                     f"{ {k: v for k, v in s['counts'].items() if v} } = one "
+                     "device's (held)")
+        print(f"[mesh] {arch} over data {d} x model {m} (4 ranks time-sharing "
+              f"one card, gloo): rank 0 holds {r0['params'] / 1e9:.3f}B "
+              f"parameters (the reckoning held); tokens, n_generated and "
+              f"first-step logits equal one device's bit for bit (held)"
+              + (", the data ranks' pools equal (held)" if r0["pools"] else "")
+              + f"; {per_run}{sched}  [{gpu}]", flush=True)
+    print(f"[mesh] serve mesh phase: one-device runs {t_refs:.1f} s, ranks "
+          f"{t_ranks:.1f} s (start-up included), peak "
+          f"{max(r['mem_gib'] for r in ranks):.2f} GiB allocated a rank; "
+          f"times are of 4 ranks time-sharing one card through gloo's host "
+          f"collectives, not data or tensor parallelism  [{gpu}]", flush=True)
+    return dict(launches)
+
+
 @torch.inference_mode()
 def chunk_probe(gpu) -> None:
     """Chunked prefill on the card against whole-prompt prefill, stablelm-3b:
@@ -6665,6 +7074,9 @@ def main() -> int:
         refs = phase("tp one-device runs", tp_refs, gpu)
         phase("serve tp", serve_tp, gpu, refs, (TP_M, 4))
         return 0
+    if "--mesh" in args:
+        phase("serve mesh", serve_mesh, gpu)
+        return 0
     if "--fadda-probes" in args:
         parent = args[args.index("--parent") + 1] if "--parent" in args else None
         phase("fadda probes", fadda_probes, gpu, parent)
@@ -6723,6 +7135,7 @@ def main() -> int:
         "runs": {k: {q: r[q] for q in ("tokens", "n_generated", "counts")}
                  for k, r in served["stablelm_3b"][3].items()},
         "sched": sched_dense})
+    mesh_launches = phase("serve mesh", serve_mesh, gpu)
     cross = {arch: phase(f"serve {arch}", serve_cross, arch, gpu)
              for arch in CROSS_ARCHS}
     sched_launches.update(phase("serve encdec scheduler",
@@ -6757,6 +7170,7 @@ def main() -> int:
     launches = {k: sum(r["counts"][k] for r in every_run) + quick[k]
                 + sum(c[k] for c in sched_launches.values())
                 + sum(c[k] for c in train_counts) + tp_launches.get(k, 0)
+                + mesh_launches.get(k, 0)
                 for k in kernel_wrappers()}
     bodies = {k: {body: sum(r["bodies"][k][body] for r in every_run)
                   for body in v}
@@ -6764,7 +7178,8 @@ def main() -> int:
     print(f"[full] launches over every generate (the cross-attention models', "
           f"gemma3's and stablelm-12b's included), the speculative legs, the "
           f"scheduler legs' warm runs, the serve tp phase's runs on both "
-          f"ranks ({tp_launches}), the quickstart and the training legs' "
+          f"ranks ({tp_launches}), the serve mesh phase's runs on its four "
+          f"ranks ({mesh_launches}), the quickstart and the training legs' "
           f"counted runs: {launches}; the flash "
           f"kernels by body over every generate and speculative leg: {bodies}; "
           f"the cross-attention roles' check: {cross_bodies}", flush=True)

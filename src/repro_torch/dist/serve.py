@@ -8,8 +8,9 @@ resolves through the same logical-axis rule table
 (``dist.sharding.spec_for``) on whatever mesh exists.  Model code names no
 mesh; where JAX commits arrays to a sharding and lets GSPMD propagate it,
 each rank here holds its own block: ``shard_params`` cuts the weights, the
-engine allocates caches at this rank's head counts (``local_config``), and
-the layer seams gather what the next product needs whole.
+engine allocates caches at this rank's head counts (``local_config``) and
+lanes (``local_lanes``), and the seams gather what the next step needs
+whole.
 
 Layout contract (all via ``SERVE_RULES`` — no FSDP weight split while
 serving, the data axis carries lanes only):
@@ -17,24 +18,42 @@ serving, the data axis carries lanes only):
   * page pools ``<key>_pages`` — ``lead + (P, Hkv, page_size, D)``: KV
     heads take "model" ("kv_heads" rule).  The page and page-size dims are
     never sharded — pages are gathered by table, splitting them would turn
-    every gather into a collective.
+    every gather into a collective — so every data rank holds the whole
+    pool at its KV heads, and every rank stores every lane's new K/V (the
+    rows are gathered over "batch" before the store).
   * scale pools ``<key>_pages_scale`` — ``lead + (P, Hkv, page_size)``
     (quantized caches): KV heads take "model" with their pool.
-  * per-lane dense KV — ``lead + (B, Hkv, S, D)``: lanes over "data", KV
-    heads over "model" (the ``kv_seq`` flash-decode fallback for head
-    counts the axis does not divide is not ported: ``check_mesh``).
+  * per-lane dense KV — ``lead + (B, Hkv, S, D)``, the encdec and VLM cross
+    K/V among them: lanes over "data", KV heads over "model" (the
+    ``kv_seq`` flash-decode fallback for head counts the axis does not
+    divide is not ported: ``check_mesh``).
+  * conv taps ``(..., B, W-1, C)`` and SSM states ``(..., B, H, P, N)``:
+    lanes over "data", the rest whole (no rule cuts "ssm_inner": a Mamba2
+    block is whole on every model rank).
   * page tables / per-lane scalars / sampler lanes / out_buf: lanes over
-    "data" only, so replicated on the model axis.
+    "data" in the logical spec.  The engine keeps the page tables, ``pos``
+    and its decode carry whole on every rank (``models.WHOLE_KEYS``): they
+    are a few bytes a lane, index the replicated pools, and every host
+    decision reads them.
 
-What this covers: the dense family without its cross-attention (VLM)
-branch, on the model axis, with whole heads per rank (``check_mesh``).
+A dim the axis does not divide is replicated (the divisibility fallback):
+lanes a batch axis does not divide are held whole by every rank, experts
+the model axis does not divide likewise.
+
+What this covers: every family (dense and its VLM branch, moe, ssm,
+hybrid, encdec) on any ``data x model`` mesh (a "pod" axis folds into
+"batch") whose model axis cuts the heads and KV heads into whole heads.
+Weights: heads, KV heads, MLP up/gate columns, experts and vocab over
+"model"; ``wo``, ``w_down`` and the Mamba2 blocks whole.  Not covered
+(``check_mesh``, ROADMAP Queue 1 item 14): the ``kv_seq`` fallback and
+``moe_groups`` > 1.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.models import get_model
+from repro_torch import models as M
 
 from . import sharding as SH
 
@@ -45,25 +64,21 @@ _ITEM = "ROADMAP Queue 1 item 14"
 
 def check_mesh(cfg, shape: dict) -> None:
     """Refuse, naming the ROADMAP item that ports it, a mesh (``shape``:
-    axis name -> size) that tensor-parallel serving of ``cfg`` does not
-    cover: a data axis larger than 1, a family other than dense (or its
-    VLM branch), or a model axis that does not cut both the heads and the
-    KV heads into whole-head blocks."""
+    axis name -> size) that mesh serving of ``cfg`` does not cover: a model
+    axis that does not cut the heads and the KV heads into whole-head
+    blocks (the ``kv_seq`` flash-decode fallback; an ssm model cuts no
+    heads, only its vocab), and moe dispatch groups (``moe_groups`` > 1).
+    Any batch axes are served: lanes are cut over them, or replicated where
+    they do not divide."""
     unknown = set(shape) - {"pod", "data", "model"}
     if unknown:
         raise ValueError(f"unknown mesh axes {sorted(unknown)}")
-    lanes = shape.get("pod", 1) * shape.get("data", 1)
-    if lanes > 1:
+    if cfg.family == "moe" and cfg.moe_groups != 1:
         raise NotImplementedError(
-            f"a data axis of {lanes} (request lanes over ranks) is not ported "
-            f"yet ({_ITEM})")
-    if cfg.family != "dense" or cfg.cross_attn_group:
-        what = ("the dense family's VLM branch" if cfg.family == "dense"
-                else f"the {cfg.family} family")
-        raise NotImplementedError(
-            f"tensor-parallel serving of {what} is not ported yet ({_ITEM})")
+            f"moe_groups={cfg.moe_groups} splits the dispatch over the data "
+            f"shards, which is not ported yet ({_ITEM})")
     m = shape.get("model", 1)
-    if cfg.n_heads % m or cfg.n_kv_heads % m:
+    if cfg.family != "ssm" and (cfg.n_heads % m or cfg.n_kv_heads % m):
         raise NotImplementedError(
             f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads do not cut "
             f"into {m} whole-head blocks: the kv_seq flash-decode fallback is "
@@ -72,10 +87,19 @@ def check_mesh(cfg, shape: dict) -> None:
 
 def local_config(cfg, mesh):
     """``cfg`` at this rank's head counts (and the head dim pinned): the
-    config its caches are allocated from."""
+    config its caches are allocated from.  An ssm model cuts no heads.
+    ``local_lanes`` gives the rank's lane count."""
+    if cfg.family == "ssm":
+        return cfg
     m = mesh.shape.get("model", 1)
     return cfg.replace(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
                        head_dim=cfg.resolved_head_dim)
+
+
+def local_lanes(b: int, mesh) -> int:
+    """How many of ``b`` request lanes this rank holds: ``b`` over the batch
+    axes (pod x data) when they divide it, else all ``b`` (replicated)."""
+    return SH.lane_block(b, mesh)[1]
 
 
 def cache_axes(cfg, cache) -> dict:
@@ -85,7 +109,7 @@ def cache_axes(cfg, cache) -> dict:
     and the KV-vs-state split from key names — the serve-side mirror of
     ``models`` layouts, kept here so model code never sees a mesh.
     """
-    lane_ax = get_model(cfg).cache_batch_axes(cfg)
+    lane_ax = M.get_model(cfg).cache_batch_axes(cfg)
     out = {}
     for key, leaf in cache.items():
         nd = len(leaf.shape)
@@ -139,7 +163,7 @@ def param_axes(model, cfg) -> dict:
     JAX package's, stacked layers first).  A module-list index in the name
     is a stacked layer axis of the tree (as ``models.convert`` maps them),
     so it drops one leading "layers" from the axes."""
-    tree = get_model(cfg).axes(cfg)
+    tree = M.get_model(cfg).axes(cfg)
     out = {}
     for name, _ in model.named_parameters():
         node, drop = tree, 0
@@ -157,8 +181,8 @@ def param_axes(model, cfg) -> dict:
 def shard_params(model, cfg, mesh, rules: Optional[dict] = None):
     """Cut every parameter of ``model`` to this rank's block, IN PLACE, by
     the family's logical axes under ``rules`` (``SERVE_RULES``: heads, KV
-    heads, the MLP's up/gate columns and the vocab over "model"; wo and
-    w_down whole).  Returns the model.  A model already cut for this mesh
+    heads, the MLP's up/gate columns, experts and the vocab over "model";
+    wo, w_down and the Mamba2 blocks whole).  Returns the model.  A model already cut for this mesh
     is left as it is; one cut for another mesh raises."""
     check_mesh(cfg, mesh.shape)
     rules = SH.SERVE_RULES if rules is None else rules

@@ -33,6 +33,8 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+from repro_torch.launch.mesh import BATCH_AXES, batch_shard_count
+
 from . import collectives as C
 
 # logical axis -> ordered tuple of mesh axes it may occupy (folded jointly
@@ -245,9 +247,56 @@ def active_mesh():
 
 def gather(x, dim: int, axis: str = "model"):
     """All-gather the blocks of ``x``'s dim ``dim`` over the active mesh's
-    ``axis``, concatenated in coordinate order: the whole dim on every
-    rank."""
+    ``axis`` ("batch": the folded pod x data line), concatenated in
+    coordinate order: the whole dim on every rank."""
     return C.all_gather(x, active_mesh().groups[axis], dim)
+
+
+# ---------------------------------------------------------------------------
+# Request lanes over the batch axes (pod x data)
+# ---------------------------------------------------------------------------
+
+def lane_block(b: int, mesh) -> tuple[int, int]:
+    """(first lane, lane count) of this rank's block of ``b`` request lanes:
+    cut into ``batch_shard_count`` blocks in rank order over the folded batch axes
+    when that divides ``b``, else replicated (every rank holds all ``b``:
+    the divisibility fallback).  Lanes are cut over all the batch axes or
+    none, so one gather over the "batch" group makes them whole."""
+    n = batch_shard_count(mesh)
+    if n == 1 or b % n:
+        return 0, b
+    names = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    return block_of(names, mesh)[0] * (b // n), b // n
+
+
+def lane_mesh():
+    """The active mesh when its batch axes cut lanes (``batch_shard_count``
+    > 1), else None: the lane movers ask it."""
+    if _ACTIVE is None or batch_shard_count(_ACTIVE[0]) == 1:
+        return None
+    return _ACTIVE[0]
+
+
+_LANES_CUT = False
+
+
+@contextlib.contextmanager
+def lanes_cut():
+    """Within this context the model runs on this rank's block of the
+    call's lanes (the engine's model seam): a seam that needs every lane —
+    the K/V store into a page pool every batch rank holds whole, the MoE
+    dispatch over all the call's tokens — gathers over "batch"."""
+    global _LANES_CUT
+    prev, _LANES_CUT = _LANES_CUT, True
+    try:
+        yield
+    finally:
+        _LANES_CUT = prev
+
+
+def lanes_are_cut() -> bool:
+    """True inside ``lanes_cut``."""
+    return _LANES_CUT
 
 
 def constrain(x, dim: int, name: str):

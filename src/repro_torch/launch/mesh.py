@@ -43,6 +43,9 @@ from repro_torch.core.device import resolve_device
 
 #: seconds a collective may wait for its peers before the group fails
 GROUP_TIMEOUT_S = 600.0
+#: the axes request lanes are cut over, folded (``dist.sharding``'s "batch"
+#: rule)
+BATCH_AXES = ("pod", "data")
 
 
 def parse_mesh(spec: str) -> tuple[int, int]:
@@ -63,7 +66,8 @@ class Mesh:
     its size and ``axis_names`` orders them, as a JAX mesh's do, so
     ``dist.sharding.spec_for`` reads either; ``coords`` is this rank's
     coordinate on each axis and ``groups`` the process group of its line
-    along each axis."""
+    along each axis, and under "batch" of its line over the folded lane
+    axes (pod x data)."""
     axis_names: tuple
     shape: dict
     coords: dict
@@ -123,6 +127,22 @@ def make_mesh(shape, axes, *, device=None) -> Mesh:
             g = dist.new_group(line)
             if rank in line:
                 groups[ax] = g
+    # "batch": the line over the folded lane axes (pod x data, row-major),
+    # the group request lanes are gathered over
+    folded = [i for i, ax in enumerate(axes) if ax in BATCH_AXES]
+    if len(folded) == 1:
+        groups["batch"] = groups[axes[folded[0]]]
+    elif folded:
+        lines: dict = {}
+        for r in range(world):
+            c = [(r // math.prod(shape[i + 1:])) % shape[i]
+                 for i in range(len(axes))]
+            key = tuple(c[i] for i in range(len(axes)) if i not in folded)
+            lines.setdefault(key, []).append(r)
+        for key in sorted(lines):
+            g = dist.new_group(lines[key])
+            if rank in lines[key]:
+                groups["batch"] = g
     backend = dist.get_backend()
     if rank == 0:
         why = choose_backend(device, world)[1]
@@ -160,7 +180,7 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 def batch_shard_count(mesh) -> int:
     """Number of ways the batch/token axis is sharded (pod x data)."""
     n = 1
-    for ax in ("pod", "data"):
+    for ax in BATCH_AXES:
         if ax in mesh.axis_names:
             n *= mesh.shape[ax]
     return n

@@ -20,6 +20,8 @@ default), or one static batch through ``ServeEngine.generate`` with
         --chaos-alloc-fail-rate 0.2 --chaos-cancel-rate 0.05
     python -m repro_torch.launch.serve --arch stablelm_3b --device cpu \
         --mesh 1x2 --psum ordered
+    python -m repro_torch.launch.serve --arch olmoe_1b_7b --device cpu \
+        --mesh 4x2
 
 Dims are reduced by default, as in ``repro.launch.serve``; ``--no-reduce``
 runs the published widths.  ``--batch`` is the scheduler's lane capacity
@@ -36,16 +38,19 @@ with its own random encoder input (``--src-len`` frames at most, default
 embeddings, as the JAX launcher does.  Every arch of ``repro.configs`` is
 served (stablelm-12b with its head dim of 160).
 
-``--mesh DxM`` serves tensor-parallel over M ranks on the model axis
-(``dist.serve``): the launcher starts the ranks itself (``launch.mesh.
+``--mesh DxM`` serves every arch over D x M ranks (``dist.serve``):
+request lanes over the D data ranks (``--batch`` lanes in blocks of
+``--batch``/D, or whole on every data rank where D does not divide them),
+KV heads, q heads, MLP columns, experts and vocab over the M model ranks.
+It serves the scheduler and ``--static`` alike, with every cache and
+scheduler option.  The launcher starts the ranks itself (``launch.mesh.
 run_ranks``; under ``torchrun`` it joins the group it is given), each
 builds the same weights from ``--seed`` and keeps its block, and rank 0
 prints the request lines, which equal the one-device run's.  ``--psum``
 picks the ordering of ``dist.collectives.psum`` (no psum lies on the
 serving path: every contraction runs whole).  What a mesh does not cover
-yet exits before any rank starts, naming ROADMAP Queue 1 item 14: a data
-axis D > 1, a family other than dense or the VLM, and heads or KV heads
-that M does not divide.
+yet exits before any rank starts, naming ROADMAP Queue 1 item 14: heads
+or KV heads that M does not divide (the kv_seq fallback).
 """
 
 from __future__ import annotations
@@ -158,8 +163,9 @@ def main(argv=None):
                     help="torch device (default: the GPU; 'cpu' to opt out)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="tensor-parallel serving over M ranks on the model "
-                         "axis (D must be 1); the launcher starts the ranks, "
+                    help="serve over D x M ranks: lanes over the D data "
+                         "ranks, heads, MLP columns, experts and vocab over "
+                         "the M model ranks; the launcher starts the ranks, "
                          "rank 0 prints, tokens equal the one-device run's")
     ap.add_argument("--psum", choices=list(C.PSUM_MODES), default="fast",
                     help="cross-rank reduction ordering of dist.collectives."

@@ -12,7 +12,8 @@ the dims as the JAX launcher does (keeping family and topology); without it
 the published widths run, on the card by default.  An arch whose f32
 weights, gradients and moments (16 bytes a parameter) do not fit the
 card's memory raises naming the bytes: sharding them waits for the port's
-mesh (ROADMAP Queue 1 item 14).
+mesh (ROADMAP Queue 1 item 14), and ``--mesh`` exits naming that item
+(the port serves on a mesh but does not train on one yet).
 """
 
 from __future__ import annotations
@@ -104,6 +105,9 @@ def parser():
         tempfile.gettempdir(), "repro_torch_launch_train"))
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="training on a mesh: not ported yet (exits naming "
+                         "its ROADMAP item)")
     return ap
 
 
@@ -111,6 +115,11 @@ def main(argv=None, *, fault_injector=None):
     """Parse ``argv``, train, print; returns (state, history, loop).
     ``fault_injector(step)`` is handed to ``FaultTolerantLoop.run``."""
     args = parser().parse_args(argv)
+    if args.mesh is not None:
+        raise SystemExit(
+            f"--mesh {args.mesh}: training on a mesh (row-parallel products, "
+            "their psum and a sharded optimizer state) is not ported yet "
+            "(ROADMAP Queue 1 item 14)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:

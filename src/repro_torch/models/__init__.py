@@ -9,6 +9,15 @@ each KV tensor's per-lane token axis with a shared page POOL
 with f32 scale pools (``<key>_pages_scale``: lead + (P, Hkv, page_size)).
 The lane movers below return new tensors; ``paged_writeback`` writes the
 pools in place.
+
+Over a mesh whose batch axes (pod x data) cut lanes (``dist.sharding.
+lane_block``: ``b`` lanes in rank-order blocks when the axes divide ``b``,
+else replicated), a cache of ``b`` lanes is STORED as each rank's block of
+every per-lane key except ``pos`` and ``page_table`` (``WHOLE_KEYS``),
+which every rank holds whole beside the page pools they index.  ``pos``
+therefore gives a stored cache's lane count.  Under the engine's mesh the
+movers take and return stored caches and whole-lane indices, gathering a
+cut key whole over "batch" when lanes change rank.
 """
 
 from __future__ import annotations
@@ -19,7 +28,9 @@ import torch
 
 from repro_torch.core import paging as PG
 from repro_torch.core import predicate as P
+from repro_torch.dist import sharding as SH
 
+from . import layers as L
 from .config import ModelConfig  # noqa: F401
 
 # each ported family's module is named after it
@@ -49,14 +60,62 @@ def _lane_axes(cfg, cache):
     return out
 
 
+#: per-lane keys every rank of a lane-cutting mesh holds whole
+WHOLE_KEYS = ("pos", "page_table")
+
+
+def _cut_axes(cfg, cache):
+    """Lane axis of each key a lane-cutting mesh stores cut."""
+    return {k: ax for k, ax in _lane_axes(cfg, cache).items()
+            if k in cache and k not in WHOLE_KEYS}
+
+
+def _block(cache):
+    """(first lane, lane count, whole lane count) of a stored cache's cut
+    keys under the active lane-cutting mesh, or None without one."""
+    mesh = SH.lane_mesh()
+    if mesh is None:
+        return None
+    b = cache["pos"].shape[0]
+    return SH.lane_block(b, mesh) + (b,)
+
+
+def lanes_whole(cfg, cache):
+    """A stored cache with every cut key gathered whole over "batch" (a
+    replicated one, or any without a lane-cutting mesh, as it is)."""
+    blk = _block(cache)
+    if blk is None or blk[1] == blk[2]:
+        return cache
+    out = dict(cache)
+    for k, ax in _cut_axes(cfg, cache).items():
+        out[k] = SH.gather(cache[k], ax, "batch")
+    return out
+
+
+def lanes_local(cfg, cache):
+    """A whole cache as stored: this rank's block of every cut key (a
+    copy, so the whole tensors can be freed)."""
+    blk = _block(cache)
+    if blk is None or blk[1] == blk[2]:
+        return cache
+    out = dict(cache)
+    for k, ax in _cut_axes(cfg, cache).items():
+        out[k] = cache[k].narrow(ax, blk[0], blk[1]).clone()
+    return out
+
+
 def gather_lanes(cfg, cache, lanes):
     """Out lane i takes the state of input lane ``lanes[i]``.  On a paged
     cache the pools pass through untouched: moving a lane moves its
-    page-table row, never its pages."""
+    page-table row, never its pages.  Under a lane-cutting mesh the cut
+    keys are gathered whole, moved, and cut for the new lane count."""
+    cache = lanes_whole(cfg, cache)
     axes = _lane_axes(cfg, cache)
     lanes = torch.as_tensor(lanes).to(torch.int64)
-    return {k: (torch.index_select(v, axes[k], lanes.to(v.device))
-                if k in axes else v) for k, v in cache.items()}
+    return lanes_local(cfg, {k: (torch.index_select(v, axes[k],
+                                                    lanes.to(v.device))
+                                 if k in axes else v)
+                             for k, v in cache.items()})
 
 
 def slot_update(cfg, cache, lanes, sub_cache):
@@ -64,13 +123,27 @@ def slot_update(cfg, cache, lanes, sub_cache):
     indices ``lanes`` along each tensor's lane axis; returns a new dict of new
     tensors.  Keys without a lane axis (pools) and keys missing from
     ``sub_cache`` pass through.  A lane index past the last lane drops, as
-    in JAX (``P.set_lanes``): padded admission rows aim there."""
+    in JAX (``P.set_lanes``): padded admission rows aim there.  Under a
+    lane-cutting mesh the sub-cache is gathered whole and each rank writes
+    the lanes of its block (the others aim past its last lane and drop)."""
     axes = _lane_axes(cfg, cache)
+    lanes = torch.as_tensor(lanes).to(torch.int64)
+    local = lanes
+    blk = _block(cache)
+    if blk is not None:
+        if lanes.dim():
+            # only the keys this cache holds (a paged cache has no dense K/V)
+            sub_cache = lanes_whole(cfg, {k: v for k, v in sub_cache.items()
+                                          if k in cache})
+        lo, n, b = blk
+        local = torch.where(lanes < 0, lanes + b, lanes) - lo
+        local = torch.where((local < 0) | (local >= n), n, local)
     out = dict(cache)
     for k, v in cache.items():
         if k not in axes or k not in sub_cache:
             continue
-        out[k] = P.set_lanes(v, lanes, sub_cache[k], axis=axes[k])
+        out[k] = P.set_lanes(v, lanes if k in WHOLE_KEYS else local,
+                             sub_cache[k], axis=axes[k])
     return out
 
 
@@ -218,12 +291,18 @@ def paged_writeback(cfg, cache, view, pos):
     page_col = (pos // ps).clamp(0, n_pages - 1)
     page_ids = table.gather(1, page_col[:, None].long())[:, 0]
     offsets = pos % ps
+    cut = SH.lanes_are_cut()
+    if cut:
+        # a rank's block of the lanes: every rank stores every lane
+        page_ids, offsets = L.store_rows(page_ids, offsets)
     for key, lead in spec.items():
         v = view[key]                                 # lead+(B,Hkv,S,D)
         s = v.shape[-2]
         idx = pos.clamp(0, s - 1).long().reshape((1,) * len(lead) + (-1, 1, 1, 1))
         idx = idx.expand(v.shape[:-2] + (1, v.shape[-1]))
         tok = v.gather(-2, idx)[..., 0, :]           # lead+(B,Hkv,D)
+        if cut:
+            tok = SH.gather(tok, len(lead), "batch")
         sc = cache.get(key + "_pages_scale")
         if sc is not None:
             PG.scatter_page_q(cache[key + "_pages"], sc, page_ids, offsets,

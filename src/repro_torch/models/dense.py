@@ -193,8 +193,8 @@ def _cross_kv(p: L.Attention, cross_emb, cfg):
     computes them: the K/V projections split into heads."""
     hd = cfg.resolved_head_dim
     src = cross_emb.to(L.cdt(cfg))
-    return (L._split_heads(L.linear(src, p.wk), cfg.n_kv_heads, hd),
-            L._split_heads(L.linear(src, p.wv), cfg.n_kv_heads, hd))
+    return (L.split_heads(L.linear(src, p.wk), hd),
+            L.split_heads(L.linear(src, p.wv), hd))
 
 
 def _cross_decode(bp: L.Block, h, cfg, ck, cv):
@@ -202,13 +202,12 @@ def _cross_decode(bp: L.Block, h, cfg, ck, cv):
     K/V (no bias, as in JAX; the split-KV body over every image token)."""
     cd = L.cdt(cfg)
     hin = L.apply_norm(bp.ln1, h, cfg)
-    q = L._split_heads(L.linear(hin.to(cd), bp.attn.wq), cfg.n_heads,
-                       cfg.resolved_head_dim)
+    q = L.split_heads(L.linear(hin.to(cd), bp.attn.wq), cfg.resolved_head_dim)
     if cfg.qk_norm:
         q = L._rms_headdim(q)
     out = flash_attention(q, ck.to(cd), cv.to(cd), causal=False,
                           impl=cfg.attn_impl, decode=True)
-    out = L.linear(L._merge_heads(out).to(cd), bp.attn.wo)
+    out = L.out_proj(bp.attn, out, cfg)
     if cfg.parallel_block:
         return h + out + L.mlp(bp.mlp, hin, cfg)
     h2 = h + out

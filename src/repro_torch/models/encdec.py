@@ -66,6 +66,18 @@ class EncDecLM(nn.Module):
         return self.embed.tok.device
 
 
+def axes(cfg):
+    """The logical-axis tree of the JAX package's encdec params."""
+    dec = {"ln1": L.norm_axes(cfg), "self_attn": L.attn_axes(cfg),
+           "lnx": L.norm_axes(cfg), "cross_attn": L.attn_axes(cfg),
+           "ln2": L.norm_axes(cfg), "mlp": L.mlp_axes(cfg)}
+    return {"embed": L.embed_axes(cfg),
+            "enc_blocks": L.stack_axes(L.block_axes(cfg)),
+            "enc_norm": L.norm_axes(cfg),
+            "dec_blocks": L.stack_axes(dec),
+            "final_norm": L.norm_axes(cfg)}
+
+
 def init(cfg, generator: torch.Generator | None = None, device=None) -> EncDecLM:
     """Random weights with the scales of the JAX init (not its numbers).
     ``generator`` defaults to one on ``device`` seeded with 0."""
@@ -94,8 +106,7 @@ def _cross_kv(p: L.Attention, memory, cfg):
     ck, cv = L.linear(src, p.wk), L.linear(src, p.wv)
     if cfg.use_bias:
         ck, cv = ck + p.bk, cv + p.bv
-    ck = L._split_heads(ck, cfg.n_kv_heads, hd)
-    cv = L._split_heads(cv, cfg.n_kv_heads, hd)
+    ck, cv = L.split_heads(ck, hd), L.split_heads(cv, hd)
     if cfg.qk_norm:
         ck = L._rms_headdim(ck)
     return ck, cv
@@ -108,12 +119,12 @@ def _cross_from_cache(p: L.Attention, hx, cfg, ck, cv, src_lens, decode):
     q = L.linear(hx.to(cd), p.wq)
     if cfg.use_bias:
         q = q + p.bq
-    q = L._split_heads(q, cfg.n_heads, cfg.resolved_head_dim)
+    q = L.split_heads(q, cfg.resolved_head_dim)
     if cfg.qk_norm:
         q = L._rms_headdim(q)
     out = flash_attention(q, ck.to(cd), cv.to(cd), kv_lens=src_lens,
                           causal=False, impl=cfg.attn_impl, decode=decode)
-    out = L.linear(L._merge_heads(out).to(cd), p.wo)
+    out = L.out_proj(p, out, cfg)
     if cfg.use_bias:
         out = out + p.bo
     return out.to(hx.dtype)

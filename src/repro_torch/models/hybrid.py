@@ -52,6 +52,18 @@ class HybridLM(nn.Module):
         return self.embed.tok.device
 
 
+def axes(cfg):
+    """The logical-axis tree of the JAX package's hybrid params: the Mamba2
+    stacks whole, the shared block tensor-parallel as a dense block."""
+    _, _, rem = _split_layout(cfg)
+    ax = {"embed": L.embed_axes(cfg), "final_norm": L.norm_axes(cfg),
+          "shared": L.block_axes(cfg),
+          "main": L.stack_axes(L.stack_axes(S.mamba_block_axes(cfg)))}
+    if rem:
+        ax["tail"] = L.stack_axes(S.mamba_block_axes(cfg))
+    return ax
+
+
 def init(cfg, generator: torch.Generator | None = None, device=None) -> HybridLM:
     """Random weights with the scales of the JAX init (not its numbers).
     ``generator`` defaults to one on ``device`` seeded with 0."""

@@ -355,6 +355,22 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(b, s, h * hd)
 
 
+def split_heads(t, hd):
+    """(B, S, H * hd) -> (B, H, S, hd), the head count from the width: a
+    rank of a mesh holds whole heads."""
+    return _split_heads(t, t.shape[-1] // hd, hd)
+
+
+def out_proj(p: "Attention", out, cfg):
+    """The attention output (B, H, S, hd) through ``wo`` (no bias): the
+    merged heads, gathered whole over the model axis when this rank holds a
+    block of them, so the contraction runs whole."""
+    merged = _merge_heads(out).to(cdt(cfg))
+    if merged.shape[-1] != p.wo.shape[0]:
+        merged = SH.constrain(merged, -1, "act_attn_in")
+    return linear(merged, p.wo)
+
+
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     """Write (B, Hkv, Snew, Dh) at per-row offsets ``pos`` (B,) into the
     (B, Hkv, Smax, Dh) caches, IN PLACE.  Like JAX's dynamic_update_slice the
@@ -367,6 +383,17 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     k_cache.scatter_(2, idx, k_new.to(k_cache.dtype))
     v_cache.scatter_(2, idx, v_new.to(v_cache.dtype))
     return k_cache, v_cache
+
+
+def store_rows(page_ids, off, *rows):
+    """The rows a decode step stores into its page pools, from every lane
+    of the call: each rank computed its block of the lanes, and every rank
+    of the batch axes holds the whole pool, so the page ids, offsets and
+    rows are gathered over "batch" (in rank order: the lanes' order) before
+    the store."""
+    ids = SH.gather(torch.stack([page_ids.to(torch.int64),
+                                 off.to(torch.int64)]), 1, "batch")
+    return (ids[0], ids[1]) + tuple(SH.gather(r, 0, "batch") for r in rows)
 
 
 def layer_cache(cache: dict, prefix: str, i):
@@ -411,10 +438,7 @@ def attention(p: Attention, x, positions, cfg, *, kv_x=None, causal=True,
     q, k, v = linear(xc, p.wq), linear(src, p.wk), linear(src, p.wv)
     if cfg.use_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    # head counts from the widths: a rank of a mesh holds whole heads
-    q = _split_heads(q, q.shape[-1] // hd, hd)
-    k = _split_heads(k, k.shape[-1] // hd, hd)
-    v = _split_heads(v, v.shape[-1] // hd, hd)
+    q, k, v = split_heads(q, hd), split_heads(k, hd), split_heads(v, hd)
     if cfg.qk_norm:
         q, k = _rms_headdim(q), _rms_headdim(k)
     if use_rope and kv_x is None:
@@ -434,15 +458,20 @@ def attention(p: Attention, x, positions, cfg, *, kv_x=None, causal=True,
             page_col = (cache_pos // ps).clamp(0, page_table.shape[1] - 1)
             page_ids = page_table.gather(1, page_col[:, None].long())[:, 0]
             off = cache_pos % ps
+            k_new, v_new = k[:, :, 0, :], v[:, :, 0, :]
+            if SH.lanes_are_cut():
+                # every batch rank holds the whole pool: store every lane
+                page_ids, off, k_new, v_new = store_rows(page_ids, off,
+                                                         k_new, v_new)
             if len(cache) == 5:
                 k_sc, v_sc = cache[3], cache[4]
-                PG.scatter_page_q(k_pool, k_sc, page_ids, off, k[:, :, 0, :])
-                PG.scatter_page_q(v_pool, v_sc, page_ids, off, v[:, :, 0, :])
+                PG.scatter_page_q(k_pool, k_sc, page_ids, off, k_new)
+                PG.scatter_page_q(v_pool, v_sc, page_ids, off, v_new)
                 k, v = k_pool, v_pool
                 new_cache = (k_pool, v_pool, k_sc, v_sc)
             else:
-                PG.scatter_page(k_pool, page_ids, off, k[:, :, 0, :])
-                PG.scatter_page(v_pool, page_ids, off, v[:, :, 0, :])
+                PG.scatter_page(k_pool, page_ids, off, k_new)
+                PG.scatter_page(v_pool, page_ids, off, v_new)
                 k, v = k_pool.to(cdt(cfg)), v_pool.to(cdt(cfg))
                 new_cache = (k_pool, v_pool)
         elif len(cache) == 2:
@@ -457,11 +486,7 @@ def attention(p: Attention, x, positions, cfg, *, kv_x=None, causal=True,
                           window=window, q_offset=q_offset,
                           impl=cfg.attn_impl, page_table=page_table,
                           k_scale=k_sc, v_scale=v_sc, decode=decode)
-    merged = _merge_heads(out).to(cdt(cfg))
-    if merged.shape[-1] != p.wo.shape[0]:
-        # the out-proj input: gathered so the contraction runs whole
-        merged = SH.constrain(merged, -1, "act_attn_in")
-    out = linear(merged, p.wo)
+    out = out_proj(p, out, cfg)
     if cfg.use_bias:
         out = out + p.bo
     return out.to(x.dtype), new_cache

@@ -29,6 +29,7 @@ from torch import nn
 
 from repro_torch.core import paging as PG
 from repro_torch.core.device import resolve_device
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels.moe_dispatch import build_dispatch
 
 from . import layers as L
@@ -105,6 +106,31 @@ class MoELM(nn.Module):
         return self.embed.tok.device
 
 
+def _moe_ffn_axes(cfg):
+    # experts over the model axis; their ff dims cannot reuse it and stay
+    # whole, so each rank runs whole experts
+    ax = {"router": ("embed", None),
+          "w_gate": ("experts", "embed", "mlp"),
+          "w_up": ("experts", "embed", "mlp"),
+          "w_down": ("experts", "mlp_in", "embed")}
+    if cfg.n_shared_experts:
+        ax["shared"] = L.mlp_axes(cfg, d_ff=cfg.d_ff * cfg.n_shared_experts)
+    return ax
+
+
+def axes(cfg):
+    """The logical-axis tree of the JAX package's moe params, stacked layers
+    first (``dist.serve.param_axes`` maps it onto the port's names)."""
+    moe_block = {"ln1": L.norm_axes(cfg), "attn": L.attn_axes(cfg),
+                 "ln2": L.norm_axes(cfg), "moe": _moe_ffn_axes(cfg)}
+    ax = {"embed": L.embed_axes(cfg), "final_norm": L.norm_axes(cfg)}
+    if cfg.first_k_dense:
+        ax["dense_blocks"] = L.stack_axes(
+            L.block_axes(cfg, d_ff=cfg.d_ff_dense or cfg.d_ff))
+    ax["blocks"] = L.stack_axes(moe_block)
+    return ax
+
+
 def init(cfg, generator: torch.Generator | None = None, device=None) -> MoELM:
     """Random weights with the scales of the JAX init (not its numbers).
     ``generator`` defaults to one on ``device`` seeded with 0."""
@@ -150,15 +176,25 @@ def route(p: MoEFFN, xt, cfg):
 def moe_ffn(p: MoEFFN, x, cfg, *, aux: bool = False):
     """x (B, S, d) -> y (B, S, d): all B*S positions form one dispatch
     group.  (The JAX function splits them into ``cfg.moe_groups`` groups,
-    one per data shard; the port has no mesh.)  With ``aux`` (training)
-    returns (y, metrics): the Switch load-balance loss ``lb_loss``, the
-    router z-loss ``router_z`` and ``dropped_frac``, as JAX computes them.
-    The gates keep their graph through the dispatch: only the integer
-    ranks come from the kernel."""
+    one per data shard: not ported.)  With ``aux`` (training) returns (y,
+    metrics): the Switch load-balance loss ``lb_loss``, the router z-loss
+    ``router_z`` and ``dropped_frac``, as JAX computes them.  The gates
+    keep their graph through the dispatch: only the integer ranks come
+    from the kernel.
+
+    Over a mesh: a rank that holds a block of the experts (``w_gate``/
+    ``w_up``/``w_down`` cut over the model axis) runs its experts' buffers
+    and the blocks are gathered whole before the combine; a rank that holds
+    a block of the call's lanes (``sharding.lanes_cut``) dispatches every
+    lane's tokens, gathered over "batch" (the capacity, and so what drops,
+    is the whole call's), and combines its own."""
     if cfg.moe_groups != 1:
         raise NotImplementedError(
-            "moe_groups > 1 splits tokens over data shards; the port has no "
-            "mesh yet (ROADMAP Queue 1 item 14)")
+            "moe_groups > 1 splits tokens into dispatch groups over the data "
+            "shards, which is not ported yet (ROADMAP Queue 1 item 14)")
+    n_own = x.shape[0]
+    if SH.lanes_are_cut():
+        x = SH.gather(x, 0, "batch")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -170,20 +206,31 @@ def moe_ffn(p: MoEFFN, x, cfg, *, aux: bool = False):
     gates, ids = _top_k(probs, cfg)
     disp = build_dispatch(ids, gates, e, cap)
 
-    # gather tokens into expert buffers (E, C, d); row T is zero
+    # gather tokens into this rank's experts' buffers (E, C, d); row T is
+    # zero
+    e_own = p.w_up.shape[0]
+    e0 = SH.active_mesh().coords["model"] * e_own if e_own != e else 0
+    table = disp["token_table"].narrow(0, e0, e_own)
     xp = torch.cat([xt, xt.new_zeros((1, d))])
-    xe = xp[disp["token_table"].reshape(-1).long()].reshape(e, cap, d).to(cd)
+    xe = xp[table.reshape(-1).long()].reshape(e_own, cap, d).to(cd)
     up = torch.einsum("ecd,edf->ecf", xe, p.w_up)
     gate = torch.einsum("ecd,edf->ecf", xe, p.w_gate)
     ye = torch.einsum("ecf,efd->ecd", F.silu(gate) * up, p.w_down)
+    if e_own != e:
+        ye = SH.gather(ye, 0)
 
-    # combine back to token order; dropped lanes read the zero row E*C
+    # combine back to token order (this rank's lanes); dropped lanes read
+    # the zero row E*C
+    t0 = SH.lane_block(b, SH.active_mesh())[0] * s if n_own != b else 0
+    t_own = n_own * s
     ye_flat = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
-    contrib = ye_flat[disp["slot_of"].reshape(-1).long()].reshape(t, k, d)
-    y = (contrib * disp["gates"][..., None].to(contrib.dtype)).sum(dim=1)
+    slots = disp["slot_of"].narrow(0, t0, t_own)
+    contrib = ye_flat[slots.reshape(-1).long()].reshape(t_own, k, d)
+    gw = disp["gates"].narrow(0, t0, t_own)
+    y = (contrib * gw[..., None].to(contrib.dtype)).sum(dim=1)
     if p.shared is not None:
-        y = y + L.mlp(p.shared, xt, cfg).to(y.dtype)
-    y = y.reshape(b, s, d).to(x.dtype)
+        y = y + L.mlp(p.shared, xt.narrow(0, t0, t_own), cfg).to(y.dtype)
+    y = y.reshape(n_own, s, d).to(x.dtype)
     if not aux:
         return y
     # Switch load balance (top-1 fraction x mean prob) and router z-loss

@@ -205,6 +205,23 @@ def run_block(p: MambaBlock, h, cfg, conv, state, *, lens, decode_step,
 # model API
 # ---------------------------------------------------------------------------
 
+def mamba_block_axes(cfg):
+    """The JAX package's logical axes of a Mamba2 block: "ssm_inner" has no
+    rule, so a block stays whole on every rank of a mesh."""
+    return {"norm": L.norm_axes(cfg), "in_proj": ("embed", "ssm_inner"),
+            "conv_w": (None, "ssm_inner"), "conv_b": ("ssm_inner",),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,),
+            "out_norm": {"scale": ("ssm_inner",)},
+            "out_proj": ("ssm_inner", "embed")}
+
+
+def axes(cfg):
+    """The logical-axis tree of the JAX package's ssm params."""
+    return {"embed": L.embed_axes(cfg),
+            "blocks": L.stack_axes(mamba_block_axes(cfg)),
+            "final_norm": L.norm_axes(cfg)}
+
+
 class SSMLM(nn.Module):
     """The ssm LM's weights: embedding, one ``MambaBlock`` per layer, final
     norm.  Built with uninitialised weights; ``init`` or

@@ -22,15 +22,27 @@ Sampling is per lane (``repro_torch.sample``): each lane carries its own
 SamplingParams row and threefry key, greedy and stochastic lanes decode in
 one batch, and an all-greedy batch takes the plain argmax path.
 
-With a ``mesh`` (``launch.mesh.Mesh``; its model axis only, the dense
-family) the engine serves tensor-parallel: one engine per rank, each
-holding its block of the weights (``dist.serve.shard_params``) and caches
-at its head counts, every model call under the mesh's ``SERVE_RULES``.
-Logits are gathered whole before sampling, so sampling, the decode carry
-and every host decision are the same on every rank, and a rank's tokens
-are the one-device engine's bit for bit.  Under a mesh the decode bursts
-run eagerly: gloo's collectives run on the host and cannot be captured
-into a CUDA graph, and NCCL's capture is not ported.
+With a ``mesh`` (``launch.mesh.Mesh``, every family) the engine serves
+over it: one engine per rank, each holding its block of the weights
+(``dist.serve.shard_params``: heads, MLP columns, experts and vocab over
+the model axis) and caches at its head counts, every model call under the
+mesh's ``SERVE_RULES``.  The data axis cuts request lanes: a cache of ``b``
+lanes is stored as the rank's block of them (``models.lanes_local``; all
+``b`` where the axis does not divide them), and each model call
+(``_on_lanes``) runs the rank's lanes of the whole-lane inputs and gathers
+its logits whole over "batch".  Sampling, the decode carry (``out_buf``,
+``tok``, ``p``, ``n_gen``, the sampler state), ``pos``, the page tables
+and every host decision are therefore whole and the same on every rank,
+and a rank's tokens are the one-device engine's bit for bit: a row's bits
+do not depend on the row count of its call (``layers.ROW_FLOOR``), the
+page pools every data rank holds whole are written with every lane's K/V,
+and the MoE dispatch runs over every lane's tokens.  Under a data axis a
+burst runs at full width, whatever width the scheduler asks: the lanes
+past it are free (their rows masked, their page-table rows on the trash
+page, all their state replaced at admission), so no lane moves between
+ranks for it.  Under a mesh the decode bursts run eagerly: gloo's
+collectives run on the host and cannot be captured into a CUDA graph, and
+NCCL's capture is not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +62,9 @@ from repro_torch.core import predicate as P
 from repro_torch.core.device import resolve_device
 from repro_torch.dist import serve as DS
 from repro_torch.dist import sharding as SH
-from repro_torch.models import (gather_lanes, get_model, is_paged,
+from repro_torch.launch.mesh import batch_shard_count
+from repro_torch.models import (WHOLE_KEYS, gather_lanes, get_model,
+                                is_paged, lanes_local, lanes_whole,
                                 merge_lanes, paged_decode_ok, paged_view,
                                 paged_writeback, slot_update, to_paged)
 from repro_torch.obs import Obs
@@ -146,8 +160,9 @@ class ServeEngine:
     # to every paged cache this engine allocates or converts
     page_dtype: Optional[str] = None
     device: object = None
-    # tensor-parallel serving: a ``launch.mesh.Mesh`` whose model axis cuts
-    # the weights and the caches (the dense family; ``dist.serve``)
+    # mesh serving: a ``launch.mesh.Mesh`` whose model axis cuts the weights
+    # and the caches' heads and whose data axis cuts the lanes
+    # (``dist.serve``)
     mesh: Optional[object] = None
     # observability handle (repro_torch.obs.Obs): ``generate`` records its
     # prefill/decode seams here.  The scheduler does NOT inherit it — it
@@ -181,17 +196,25 @@ class ServeEngine:
         # a mesh: gloo's collectives run on the host, outside any graph, and
         # capturing NCCL's is not ported (ROADMAP Queue 1 item 14)
         self._graphs_ok = self.device.type == "cuda" and self.mesh is None
+        # the mesh whose batch axes cut lanes, else None
+        self._lanes = None
         if self.mesh is not None:
+            # one line a model: the engine that cuts it prints
+            fresh = getattr(self.params, "shard_key", None) is None
             DS.shard_params(self.params, self.cfg, self.mesh)
             self._cache_cfg = DS.local_config(self.cfg, self.mesh)
-            if self.mesh.rank == 0:
-                print(f"[mesh] {self.cfg.name}: model axis "
-                      f"{self.mesh.shape.get('model', 1)}, "
-                      f"{self._cache_cfg.n_heads} heads over "
-                      f"{self._cache_cfg.n_kv_heads} KV heads a rank, "
-                      f"{self.mesh.backend}, decode bursts eager (a mesh's "
-                      "collectives are not captured into CUDA graphs)",
-                      flush=True)
+            d = batch_shard_count(self.mesh)
+            self._lanes = self.mesh if d > 1 else None
+            if self.mesh.rank == 0 and fresh:
+                heads = ("whole Mamba2 blocks" if self.cfg.family == "ssm"
+                         else f"{self._cache_cfg.n_heads} heads over "
+                              f"{self._cache_cfg.n_kv_heads} KV heads a rank")
+                print(f"[mesh] {self.cfg.name}: data axis {d} (lanes in "
+                      f"blocks of lanes/{d} where {d} divides them, else "
+                      f"whole), model axis {self.mesh.shape.get('model', 1)} "
+                      f"({heads}), {self.mesh.backend}, decode bursts eager "
+                      "(a mesh's collectives are not captured into CUDA "
+                      "graphs)", flush=True)
         # the card's captured bursts of the current carry shapes, by their
         # static arguments, and the static carry they share
         self.graphs: dict = {}
@@ -211,24 +234,76 @@ class ServeEngine:
         return {"src_len": src_len if src_len is not None
                 else batch["src_emb"].shape[1]}
 
+    def _block(self, b: int) -> tuple[int, int]:
+        """(first lane, lane count) of this rank's block of ``b`` lanes."""
+        return (0, b) if self._lanes is None else SH.lane_block(b, self._lanes)
+
+    def _stored(self, make, b: int, *args, **kwargs) -> dict:
+        """``make(cfg, lanes, ...)`` at this rank's heads and block of ``b``
+        lanes, with the whole-lane keys (``WHOLE_KEYS``) at all ``b``."""
+        n = self._block(b)[1]
+        cache = make(self._cache_cfg, n, *args, **kwargs)
+        if n != b:
+            for k in WHOLE_KEYS:
+                if k in cache:
+                    cache[k] = cache[k].new_zeros((b,) + cache[k].shape[1:])
+        return cache
+
     def make_cache(self, b: int, max_len: int, batch: Optional[dict] = None,
                    src_len: Optional[int] = None):
-        """Allocate a dense cache for ``b`` request lanes."""
-        return self.model.make_cache(self._cache_cfg, b, max_len,
-                                     **self._src_kw(batch, src_len),
-                                     device=self.device)
+        """Allocate a dense cache for ``b`` request lanes (as a mesh rank
+        stores it)."""
+        return self._stored(self.model.make_cache, b, max_len,
+                            **self._src_kw(batch, src_len), device=self.device)
 
     def make_paged_cache(self, b: int, max_len: int, *, page_size: int,
                          pool_pages: int, batch: Optional[dict] = None,
                          src_len: Optional[int] = None):
         """Allocate a paged cache: shared page pools + per-lane page table
         (narrow pools + scale pools when the engine has a ``page_dtype``)."""
-        return self.model.make_paged_cache(self._cache_cfg, b, max_len,
-                                           **self._src_kw(batch, src_len),
-                                           page_size=page_size,
-                                           pool_pages=pool_pages,
-                                           page_dtype=self.page_dtype,
-                                           device=self.device)
+        return self._stored(self.model.make_paged_cache, b, max_len,
+                            **self._src_kw(batch, src_len),
+                            page_size=page_size, pool_pages=pool_pages,
+                            page_dtype=self.page_dtype, device=self.device)
+
+    def _on_lanes(self, fn, batch, cache):
+        """``fn(batch, cache) -> (logits, cache)`` (a prefill or a decode
+        step) on this rank's block of the lanes: the whole-lane ``batch``
+        inputs and ``pos`` / ``page_table`` cut to the block, the model run
+        under ``sharding.lanes_cut``, and the logits and ``pos`` gathered
+        whole over "batch" (the page table stays whole).  Without a lane
+        cut every rank runs every lane."""
+        b = cache["pos"].shape[0]
+        lo, n = self._block(b)
+        if n == b:
+            return fn(batch, cache)
+        own = lambda v: (v.narrow(0, lo, n) if torch.is_tensor(v) and v.dim()
+                         and v.shape[0] == b else v)
+        view = {k: own(v) if k in WHOLE_KEYS else v for k, v in cache.items()}
+        with SH.lanes_cut():
+            logits, new = fn({k: own(v) for k, v in batch.items()}, view)
+            new = dict(new, pos=SH.gather(new["pos"], 0, "batch"))
+            if "page_table" in cache:
+                new["page_table"] = cache["page_table"]
+            return SH.gather(logits, 0, "batch"), new
+
+    def _run_prefill(self, batch, cache, params=None):
+        """The family's prefill on this rank's lanes (``_on_lanes``)."""
+        params = self.params if params is None else params
+        return self._on_lanes(
+            lambda bt, c: self.model.prefill(params, self.cfg, bt, c),
+            batch, cache)
+
+    @_under_mesh
+    def gather_lanes(self, cache, lanes):
+        """``models.gather_lanes`` under the engine's mesh (a stored cache
+        and whole-lane indices)."""
+        return gather_lanes(self.cfg, cache, lanes)
+
+    @_under_mesh
+    def slot_update(self, cache, lanes, sub_cache):
+        """``models.slot_update`` under the engine's mesh."""
+        return slot_update(self.cfg, cache, lanes, sub_cache)
 
     def _on_device(self, x):
         """A host-assembled input (numpy leaves, nested dicts) as tensors on
@@ -242,8 +317,7 @@ class ServeEngine:
     def _prefill(self, params, batch, cache):
         """One prefill call (the scheduler's unfused loop): ``batch`` may
         hold host arrays.  Returns (last-token logits, cache)."""
-        return self.model.prefill(params, self.cfg, self._on_device(batch),
-                                  cache)
+        return self._run_prefill(self._on_device(batch), cache, params)
 
     # ------------------------------------------------------------------
     # the decode burst
@@ -380,7 +454,10 @@ class ServeEngine:
         (lanes at or above it are inactive for the whole burst and pass
         through untouched, so per-lane results equal the full-width
         burst's)."""
-        if width is None or width >= out_buf.shape[0]:
+        # under a data axis the burst runs full width: the lanes past
+        # ``width`` are free, and narrowing would move lanes between ranks
+        if (width is None or width >= out_buf.shape[0]
+                or self._lanes is not None):
             return self._decode_loop(cache, out_buf, tok, p, n_gen,
                                      lane_budget, sstate, n_steps=n_steps,
                                      stochastic=stochastic)
@@ -453,7 +530,11 @@ class ServeEngine:
         """One decode step against a dense OR paged cache (native paged, or
         the "gather" oracle: dense view through the table, unchanged decode,
         the new token scattered back; on a quantized cache the oracle
-        dequantizes the same pool bytes and truncates the new token back)."""
+        dequantizes the same pool bytes and truncates the new token back),
+        on this rank's lanes (``_on_lanes``)."""
+        return self._on_lanes(self._decode_lanes, batch, cache)
+
+    def _decode_lanes(self, batch, cache):
         if not is_paged(cache):
             return self.model.decode(self.params, self.cfg, batch, cache)
         if self.paged_attn != "gather" and paged_decode_ok(self.cfg):
@@ -467,15 +548,17 @@ class ServeEngine:
     # admission: prefix seeds, page installs, the lane splice
     # ------------------------------------------------------------------
 
+    @_under_mesh
     def _seed_pages(self, cache, sub_cache, seed_tab, seed_len, max_len: int):
         """Gather resident shared-prefix pages of the live paged ``cache``
         into a dense prefill ``sub_cache`` (positions [0, seed_len) per row),
         so suffix rows attend over the donor's K/V.  A quantized cache's
         seed widens through the scale pool."""
         spec = self.model.paged_cache_spec(self.cfg)
-        seed_tab = torch.as_tensor(seed_tab, device=self.device)
-        seed_len = torch.as_tensor(seed_len, device=self.device)
-        m = seed_tab.shape[0]
+        # the rows of this rank's block of the sub-cache's lanes
+        lo, m = self._block(sub_cache["pos"].shape[0])
+        seed_tab, seed_len = (torch.as_tensor(t, device=self.device)
+                              .narrow(0, lo, m) for t in (seed_tab, seed_len))
         mask = (torch.arange(max_len, dtype=torch.int32, device=self.device)[None, :]
                 < seed_len[:, None])
         sub_cache = dict(sub_cache)
@@ -488,6 +571,7 @@ class ServeEngine:
                                          sub_cache[key])
         return sub_cache
 
+    @_under_mesh
     def _install_pages(self, cache, sub_cache, rows, cols, dsts, tab_rows,
                        lanes):
         """Scatter freshly prefilled K/V blocks ``(rows, cols)`` of the dense
@@ -498,6 +582,9 @@ class ServeEngine:
         drops."""
         spec = self.model.paged_cache_spec(self.cfg)
         cache = dict(cache)
+        # every rank installs every row into its whole pools
+        sub_cache = lanes_whole(self.cfg, {k: sub_cache[k]
+                                           for k in [*spec, "pos"]})
         rows, cols, dsts = (torch.as_tensor(t, device=self.device).long()
                             for t in (rows, cols, dsts))
         n_pages = cache["page_table"].shape[1]
@@ -571,8 +658,7 @@ class ServeEngine:
             if "seed_tab" in part:
                 sub_in = self._seed_pages(cache, sub_in, part["seed_tab"],
                                           part["seed_len"], max_len)
-            logits, sub = self.model.prefill(self.params, self.cfg,
-                                             part["batch"], sub_in)
+            logits, sub = self._run_prefill(part["batch"], sub_in)
             if not part_final[i]:
                 new_part_caches.append(sub)
                 continue
@@ -594,8 +680,7 @@ class ServeEngine:
                 sub_cache = self._seed_pages(cache, sub_cache,
                                              admit["seed_tab"],
                                              admit["seed_len"], max_len)
-            logits, sub_cache = self.model.prefill(self.params, self.cfg,
-                                                   batch, sub_cache)
+            logits, sub_cache = self._run_prefill(batch, sub_cache)
             if admit_stoch:
                 first, sub_state = self._sample(logits, admit["sub_state"])
             else:
@@ -653,6 +738,7 @@ class ServeEngine:
     # preemption lane movers (the scheduler's bit-exact preempt/resume)
     # ------------------------------------------------------------------
 
+    @_under_mesh
     @torch.inference_mode()
     def _spill_lane(self, cache, out_buf, tok, n_gen, budget, sstate, lane):
         """ONE lane's host-spillable state: its dense per-lane cache carries
@@ -671,6 +757,7 @@ class ServeEngine:
         srow = {k: v[0] for k, v in S.gather_lanes(sstate, idx).items()}
         return dense, row, srow
 
+    @_under_mesh
     @torch.inference_mode()
     def _resume_lane(self, cache, out_buf, tok, p, n_gen, budget, sstate,
                      lane, dense, row, srow, table_row):
@@ -754,12 +841,13 @@ class ServeEngine:
         cache = self.make_cache(b, max_len, extras)
         sstate = self.make_state(b, sampling)
         with self.obs.span("prefill", dispatch=True, b=b, s=s):
-            logits, cache = self.model.prefill(
-                self.params, self.cfg, dict(extras, tokens=tokens, lens=lens),
-                cache)
+            logits, cache = self._run_prefill(
+                dict(extras, tokens=tokens, lens=lens), cache)
         if page_size is not None:
-            cache = to_paged(self.cfg, cache, page_size=page_size,
-                             pool_pages=pool_pages, page_dtype=self.page_dtype)
+            # the pools every data rank holds whole take every lane
+            cache = lanes_local(self.cfg, to_paged(
+                self.cfg, lanes_whole(self.cfg, cache), page_size=page_size,
+                pool_pages=pool_pages, page_dtype=self.page_dtype))
         stochastic = not S.is_all_greedy(sstate)
         if stochastic:
             first_tok, sstate = self._sample(logits, sstate)

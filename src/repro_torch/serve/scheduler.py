@@ -68,14 +68,24 @@ encdec serving takes ``src_len`` and each request's encoder input as
 ``extras`` (``src_emb``, zero-padded to ``src_len`` at submit, and its true
 length ``src_lens``).
 
-Over a mesh (an engine with a ``mesh``: the dense family, tensor-parallel
-on the model axis) every rank runs this scheduler on its own engine.  The
-page pools and scale pools hold the rank's KV heads; the page tables, the
-allocator, the prefix index and the lane state are replicated.  Every host
-decision (admission, harvest, compaction, preemption, deadlines) reads
-only replicated values — the gathered logits' tokens, counts and steps,
-never a clock — so the ranks take the same decisions and meet at every
-collective.  The host-swap tier's CRC covers each rank's own bytes.
+Over a mesh (an engine with a ``mesh``: every family, KV heads, MLP
+columns, experts and vocab over the model axis, lanes over the data axis)
+every rank runs this scheduler on its own engine.  The page pools and
+scale pools hold the rank's KV heads and every page (each data rank a
+whole copy, every lane's K/V stored into it); the per-lane dense K/V,
+cross K/V, conv taps and SSM states hold the rank's block of the lanes
+(all of them where the data axis does not divide the capacity, or an
+admission sub-batch, or a chunked prefill's one lane); the page tables,
+``pos``, the allocator, the prefix index, the decode carry and the
+sampler lanes are whole on every rank.  Admission, harvest, compaction,
+preemption, host swap and encdec ``extras`` go through the engine's
+movers (``gather_lanes``, ``slot_update``, ``_spill_lane``,
+``_resume_lane``, the page movers), which gather a lane whole where it
+changes rank.  Every host decision reads only replicated values — the
+gathered logits' tokens, counts and steps, never a clock — so the ranks
+take the same decisions and meet at every collective, with one device's
+dispatches and host syncs.  The host-swap tier's CRC covers each rank's
+own bytes.
 """
 
 from __future__ import annotations
@@ -94,8 +104,7 @@ from repro_torch import sample as S
 from repro_torch.core import paging as PG
 from repro_torch.core import predicate as P
 from repro_torch.models import (chunked_prefill_granularity, chunked_prefill_ok,
-                                gather_lanes, get_model,
-                                lane_independent_decode, slot_update)
+                                get_model, lane_independent_decode)
 from repro_torch.obs import Obs
 
 from .engine import ServeEngine
@@ -1673,11 +1682,11 @@ class ContinuousBatchingScheduler:
                 self._register_prefix(req, pl)
         keep = torch.arange(n, device=dev)
         if n_pad > n:                               # drop the dummy rows
-            sub_cache = gather_lanes(eng.cfg, sub_cache, keep)
+            sub_cache = eng.gather_lanes(sub_cache, keep)
 
         # ---- splice the sub-batch into the recycled lanes ----
         lane_idx = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
-        self.cache = slot_update(eng.cfg, self.cache, lane_idx, sub_cache)
+        self.cache = eng.slot_update(self.cache, lane_idx, sub_cache)
         self.sstate = S.slot_update(self.sstate, lane_idx,
                                     S.gather_lanes(sub_state, keep))
         budgets = torch.as_tensor(plan.budgets, device=dev)
@@ -1913,7 +1922,7 @@ class ContinuousBatchingScheduler:
             self._copy_pages(part.sub_cache, [part.plan], lanes)
             self._register_prefix(req, part.plan)
         lane_idx = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
-        self.cache = slot_update(eng.cfg, self.cache, lane_idx, part.sub_cache)
+        self.cache = eng.slot_update(self.cache, lane_idx, part.sub_cache)
         self.sstate = S.slot_update(self.sstate, lane_idx, sub_state)
         budget = int(part.budget)
         self.tok = P.set_lanes(self.tok, lane_idx, first_tok)
@@ -2138,7 +2147,7 @@ class ContinuousBatchingScheduler:
         take = lambda t: t.index_select(0, perm_idx)
         # on a paged cache this moves page-table ROWS only — the pools never
         # move, so compaction cost is O(n_pages), not O(cache)
-        self.cache = gather_lanes(self.engine.cfg, self.cache, perm_idx)
+        self.cache = self.engine.gather_lanes(self.cache, perm_idx)
         self.sstate = S.gather_lanes(self.sstate, perm_idx)
         self.out_buf = take(self.out_buf)
         self.tok = take(self.tok)

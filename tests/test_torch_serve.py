@@ -248,14 +248,18 @@ def test_launcher_page_dtype_needs_page_size(capsys):
     assert "--page-dtype requires --page-size" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--static", "--mesh", "2x1"], "Queue 1 item 14"),
-    (["--arch", "mamba2_130m", "--mesh", "1x2"], "Queue 1 item 14"),
+@pytest.mark.parametrize("launcher,argv,item", [
+    # heads the model axis does not cut whole: the kv_seq fallback
+    ("serve", ["--static", "--mesh", "1x4"], "Queue 1 item 14"),
+    # training on a mesh
+    ("train", ["--reduce", "--mesh", "2x1"], "Queue 1 item 14"),
 ])
-def test_launcher_names_the_roadmap_item_of_unported_modes(argv, item):
-    from repro_torch.launch import serve
+def test_launcher_names_the_roadmap_item_of_unported_modes(launcher, argv,
+                                                           item):
+    import importlib
+    main = importlib.import_module(f"repro_torch.launch.{launcher}").main
     with pytest.raises(SystemExit, match=item):
-        serve.main(["--device", "cpu"] + argv)
+        main(["--device", "cpu"] + argv)
 
 
 def _run_jax_launcher(argv):

@@ -7,8 +7,9 @@ a paged and an int8-paged cache's specs, over meshes (1, 2), (1, 4),
 (2, 2) and (2, 4).  The JAX side runs in one subprocess with 16 forced
 host devices, as ``test_sharding_rules.py`` runs it.  Then, within the
 port: a rank's blocks (``local_slice``) have the shapes of the caches
-``local_config`` allocates, ``shard_params`` cuts whole heads, and a mesh
-it does not cover is refused naming ROADMAP Queue 1 item 14.
+``local_config`` allocates, ``shard_params`` cuts whole heads, and what
+mesh serving leaves out (the kv_seq fallback, moe dispatch groups) is
+refused naming ROADMAP Queue 1 item 14.
 """
 
 import json
@@ -52,6 +53,18 @@ RULE_CASES = [
     ((256, 512), ("embed", "heads"), (2, 4), ("data", "model"), "serve"),
     ((8, 8), None, (2, 4), ("data", "model"), None),
 ]
+# every family beside dense (test_sharded_serve.py's overrides; the hybrid
+# at 3 layers for a tail, the VLM at 4 layers in groups of 2)
+FAMILIES = {
+    "moe": dict(family="moe", first_k_dense=1, n_experts=4, top_k=2),
+    "moe_shared": dict(family="moe", n_experts=4, top_k=2,
+                       n_shared_experts=1),
+    "ssm": dict(family="ssm", ssm_state=16, ssm_headdim=16, ssm_chunk=4),
+    "hybrid": dict(family="hybrid", n_layers=3, ssm_state=16,
+                   ssm_headdim=16, ssm_chunk=4, shared_attn_period=2),
+    "encdec": dict(family="encdec", n_enc_layers=2, n_dec_layers=2),
+    "vlm": dict(n_layers=4, cross_attn_group=2, n_cross_tokens=4),
+}
 # test_sharding_rules.py's serve caches: (name, {key: shape}, n_kv_heads)
 RULE_CACHES = [
     ("paged", {"k_pages": (2, 15, 2, 4, 16), "v_pages": (2, 15, 2, 4, 16),
@@ -115,6 +128,27 @@ for mshape in case["meshes"]:
                       DSRV.cache_shardings(cfg, cache, mesh).items()},
             "shapes": {k: list(v.shape) for k, v in cache.items()}}
     out["meshes"]["x".join(map(str, mshape))] = got
+out["families"] = {}
+mesh = make_mesh((2, 2), ("data", "model"))
+for name, over in case["families"].items():
+    cfg = ModelConfig(**dict(base, **over))
+    model = get_model(cfg)
+    params = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), cfg)[0])
+    axes = model.axes(cfg)
+    kw = {"src_len": 8} if cfg.family == "encdec" else {}
+    caches = {"dense": model.make_cache(cfg, 4, 24, **kw)}
+    if cfg.family != "ssm":
+        caches["int8"] = model.make_paged_cache(
+            cfg, 4, 24, page_size=4, pool_pages=14, page_dtype="int8", **kw)
+    out["families"][name] = {
+        "axes": jax.tree.map(list, axes,
+                             is_leaf=lambda x: isinstance(x, tuple)),
+        "params": jax.tree.map(
+            lambda s: spec(s.spec),
+            SH.tree_shardings(params, axes, mesh, SH.SERVE_RULES)),
+        "caches": {c: {k: list(v) for k, v in
+                       DSRV.cache_axes(cfg, cache).items()}
+                   for c, cache in caches.items()}}
 print("JSON" + json.dumps(out))
 """
 
@@ -138,7 +172,7 @@ def _mesh(shape, names=("data", "model"), coords=None):
 @pytest.fixture(scope="module")
 def jax_out():
     case = {"rule_cases": RULE_CASES, "rule_caches": RULE_CACHES,
-            "base": BASE, "meshes": MESHES}
+            "base": BASE, "meshes": MESHES, "families": FAMILIES}
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "JAX_PLATFORMS": "cpu", "HOME": os.environ.get("HOME", "/root")}
     r = subprocess.run([sys.executable, "-c", JAX_SCRIPT, json.dumps(case)],
@@ -262,18 +296,83 @@ def test_local_blocks_are_the_local_caches_and_whole_heads(m):
         assert torch.equal(model.embed.tok, whole.embed.tok[r * v:(r + 1) * v])
 
 
-@pytest.mark.parametrize("shape,what", [
-    ({"data": 2, "model": 1}, "a data axis of 2"),
-    ({"data": 1, "model": 4}, "kv_seq flash-decode fallback"),
+@pytest.mark.parametrize("over,shape,what", [
+    ({}, {"data": 1, "model": 4}, "kv_seq flash-decode fallback"),
+    (dict(family="moe", n_experts=4, top_k=2, moe_groups=2),
+     {"data": 2, "model": 1}, "moe_groups=2"),
 ])
-def test_uncovered_meshes_name_item_14(shape, what):
-    cfg = ModelConfig(**BASE)
+def test_uncovered_meshes_name_item_14(over, shape, what):
+    """What mesh serving leaves out is refused naming its item; every
+    family (the VLM branch too) is served on a data 2 x model 2 mesh, and
+    an ssm model, which cuts no heads, on any model axis."""
+    cfg = ModelConfig(**dict(BASE, **over))
     with pytest.raises(NotImplementedError, match="Queue 1 item 14") as e:
         DS.check_mesh(cfg, shape)
     assert what in str(e.value)
-    for fam in ("ssm", "moe", "hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            DS.check_mesh(ModelConfig(**dict(BASE, family=fam)), {"model": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        DS.check_mesh(ModelConfig(**dict(BASE, cross_attn_group=2)),
-                      {"model": 2})
+    for fam in ("dense", "ssm", "moe", "hybrid", "encdec"):
+        DS.check_mesh(ModelConfig(**dict(BASE, family=fam)),
+                      {"data": 2, "model": 2})
+    DS.check_mesh(ModelConfig(**dict(BASE, cross_attn_group=2)),
+                  {"data": 2, "model": 2})
+    ssm = ModelConfig(**dict(BASE, family="ssm", n_heads=1, n_kv_heads=1))
+    DS.check_mesh(ssm, {"data": 4, "model": 4})
+    mesh = _mesh((4, 4))
+    assert DS.local_config(ssm, mesh) is ssm
+    assert DS.local_lanes(8, mesh) == 2 and DS.local_lanes(6, mesh) == 6
+
+
+def _param_specs_match(model, cfg, mesh, want):
+    """Every parameter's axes (``param_axes``) and spec on ``mesh`` against
+    JAX's stacked tree, whose layer dims are never cut."""
+    axes = DS.param_axes(model, cfg)
+    for name, p in model.named_parameters():
+        node, n = want, 0
+        for part in name.split("."):
+            if part.isdigit():
+                n += 1
+            else:
+                node = node[part]
+        assert node[:n] == [None] * n, (name, node)
+        got = SH.spec_for(p.shape, axes[name], mesh, SH.SERVE_RULES)
+        assert _listed(got) == node[n:], (name, got, node)
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_family_axes_params_and_caches_match_jax(jax_out, name):
+    """Each family's axes tree, every parameter's spec on a data 2 x model 2
+    mesh and every cache key's axes (dense and int8-paged) against JAX's;
+    then ``shard_params`` at model coordinate 1 leaves each parameter its
+    block (experts, heads, MLP columns, vocab; Mamba2 blocks whole) and the
+    caches ``local_config`` allocates are the blocks of the whole ones."""
+    cfg = ModelConfig(**dict(BASE, **FAMILIES[name]))
+    fam = get_model(cfg)
+    want = jax_out["families"][name]
+    assert _listed(fam.axes(cfg)) == want["axes"]
+    model = fam.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = _mesh((2, 2), coords={"data": 1, "model": 1})
+    _param_specs_match(model, cfg, mesh, want["params"])
+    kw = {"src_len": 8} if cfg.family == "encdec" else {}
+    caches = {"dense": fam.make_cache(cfg, 4, 24, device="cpu", **kw)}
+    if cfg.family != "ssm":
+        caches["int8"] = fam.make_paged_cache(
+            cfg, 4, 24, page_size=4, pool_pages=14, page_dtype="int8",
+            device="cpu", **kw)
+    local = DS.local_config(cfg, mesh)
+    for cname, cache in caches.items():
+        assert _listed(DS.cache_axes(cfg, cache)) == want["caches"][cname]
+        specs = DS.cache_shardings(cfg, cache, mesh)
+        mine = (fam.make_cache(local, 2, 24, device="cpu", **kw)
+                if cname == "dense" else fam.make_paged_cache(
+                    local, 2, 24, page_size=4, pool_pages=14,
+                    page_dtype="int8", device="cpu", **kw))
+        for k, v in cache.items():
+            assert SH.local_slice(v, specs[k], mesh).shape == mine[k].shape, \
+                (cname, k)
+    whole = dict(fam.init(cfg, torch.Generator().manual_seed(0),
+                          "cpu").named_parameters())
+    axes = DS.param_axes(model, cfg)
+    DS.shard_params(model, cfg, mesh)
+    for pname, p in model.named_parameters():
+        spec = SH.spec_for(whole[pname].shape, axes[pname], mesh,
+                           SH.SERVE_RULES)
+        assert torch.equal(p, SH.local_slice(whole[pname], spec, mesh)), pname

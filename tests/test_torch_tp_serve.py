@@ -8,9 +8,11 @@ JAX package's one-device ``generate``; the scheduler's paged +
 prefix-sharing + chunked-prefill + compaction trace (the scenario of
 ``test_sharded_serve_paged_prefix_chunked_compacting``, with and without
 overlap) byte for byte with equal stats against the one-device scheduler.
-Then the launcher: ``--mesh 1x2 --psum ordered`` and ``--mesh 1x1`` print
-the request lines of the run without a mesh, and each mesh the slice does
-not cover exits naming ROADMAP Queue 1 item 14 before any rank starts.
+Then the launcher: ``--mesh 1x2 --psum ordered``, ``--mesh 1x1``, every
+family at ``--mesh 2x2``, ``--static --mesh 2x1`` and the VLM at ``--mesh
+1x2`` print the request lines of the run without a mesh, and heads the
+model axis does not cut whole exit naming ROADMAP Queue 1 item 14 before
+any rank starts.
 
 The rank function lives here, importable by name, and imports no JAX;
 the JAX weights cross to the ranks as numpy arrays.
@@ -198,39 +200,61 @@ def _req_lines(text):
     return [ln for ln in text.splitlines() if ln.startswith("req")]
 
 
-@pytest.fixture(scope="module")
-def no_mesh_lines():
-    from repro_torch.launch import serve
-    import io
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        serve.main(["--device", "cpu"])
-    lines = _req_lines(buf.getvalue())
-    assert len(lines) == 10
-    return lines
+_NO_MESH = {}
 
 
-@pytest.mark.parametrize("mesh", [["--mesh", "1x2", "--psum", "ordered"],
-                                  ["--mesh", "1x1"]],
-                         ids=["1x2-ordered", "1x1"])
-def test_launcher_mesh_prints_the_no_mesh_request_lines(no_mesh_lines, mesh):
+def no_mesh_lines(arch, static):
+    """The request lines of the launcher's run of ``arch`` without a mesh
+    (in this process; one run per arch)."""
+    key = (arch, static)
+    if key not in _NO_MESH:
+        from repro_torch.launch import serve
+        import io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--device", "cpu", "--arch", arch]
+                       + (["--static"] if static else []))
+        _NO_MESH[key] = _req_lines(buf.getvalue())
+    return _NO_MESH[key]
+
+
+@pytest.mark.parametrize("arch,mesh", [
+    ("stablelm_3b", ["--mesh", "1x2", "--psum", "ordered"]),
+    ("stablelm_3b", ["--mesh", "1x1"]),
+    ("stablelm_3b", ["--mesh", "2x2"]),
+    ("stablelm_3b", ["--static", "--mesh", "2x1"]),
+    ("olmoe_1b_7b", ["--mesh", "2x2"]),
+    ("mamba2_130m", ["--mesh", "2x2"]),
+    ("zamba2_1_2b", ["--mesh", "2x2"]),
+    ("seamless_m4t_large_v2", ["--mesh", "2x2"]),
+    ("llama_3_2_vision_11b", ["--static", "--mesh", "1x2"]),
+], ids=["1x2-ordered", "1x1", "dense-2x2", "static-2x1", "moe-2x2",
+        "ssm-2x2", "hybrid-2x2", "encdec-2x2", "vlm-1x2"])
+def test_launcher_mesh_prints_the_no_mesh_request_lines(arch, mesh):
+    """Rank 0 of every mesh prints the request lines of the run without
+    one: the scheduler for each family over data 2 x model 2, ``--static``
+    over the data axis, the VLM's static batch over the model axis."""
+    want = no_mesh_lines(arch, "--static" in mesh)
+    assert len(want) in (4, 10)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                        "--device", "cpu"] + mesh, capture_output=True,
-                       text=True, timeout=300, env=env, cwd=ROOT)
+                        "--device", "cpu", "--arch", arch] + mesh,
+                       capture_output=True, text=True, timeout=300, env=env,
+                       cwd=ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert _req_lines(r.stdout) == no_mesh_lines
+    assert _req_lines(r.stdout) == want
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--mesh", "2x1"], "data axis"),
-    (["--static", "--mesh", "2x1"], "data axis"),
-    (["--arch", "mamba2_130m", "--mesh", "1x2"], "ssm family"),
-    (["--arch", "llama_3_2_vision_11b", "--mesh", "1x2"], "VLM"),
-    (["--mesh", "1x4"], "kv_seq"),
+@pytest.mark.parametrize("argv", [
+    ["--mesh", "1x4"],
+    ["--static", "--mesh", "1x4"],
+    ["--arch", "olmoe_1b_7b", "--mesh", "2x4"],
+    ["--arch", "zamba2_1_2b", "--mesh", "1x4"],
+    ["--arch", "llama_3_2_vision_11b", "--mesh", "1x4"],
 ])
-def test_launcher_refuses_uncovered_meshes_before_any_rank(monkeypatch, argv,
-                                                           what):
+def test_launcher_refuses_uncovered_meshes_before_any_rank(monkeypatch, argv):
+    """Heads or KV heads the model axis does not cut whole (the kv_seq
+    fallback) exit naming Queue 1 item 14 before any rank starts."""
     from repro_torch.launch import serve
 
     def no_ranks(*args, **kwargs):
@@ -238,4 +262,4 @@ def test_launcher_refuses_uncovered_meshes_before_any_rank(monkeypatch, argv,
     monkeypatch.setattr(serve, "run_ranks", no_ranks)
     with pytest.raises(SystemExit, match="Queue 1 item 14") as e:
         serve.main(["--device", "cpu"] + argv)
-    assert what in str(e.value)
+    assert "kv_seq" in str(e.value)
