@@ -152,7 +152,14 @@
    steps and remat full == none bit for bit, the plain path at seq 512),
    and mamba2-130m through ``repro_torch.launch.train`` with an injected
    step fault (``train_mamba2_130m``: the final loss bit for bit against an
-   uninterrupted run); one profiled step each.
+   uninterrupted run); one profiled step each.  Then trains on a data 2 x
+   model 2 mesh of 4 ranks sharing the card over gloo (``train_mesh``):
+   stablelm-3b, olmoe-1b-7b (``moe_groups`` 2) and mamba2-130m at
+   published widths, f32 steps held against one device's (loss, grad
+   norm, every leaf of m, v and the parameters), bf16 losses against one
+   device's, the bf16 run saved on 2 x 2 and restored onto 1 x 4 and one
+   device bit for bit, each resuming to the uninterrupted run's loss, and
+   every rank's launches counted.
 6. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
@@ -169,6 +176,10 @@ builds the kernels and runs only the continuous-batching phase.
 builds the kernels and runs only the training phases (5. above), after
 ptxas's registers and spills of the flash libraries (the serving groups,
 the training forward's lse instances, the backward).
+
+    python3 chip_smoke.py --train-mesh
+
+builds the kernels and runs only the train mesh phase (``train_mesh``).
 
     python3 chip_smoke.py --tp
 
@@ -7033,6 +7044,478 @@ def train_mamba2_130m(gpu) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# training on a data x model mesh: 4 ranks share the card (gloo)
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH = (2, 2)
+TRAIN_MESH_RESTORE = (1, 4)
+# published widths; depth cut for time (PERF.md §4): the f32 parity runs
+# and the bf16 runs at their own depths
+TRAIN_MESH_F32_DEPTH = {"stablelm_3b": 2, "olmoe_1b_7b": 1, "mamba2_130m": 2}
+TRAIN_MESH_DEPTH = {"stablelm_3b": 2, "olmoe_1b_7b": 1, "mamba2_130m": 24}
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 4, 256, 3
+TRAIN_MESH_SAVE = 2          # the bf16 run is saved after this many steps
+# stablelm-3b's peak (TRAIN_3B) from the first step: at full width the CPU
+# tests' 2e-3 made the f32 run diverge (stablelm-3b's third loss 14.24
+# after 11.41), and a diverging step amplifies every reordering
+TRAIN_MESH_STEP = dict(peak_lr=3e-4, warmup=1, total=10)
+# the CPU tests' tolerances (tests/test_torch_mesh_train.py): loss and
+# grad norm relative; m and v after three steps ten times the first step's
+# gradient limits (1e-5 of the leaf's largest + 1e-6 of the model's; v 2e-5
+# of its leaf's largest + 1e-12); a parameter within 1e-6 but for at most
+# 0.1% of the elements, each within twice the learning rates' sum
+MESH_TOL = dict(rel=1e-5, grad_rel=1e-5, grad_abs=1e-6, v_rel=2e-5,
+                v_abs=1e-12, moments=10, param=1e-6, param_out=1e-3)
+# bf16 compute: the mesh's losses against one device's, relative, as
+# test_torch_train.py's bf16 parity holds the port against JAX
+MESH_BF16_REL = 5e-3
+MESH_KERNELS = {"stablelm_3b": ("flash_attention_dense", "flash_attention_bwd"),
+                "olmoe_1b_7b": ("flash_attention_dense", "flash_attention_bwd",
+                                "moe_positions"),
+                "mamba2_130m": ("ssd_scan",)}
+
+
+def train_mesh_config(arch, f32: bool):
+    """``arch`` at its published widths (held to ``WIDTHS``) and the depth
+    of its f32 parity run or of its bf16 run; an MoE dispatches in one
+    token group per data rank."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    got = {k: getattr(cfg, k) for k in WIDTHS[arch]}
+    check(got == WIDTHS[arch], f"{arch} widths {got}, published {WIDTHS[arch]}")
+    over = dict(n_layers=(TRAIN_MESH_F32_DEPTH if f32 else TRAIN_MESH_DEPTH)[arch])
+    if f32:
+        over["compute_dtype"] = "float32"
+    if cfg.family == "moe":
+        over["moe_groups"] = TRAIN_MESH[0]
+    return cfg.replace(**over)
+
+
+def mesh_train_batches(cfg):
+    from repro_torch.data import SyntheticLM
+
+    data = SyntheticLM(cfg.vocab_size, TRAIN_MESH_SEQ, seed=0)
+    out = []
+    for s in range(TRAIN_MESH_STEPS):
+        tokens, labels, lens = data.batch(s, TRAIN_MESH_BATCH)
+        out.append({k: torch.from_numpy(v).cuda() for k, v in
+                    (("tokens", tokens), ("labels", labels), ("lens", lens))})
+    return out
+
+
+def mesh_steps(cfg, state, batches, mesh, first=0, save=None):
+    """Steps ``first``.. of ``batches`` from ``state`` (consumed): (state,
+    metrics per step, ms per step by CUDA events).  ``save(i, state)`` runs
+    before step i, outside the timed spans."""
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(cfg, mesh=mesh, **TRAIN_MESH_STEP)
+    metrics, times = [], []
+    for i in range(first, len(batches)):
+        if save is not None:
+            save(i, state)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batches[i])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, times
+
+
+def held_on_disk(state, specs, mesh, ckpt_dir, step) -> int:
+    """Whether every leaf of ``state`` (this rank's blocks under ``specs``,
+    or whole without a mesh) equals its block of the leaf saved on disk at
+    ``step``, bit for bit: the disk leaf mapped and cut by
+    ``sharding.local_slice`` (not the restore's own slicing).  Returns the
+    bytes compared."""
+    from repro_torch.checkpoint.ckpt import _leaves
+    from repro_torch.dist import sharding as SH
+
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    specs = dict(_leaves(specs)) if mesh is not None else None
+    n = 0
+    for i, (key, t) in enumerate(_leaves(state)):
+        disk = torch.from_numpy(np.load(d / f"leaf_{i:05d}.npy", mmap_mode="r"))
+        want = disk if mesh is None else SH.local_slice(disk, specs[key], mesh)
+        got = t.detach()
+        check(got.shape == want.shape
+              and torch.equal(got, want.to(got.device).view(got.dtype)),
+              f"{key} (rank {getattr(mesh, 'rank', 0)}) differs from the "
+              f"checkpoint at step {step}")
+        n += got.numel() * got.element_size()
+    return n
+
+
+def _limits(leaves: dict, rel: float, absolute: float) -> dict:
+    top = max(float(t.abs().max()) for t in leaves.values())
+    return {n: rel * float(t.abs().max()) + absolute * top
+            for n, t in leaves.items()}
+
+
+def mesh_held(cfg, state, specs, mesh, ref, lr_sum, ref_dir) -> dict:
+    """The mesh's state (this rank's blocks) against rank 0's one-device
+    ``ref`` at ``MESH_TOL``: rank 0 writes every reference leaf of m, v
+    and the parameters into ``ref_dir`` with its limits, and each rank
+    reads its blocks of them, mapped, and holds its own blocks on the card
+    (a block replicated over an axis on that axis's coordinate 0 only).
+    Returns this rank's worst ratio to its limit of m, v and a parameter
+    (and the leaf of each), its parameters outside ``MESH_TOL['param']``
+    and its total; ``train_mesh`` merges the ranks' and holds them."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as SH
+
+    t = MESH_TOL
+    ref_dir = Path(ref_dir)
+    names = list(state["params"])
+    leaves = lambda tree, name, part: (tree["params"][name] if part == "params"
+                                       else tree["opt"][part][name])
+    if mesh.rank == 0:
+        ref_dir.mkdir(parents=True)
+        m_lim = _limits(ref["opt"]["m"], t["grad_rel"], t["grad_abs"])
+        lims = {}
+        for i, name in enumerate(names):
+            v_max = float(ref["opt"]["v"][name].abs().max())
+            lims[name] = {"m": t["moments"] * m_lim[name],
+                          "v": t["moments"] * (t["v_rel"] * v_max + t["v_abs"]),
+                          "params": 2 * lr_sum}
+            for part in ("m", "v", "params"):
+                np.save(ref_dir / f"{part}{i}.npy",
+                        leaves(ref, name, part).detach().cpu().numpy())
+        (ref_dir / "limits.json").write_text(json.dumps(lims))
+    dist.barrier()
+    lims = json.loads((ref_dir / "limits.json").read_text())
+    worst = {"m": (0.0, ""), "v": (0.0, ""), "params": (0.0, "")}
+    out = total = 0
+    for i, name in enumerate(names):
+        spec = specs["params"][name]
+        if not SH.counted(spec, mesh):
+            continue
+        for part in ("m", "v", "params"):
+            mine = leaves(state, name, part).detach()
+            want = SH.local_slice(torch.from_numpy(
+                np.load(ref_dir / f"{part}{i}.npy", mmap_mode="r")), spec, mesh)
+            err = (mine - want.to(mine.device)).abs()
+            worst[part] = max(worst[part],
+                              (float(err.max()) / lims[name][part], name))
+            if part == "params":
+                out += int((err > t["param"]).sum())
+                total += err.numel()
+            del err
+    dist.barrier()
+    if mesh.rank == 0:
+        shutil.rmtree(ref_dir)
+    return dict(worst, param_out=out, n_params=total)
+
+
+def train_mesh_model(mesh, arch, ckpt_dir, spent):
+    """One model of the train mesh phase on this rank (see ``train_mesh``).
+    Rank 0 runs the one-device references first while the others wait."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.train.step import init_state, local_params, state_shardings
+
+    lead = mesh.rank == 0
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    # (a) f32: three steps on the mesh against one device
+    cfg = train_mesh_config(arch, f32=True)
+    batches = mesh_train_batches(cfg)
+    ref = None
+    if lead:
+        ref, res["f32_ref"], _ = mesh_steps(cfg, init_state(cfg, gen(), "cuda"),
+                                            batches, None)
+    dist.barrier()
+    specs = state_shardings(cfg, mesh)
+    reset_counts()
+    state, res["f32"], res["f32_ms"] = mesh_steps(
+        cfg, init_state(cfg, gen(), "cuda", mesh=mesh), batches, mesh)
+    res["f32_counts"] = read_counts()
+    lr_sum = sum(m["lr"] for m in res["f32"])
+    t0 = time.perf_counter()
+    res["f32_held"] = mesh_held(cfg, state, specs, mesh, ref, lr_sum,
+                                os.path.join(ckpt_dir, "f32_ref"))
+    res["held_s"] = time.perf_counter() - t0
+    del state, ref
+    torch.cuda.empty_cache()
+    # bf16 at the cut depth: one device on rank 0, then the mesh, saved
+    # after TRAIN_MESH_SAVE steps (the save held against the disk)
+    cfg = train_mesh_config(arch, f32=False)
+    batches = mesh_train_batches(cfg)
+    if lead:
+        reset_counts()
+        state, res["bf16_ref"], res["ref_ms"] = mesh_steps(
+            cfg, init_state(cfg, gen(), "cuda"), batches, None)
+        res["ref_counts"] = read_counts()
+        del state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    specs = state_shardings(cfg, mesh)
+
+    def save(i, state):
+        if i == TRAIN_MESH_SAVE:
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt_dir, i, state, shardings=specs, mesh=mesh)
+            res["save_s"] = time.perf_counter() - t0
+            res["held_bytes"] = held_on_disk(state, specs, mesh, ckpt_dir, i)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = init_state(cfg, gen(), "cuda", mesh=mesh)
+    spent.clear()
+    state, res["bf16"], res["ms"] = mesh_steps(cfg, state, batches, mesh,
+                                               save=save)
+    res["collective_s"] = dict(spent)
+    res["counts"] = read_counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["local_params"] = local_params(cfg, mesh)
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_collectives() -> dict:
+    """Wrap the collectives a train step calls so that each adds its host
+    seconds to the returned dict (by name): a rank's time in them."""
+    from repro_torch.dist import collectives as C
+
+    spent = collections.Counter()
+    for name in ("all_gather", "reduce_scatter", "ordered_psum", "sum_scalars"):
+        fn = getattr(C, name)
+
+        def timed(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+        setattr(C, name, timed)
+    return spent
+
+
+def train_mesh_rank(mesh, ckpt_root):
+    """One rank of the train mesh phase (importable: the ranks are
+    spawned): every model of ``TRAIN_MESH_DEPTH`` on the 2 x 2 mesh, then
+    the same ranks as ``TRAIN_MESH_RESTORE`` restore every checkpoint
+    (``train_remesh``).  Returns (the 2 x 2 results, the restores')."""
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spent = time_collectives()
+    out = {}
+    for arch in TRAIN_MESH_DEPTH:
+        spent.clear()
+        out[arch] = train_mesh_model(mesh, arch, os.path.join(ckpt_root, arch),
+                                     spent)
+    t0 = time.perf_counter()
+    remesh = train_remesh(make_mesh(TRAIN_MESH_RESTORE, mesh.axis_names,
+                                    device="cuda"), ckpt_root)
+    remesh["s"] = time.perf_counter() - t0
+    return out, remesh
+
+
+def train_remesh(mesh, ckpt_root) -> dict:
+    """On ``mesh`` (the same ranks as 1 x 4): each model's 2 x 2
+    checkpoint restored onto it (held against the disk bit for bit), then
+    its remaining steps."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.train.step import init_state, state_shardings
+
+    out = {}
+    for arch in TRAIN_MESH_DEPTH:
+        cfg = train_mesh_config(arch, f32=False)
+        specs = state_shardings(cfg, mesh)
+        d = os.path.join(ckpt_root, arch)
+        like = init_state(cfg, torch.Generator(device="cuda").manual_seed(1),
+                          "cuda", mesh=mesh)
+        reset_counts()
+        state, step = restore_checkpoint(d, like, shardings=specs, mesh=mesh)
+        del like
+        check(step == TRAIN_MESH_SAVE, f"{arch}: restored step {step}")
+        held = held_on_disk(state, specs, mesh, d, step)
+        _, metrics, _ = mesh_steps(cfg, state, mesh_train_batches(cfg), mesh,
+                                   first=step)
+        out[arch] = dict(metrics=metrics, held_bytes=held, counts=read_counts())
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def merged_held(held: list) -> dict:
+    """The ranks' ``mesh_held`` results as one: the worst ratio of each
+    part, the parameters outside and the total summed."""
+    out = {part: max(h[part] for h in held) for part in ("m", "v", "params")}
+    out.update(param_out=sum(h["param_out"] for h in held),
+               n_params=sum(h["n_params"] for h in held))
+    return out
+
+
+def train_mesh(gpu) -> dict:
+    """Training over data 2 x model 2, four ranks sharing the card (gloo,
+    every collective through the host), for stablelm-3b (row-parallel wo
+    and w_down, vocab over "model", FSDP), olmoe-1b-7b (``moe_groups`` 2,
+    experts over "model") and mamba2-130m (FSDP over "data", replicated
+    over "model"), at published widths:
+
+    (a) three f32 steps (``TRAIN_MESH_F32_DEPTH``) against rank 0's
+        one-device steps: loss and grad norm relative, every leaf of m, v
+        and the parameters gathered at ``MESH_TOL``; three bf16 steps
+        (``TRAIN_MESH_DEPTH``) whose losses are held to one device's at
+        ``MESH_BF16_REL``;
+    (b) the bf16 run saved after ``TRAIN_MESH_SAVE`` steps (every rank's
+        blocks equal to the disk's bit for bit), restored onto 1 x 4 and
+        onto one device (the restored leaves equal to the disk's bit for
+        bit), and the last step's loss on each equal to the uninterrupted
+        run's at ``MESH_BF16_REL``;
+    (c) each rank's kernel launches, every kernel of the model's path
+        launched on every rank, the flash kernels and the SSD scan as
+        often as on one device.
+
+    Prints a ``[train-mesh]`` line per model: ms a step (CUDA events around
+    whole steps, median of steps 2-3) beside one device's, the bytes a
+    rank holds, the card.  Returns every rank's launches."""
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train.step import init_state
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        ranks, remesh = zip(*run_ranks(train_mesh_rank, TRAIN_MESH,
+                                       ("data", "model"), d, device="cuda",
+                                       timeout=900))
+        t_mesh = time.perf_counter() - t0
+        t_remesh = remesh[0].pop("s")
+        for r in remesh[1:]:
+            r.pop("s")
+        t0 = time.perf_counter()
+        one = {}
+        for arch in TRAIN_MESH_DEPTH:
+            cfg = train_mesh_config(arch, f32=False)
+            like = init_state(cfg, torch.Generator(device="cuda").manual_seed(1),
+                              "cuda")
+            ckpt = os.path.join(d, arch)
+            state, step = restore_checkpoint(ckpt, like)
+            del like
+            held = held_on_disk(state, None, None, ckpt, step)
+            _, metrics, _ = mesh_steps(cfg, state, mesh_train_batches(cfg), None,
+                                       first=step)
+            one[arch] = dict(metrics=metrics, held_bytes=held)
+            del state
+            torch.cuda.empty_cache()
+        t_one = time.perf_counter() - t0
+    fails = []                 # every check is read before any fails
+
+    def hold(ok, what):
+        if not ok:
+            fails.append(what)
+
+    for arch in TRAIN_MESH_DEPTH:
+        mine = [r[arch] for r in ranks]
+        r0 = mine[0]
+        hold(all(r["f32"] == r0["f32"] and r["bf16"] == r0["bf16"]
+                  for r in mine)
+              and all(r[arch]["metrics"] == remesh[0][arch]["metrics"]
+                      for r in remesh), f"{arch}: the ranks' metrics differ")
+        for a, b in zip(r0["f32"], r0["f32_ref"]):
+            for k in ("loss", "grad_norm"):
+                hold(abs(a[k] - b[k]) <= MESH_TOL["rel"] * abs(b[k]),
+                      f"{arch} f32 mesh {k} {a[k]!r}, one device {b[k]!r}")
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+               for a, b in zip(r0["bf16"], r0["bf16_ref"])]
+        hold(max(rel) <= MESH_BF16_REL, f"{arch} bf16 mesh losses "
+              f"{[m['loss'] for m in r0['bf16']]}, one device "
+              f"{[m['loss'] for m in r0['bf16_ref']]}")
+        last = r0["bf16"][-1]["loss"]
+        resumed = {"1x4": remesh[0][arch]["metrics"][-1]["loss"],
+                   "one device": one[arch]["metrics"][-1]["loss"]}
+        for where, loss in resumed.items():
+            hold(abs(loss - last) <= MESH_BF16_REL * abs(last),
+                  f"{arch}: restored onto {where}, the last loss {loss!r}, "
+                  f"uninterrupted {last!r}")
+        ref_counts = r0["ref_counts"]
+        for rank, r in enumerate(mine):
+            for k in MESH_KERNELS[arch]:
+                hold(r["counts"][k] > 0, f"{arch}: rank {rank} launched no {k}")
+            for k in ("flash_attention_dense", "flash_attention_bwd", "ssd_scan"):
+                hold(r["counts"][k] == ref_counts[k], f"{arch}: rank {rank}'s "
+                      f"{k} launches {r['counts'][k]}, one device's {ref_counts[k]}")
+            launches.update(r["counts"])
+            launches.update(r["f32_counts"])
+        for r in remesh:
+            launches.update(r[arch]["counts"])
+        ms = statistics.median(r0["ms"][1:])
+        ref_ms = statistics.median(r0["ref_ms"][1:])
+        held = merged_held([r["f32_held"] for r in mine])
+        fmt = lambda part: f"{held[part][0]:.3f} ({held[part][1]})"
+        coll = r0["collective_s"]
+        cfg = train_mesh_config(arch, f32=False)
+        print(f"[train-mesh] {arch} over data {TRAIN_MESH[0]} x model "
+              f"{TRAIN_MESH[1]} (4 ranks time-sharing one card over gloo, not "
+              f"data or tensor parallelism): f32 at {TRAIN_MESH_F32_DEPTH[arch]} "
+              f"layers, 3 steps against one device: losses "
+              f"{[m['loss'] for m in r0['f32']]} vs "
+              f"{[m['loss'] for m in r0['f32_ref']]}, grad norms "
+              f"{[m['grad_norm'] for m in r0['f32']]} vs "
+              f"{[m['grad_norm'] for m in r0['f32_ref']]}; worst m, v and "
+              f"parameter at {fmt('m')}, {fmt('v')}, {fmt('params')} of their "
+              f"limits, {held['param_out']} of {held['n_params']} parameters "
+              f"outside {MESH_TOL['param']} (held below; f32 step times "
+              f"{[round(t, 1) for t in r0['f32_ms']]} ms, the check "
+              f"{r0['held_s']:.1f} s); "
+              f"bf16 at {cfg.n_layers} layers: losses "
+              f"{[round(m['loss'], 5) for m in r0['bf16']]} vs one device "
+              f"{[round(m['loss'], 5) for m in r0['bf16_ref']]} (rel at most "
+              f"{max(rel):.2e}, held at {MESH_BF16_REL}); saved at step "
+              f"{TRAIN_MESH_SAVE} in {r0['save_s']:.1f} s, restored onto 1 x 4 "
+              f"and one device bit for bit (held), last loss {last!r}, resumed "
+              f"{resumed}; step {ms:.1f} ms (median of steps 2-3; step times "
+              f"{[round(t, 1) for t in r0['ms']]}; rank 0's host seconds in "
+              f"the steps' collectives "
+              f"{ {k: round(v, 2) for k, v in coll.items()} }), one device "
+              f"{ref_ms:.1f} ms; "
+              f"{r0['local_params'] / 1e9:.4f} B parameters a rank, "
+              f"{16 * r0['local_params'] / 1e9:.2f} GB of f32 state a rank, peak "
+              f"{max(r['peak_gib'] for r in mine):.2f} GiB allocated a rank; "
+              f"launches a rank (bf16 run) "
+              f"{ {k: v for k, v in r0['counts'].items() if v} }, one device "
+              f"{ {k: v for k, v in ref_counts.items() if v} }  [{gpu}]",
+              flush=True)
+    for arch in TRAIN_MESH_DEPTH:
+        held = merged_held([r[arch]["f32_held"] for r in ranks])
+        for part in ("m", "v", "params"):
+            hold(held[part][0] <= 1.0, f"{arch} f32 mesh {part} of "
+                  f"{held[part][1]} at {held[part][0]:.3f} of its limit")
+        hold(held["param_out"] <= MESH_TOL["param_out"] * held["n_params"],
+              f"{arch} f32 mesh: {held['param_out']} of {held['n_params']} "
+              f"parameters outside {MESH_TOL['param']}")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    try:
+        T.check_fits(get_config("olmoe_1b_7b").replace(moe_groups=2),
+                     torch.device("cuda"), dict(zip(("data", "model"),
+                                                    TRAIN_MESH)))
+        hold(False, "olmoe-1b-7b's state over 4 ranks sharing the card was "
+             "taken to fit")
+    except RuntimeError as e:
+        print(f"[train-mesh] the launcher refuses olmoe-1b-7b at full depth "
+              f"on data 2 x model 2: {e}", flush=True)
+    check(not fails, "; ".join(fails))
+    print(f"[train-mesh] phase: the ranks {t_mesh:.1f} s (start-up and rank "
+          f"0's one-device references included; the restores on the same "
+          f"ranks as 1 x 4 {t_remesh:.1f} s), one-device restores {t_one:.1f} "
+          f"s  [{gpu}]", flush=True)
+    return dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7091,6 +7574,9 @@ def main() -> int:
         for arch in CROSS_ARCHS:
             phase(f"serve {arch}", serve_cross, arch, gpu)
         phase("serve encdec scheduler", serve_encdec_scheduler, gpu)
+        return 0
+    if "--train-mesh" in args:
+        phase("train mesh", train_mesh, gpu)
         return 0
     if "--train" in args:
         from repro_torch.kernels.flash_attention import kernel as K
@@ -7163,6 +7649,8 @@ def main() -> int:
     phase("check train families", check_train_families)
     train_counts = [phase("train stablelm_3b", train_stablelm_3b, gpu),
                     phase("train mamba2_130m", train_mamba2_130m, gpu)]
+    torch.cuda.empty_cache()
+    train_mesh_launches = phase("train mesh", train_mesh, gpu)
 
     every_run = ([r for *_, runs in served.values() for r in runs.values()]
                  + [r for runs in cross.values() for r in runs.values()]
@@ -7170,7 +7658,7 @@ def main() -> int:
     launches = {k: sum(r["counts"][k] for r in every_run) + quick[k]
                 + sum(c[k] for c in sched_launches.values())
                 + sum(c[k] for c in train_counts) + tp_launches.get(k, 0)
-                + mesh_launches.get(k, 0)
+                + mesh_launches.get(k, 0) + train_mesh_launches.get(k, 0)
                 for k in kernel_wrappers()}
     bodies = {k: {body: sum(r["bodies"][k][body] for r in every_run)
                   for body in v}
@@ -7179,8 +7667,9 @@ def main() -> int:
           f"gemma3's and stablelm-12b's included), the speculative legs, the "
           f"scheduler legs' warm runs, the serve tp phase's runs on both "
           f"ranks ({tp_launches}), the serve mesh phase's runs on its four "
-          f"ranks ({mesh_launches}), the quickstart and the training legs' "
-          f"counted runs: {launches}; the flash "
+          f"ranks ({mesh_launches}), the quickstart, the training legs' "
+          f"counted runs and the train mesh phase's runs on every rank "
+          f"({train_mesh_launches}): {launches}; the flash "
           f"kernels by body over every generate and speculative leg: {bodies}; "
           f"the cross-attention roles' check: {cross_bodies}", flush=True)
     bodies["flash_attention_bwd"] = train_counts[0]["bwd_bodies"]

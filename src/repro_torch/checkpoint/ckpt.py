@@ -10,9 +10,16 @@ order at every level, as JAX flattens a dict, and the manifest names each
 leaf by its key path (``['params']['embed.tok']``) and its dtype.  A bf16
 leaf is stored as its raw 16 bits (numpy has no bfloat16) and restored by
 its manifest dtype.  The atomic rename means a fault mid-save never corrupts
-the latest checkpoint: restore picks the highest committed step.  Restoring
-onto another mesh (JAX's ``shardings``) waits for the port's mesh (ROADMAP
-Queue 1 item 14).
+the latest checkpoint: restore picks the highest committed step.
+
+On a mesh (``launch.mesh.Mesh``) the format stays whole leaves, mesh-free:
+on a save rank 0 creates every leaf's ``.npy`` at its whole shape, each
+rank writes its blocks (``shardings``: each leaf's spec, in the tree's
+structure) into the mapped files (a block replicated over an axis by the
+rank at coordinate 0 only), and rank 0 writes the manifest and commits,
+with a barrier between the steps: no leaf moves between ranks.  A restore
+with ``shardings`` and a mesh (any mesh: the elastic re-mesh) maps each
+leaf (``np.load(mmap_mode="r")``) and copies out only this rank's block.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist import sharding as SH
 
 
 def _leaves(tree, path=""):
@@ -58,24 +68,69 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
-    """Blocking save with atomic commit.  Returns the committed directory."""
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
-    leaves = _leaves(tree)
-    manifest = {"step": int(step), "n_leaves": len(leaves),
-                "keys": [k for k, _ in leaves],
-                "dtypes": [_dtype_name(t) for _, t in leaves]}
-    for i, (_, leaf) in enumerate(leaves):
-        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), _to_numpy(leaf))
+def _commit(tmp: str, final: str, manifest: dict) -> None:
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)                      # atomic commit
+
+
+def _manifest(step: int, leaves) -> dict:
+    return {"step": int(step), "n_leaves": len(leaves),
+            "keys": [k for k, _ in leaves],
+            "dtypes": [_dtype_name(t) for _, t in leaves]}
+
+
+def _fresh_dir(tmp: str) -> None:
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+
+
+def _save_blocks(ckpt_dir: str, step: int, tree: Any, shardings: Any,
+                 mesh) -> str:
+    """The mesh save (see the module's docstring); every rank calls it."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    leaves, specs = _leaves(tree), dict(_leaves(shardings))
+    if mesh.rank == 0:
+        _fresh_dir(tmp)
+        for i, (key, t) in enumerate(leaves):
+            whole = [n * SH.block_of(e, mesh)[1]
+                     for n, e in zip(t.shape, specs[key])]
+            np.lib.format.open_memmap(
+                os.path.join(tmp, f"leaf_{i:05d}.npy"), mode="w+",
+                dtype=_to_numpy(t.reshape(-1)[:0]).dtype, shape=tuple(whole))
+    dist.barrier()
+    for i, (key, t) in enumerate(leaves):
+        if SH.counted(specs[key], mesh):
+            leaf = np.load(os.path.join(tmp, f"leaf_{i:05d}.npy"),
+                           mmap_mode="r+")
+            _block(leaf, specs[key], mesh)[...] = _to_numpy(t)
+            leaf.flush()
+            del leaf
+    dist.barrier()
+    if mesh.rank == 0:
+        _commit(tmp, final, _manifest(step, leaves))
+    dist.barrier()
+    return final
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
+                    shardings: Any = None, mesh=None) -> str:
+    """Blocking save with atomic commit.  Returns the committed directory.
+    On a ``mesh`` every rank calls it with its blocks (``shardings``: each
+    leaf's spec) and every rank returns after the commit."""
+    if mesh is not None:
+        return _save_blocks(ckpt_dir, step, tree, shardings, mesh)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    _fresh_dir(tmp)
+    leaves = _leaves(tree)
+    for i, (_, leaf) in enumerate(leaves):
+        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), _to_numpy(leaf))
+    _commit(tmp, final, _manifest(step, leaves))
     return final
 
 
@@ -90,12 +145,29 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _block(arr: np.ndarray, spec, mesh) -> np.ndarray:
+    """This rank's block of ``arr`` under ``spec`` (a view)."""
+    for dim, entry in enumerate(spec):
+        idx, n = SH.block_of(entry, mesh)
+        if n > 1:
+            size = arr.shape[dim] // n
+            arr = arr[(slice(None),) * dim + (slice(idx * size,
+                                                    (idx + 1) * size),)]
+    return arr
+
+
 def restore_checkpoint(ckpt_dir: str, like: Any, *, step: Optional[int] = None,
-                       device=None) -> tuple[Any, int]:
+                       device=None, shardings: Any = None,
+                       mesh=None) -> tuple[Any, int]:
     """Restore into the structure of ``like`` (its leaves' shapes, dtypes
     and ``requires_grad``), onto ``device`` (default: each leaf's of
     ``like``).  Returns (tree, step).  A manifest without dtypes (the JAX
-    package writes none) restores each leaf from its array's own dtype."""
+    package writes none) restores each leaf from its array's own dtype.
+
+    With ``shardings`` (each leaf's spec, in ``like``'s structure) and a
+    ``mesh``, ``like`` holds this rank's blocks and each leaf restores as
+    this rank's block of the whole leaf on disk, whatever mesh wrote it."""
+    specs = dict(_leaves(shardings)) if mesh is not None else None
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -108,7 +180,10 @@ def restore_checkpoint(ckpt_dir: str, like: Any, *, step: Optional[int] = None,
                          f"on disk, {len(like_leaves)} in the tree")
     out = []
     for i, (key, leaf) in enumerate(like_leaves):
-        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
+        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"),
+                      mmap_mode=None if specs is None else "r")
+        if specs is not None:
+            arr = np.array(_block(arr, specs[key], mesh))
         t = torch.from_numpy(arr)
         if manifest.get("dtypes", [None] * len(like_leaves))[i] == "bfloat16":
             t = t.view(torch.bfloat16)
@@ -130,16 +205,29 @@ class AsyncCheckpointer:
     ``save`` copies the tree to the host synchronously (the training step
     updates its state in place, so the writer must own its bytes), then the
     serialization happens off-thread; ``wait`` joins the last write.  After
-    each write only the newest ``keep`` committed steps are kept."""
+    each write only the newest ``keep`` committed steps are kept.
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    On a ``mesh`` (with each leaf's spec in ``shardings``) every rank calls
+    ``save``, which writes the rank's blocks and commits before it returns
+    (``save_checkpoint``'s barriers run on the caller's thread: a
+    collective from the writer's thread would race the training step's on
+    gloo)."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, *, shardings=None,
+                 mesh=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.shardings, self.mesh = shardings, mesh
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def save(self, step: int, tree: Any):
         self.wait()
+        if self.mesh is not None:
+            _save_blocks(self.ckpt_dir, step, tree, self.shardings, self.mesh)
+            if self.mesh.rank == 0:
+                self._gc()
+            return
         host = _rebuild(tree, {k: t.detach().to("cpu", copy=True)
                                for k, t in _leaves(tree)})
 

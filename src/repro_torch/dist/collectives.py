@@ -26,10 +26,11 @@ PSUM_MODES = ("fast", "ordered", "pairwise")
 _PSUM_MODE = "fast"
 
 # observability hook (repro_torch.obs): when set, each ``psum`` call bumps a
-# ``psum_<mode>_calls`` counter.  It counts CALLS, each one a collective
-# that ran; the JAX package's counter counts traced calls (a census of the
-# orderings its compiled programs bake in).  Wire from ``launch/serve.py
-# --metrics`` via ``set_obs``.
+# ``psum_<mode>_calls`` counter, and each of training's collectives below
+# (``reduce_scatter``, ``sum_scalars``) a ``<name>_calls`` counter.  It
+# counts CALLS, each one a collective that ran; the JAX package's counter
+# counts traced calls (a census of the orderings its compiled programs bake
+# in).  Wire from ``launch/serve.py --metrics`` via ``set_obs``.
 _OBS = None
 
 
@@ -54,19 +55,38 @@ def psum_mode() -> str:
 
 
 def _staged(x, group):
-    """``x`` as the group's backend takes it: on the host for gloo."""
+    """``x`` as the group's backend takes it: for gloo a card's tensor is
+    copied into pinned host memory (which PyTorch's caching host allocator
+    hands out again), so the copies both ways run at the link's rate."""
     if dist.get_backend(group) == "gloo" and x.device.type != "cpu":
-        return x.cpu()
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return host
     return x.contiguous()
+
+
+def _like(xs):
+    """An empty buffer for a peer's ``xs``: pinned where ``xs`` is."""
+    if xs.is_pinned():
+        return torch.empty(xs.shape, dtype=xs.dtype, pin_memory=True)
+    return torch.empty_like(xs)
 
 
 def all_gather(x, group=None, dim: int = 0):
     """Every rank's ``x`` concatenated along ``dim`` in group-rank order, on
     every rank (on ``x``'s device)."""
     xs = _staged(x, group)
-    parts = [torch.empty_like(xs) for _ in range(dist.get_world_size(group))]
+    parts = [_like(xs) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, xs, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    if xs.device == x.device:
+        return torch.cat(parts, dim=dim)
+    # each part straight into its slice of the card's result
+    shape = list(x.shape)
+    shape[dim] *= len(parts)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    for i, part in enumerate(parts):
+        out.narrow(dim, i * x.shape[dim], x.shape[dim]).copy_(part)
+    return out
 
 
 def _stacked(x, group):
@@ -89,6 +109,46 @@ def psum(x, group=None, mode: str | None = None):
         if mode == "pairwise":
             return pairwise_psum(x, group)
         return _all_reduce(x, group)
+
+
+def _count(name: str) -> None:
+    if _OBS is not None:
+        _OBS.metrics.inc(f"{name}_calls")
+
+
+def reduce_scatter(x, group=None, dim: int = 0):
+    """The sum of every rank's ``x`` over the group, cut along ``dim`` into
+    group-size blocks in group-rank order: this rank's block (the FSDP
+    gradient).  Each block is gathered to the rank that owns it (one
+    ``gather`` a rank: every rank sends each other rank only that rank's
+    block) and summed there left to right over the ranks from zero, as
+    ``ordered_psum`` (in f32 for a narrower dtype, rounded once at the
+    end): the bits of one fixed order whatever the backend."""
+    _count("reduce_scatter")
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim] // n
+    xs = _staged(x, group)
+    mine = None
+    for i in range(n):
+        part = xs.narrow(dim, i * size, size).contiguous()
+        bufs = [_like(part) for _ in range(n)] if i == r else None
+        dst = i if group is None else dist.get_global_rank(group, i)
+        dist.gather(part, bufs, dst=dst, group=group)
+        if i == r:
+            mine = bufs
+    acc = torch.zeros_like(mine[0], dtype=torch.promote_types(
+        mine[0].dtype, torch.float32))
+    for b in mine:
+        acc = acc + b
+    return acc.to(device=x.device, dtype=x.dtype)
+
+
+def sum_scalars(x, group=None):
+    """The sum of a small tensor (a token count, a norm's squares, an aux
+    loss's partial sums) over the group (None: the whole mesh), left to
+    right over the ranks: the same bits on every rank."""
+    _count("sum_scalars")
+    return ordered_psum(x, group)
 
 
 def _all_reduce(x, group):

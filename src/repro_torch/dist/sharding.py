@@ -26,12 +26,28 @@ asks the compiler for a layout with a sharding constraint, the port's
 layer seams call ``constrain``, which all-gathers the blocks when the
 active rules want the dim whole.  ``use_mesh_rules`` makes the mesh and
 the rules active for the seams.
+
+Training (``DEFAULT_RULES``) adds what GSPMD would insert for a sharded
+train step: Megatron's conjugate pair as ``torch.autograd.Function``s,
+``to_model`` (f: the identity forward, a psum over "model" backward, on
+the input of every column-parallel product) and ``from_model`` (g: a psum
+over "model" forward, the identity backward, on the output of every
+row-parallel product); while a rank trains on its block of the lanes
+(``batch_cut``), the sums of the loss's and the aux losses' partial sums
+over "batch" (``batch_sum``, a g over "batch"); and, around the step's
+autograd, the FSDP gather of the weights' "data" blocks and the
+reduce-scatter of their gradients (``fsdp_gather``, ``fsdp_reduce``: one
+flat collective per dtype).  Every sum runs over the ranks in a fixed
+order.
 """
 
 from __future__ import annotations
 
 import contextlib
 from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.launch.mesh import BATCH_AXES, batch_shard_count
 
@@ -245,11 +261,31 @@ def active_mesh():
     return _ACTIVE[0]
 
 
+class _Gather(torch.autograd.Function):
+    """All-gather forward; backward, this rank's block of the gradient (the
+    consumer of the whole tensor runs replicated over the group, so each
+    rank's gradient of it is the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.idx = dist.get_rank(group)
+        return C.all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size), None, None
+
+
 def gather(x, dim: int, axis: str = "model"):
     """All-gather the blocks of ``x``'s dim ``dim`` over the active mesh's
     ``axis`` ("batch": the folded pod x data line), concatenated in
-    coordinate order: the whole dim on every rank."""
-    return C.all_gather(x, active_mesh().groups[axis], dim)
+    coordinate order: the whole dim on every rank.  Under autograd its
+    backward hands each rank its block of the gradient."""
+    group = active_mesh().groups[axis]
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, group, dim)
+    return C.all_gather(x, group, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -305,12 +341,207 @@ def constrain(x, dim: int, name: str):
     active rules place the logical axis ``name``: where it resolves to no
     mesh axis (serving's ``act_attn_in`` and ``act_mlp_in``), gather the
     blocks so the next contraction runs whole.  Where it rides the model
-    axis (training's row-parallel layout: a partial product per rank and a
-    psum after it) this raises: training on a mesh is not ported."""
+    axis (training's row-parallel layout) ``x`` stays cut: the product it
+    feeds is a partial one, and ``from_model`` sums it."""
     mesh, rules = active_mesh(), _ACTIVE[1]
     if any(a in mesh.axis_names for a in rules.get(name, ())):
-        raise NotImplementedError(
-            f"{name!r} rides the model axis under these rules (row-parallel "
-            "products and their psum: training on a mesh) and is not ported "
-            "yet (ROADMAP Queue 1 item 14)")
+        return x
     return gather(x, dim)
+
+
+# ---------------------------------------------------------------------------
+# Training: Megatron's f and g, the FSDP gather, the sums over the lanes
+# ---------------------------------------------------------------------------
+
+class _ToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward, a psum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.ordered_psum(g, ctx.group), None
+
+
+class _SumForward(torch.autograd.Function):
+    """Megatron's g: ``psum(x, group)`` (a sum over the group) forward, the
+    identity backward: each rank's part enters the whole sum, and its
+    gradient is the sum's."""
+
+    @staticmethod
+    def forward(ctx, x, group, psum):
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _model_group():
+    """The active mesh's "model" group, or None where no model axis cuts."""
+    if _ACTIVE is None:
+        return None
+    mesh = _ACTIVE[0]
+    if mesh.shape.get("model", 1) == 1:
+        return None
+    return mesh.groups["model"]
+
+
+def to_model(x):
+    """Megatron's f on the input ``x`` of a column-parallel product (a
+    weight cut over "model"): ``x`` itself forward; backward, the psum over
+    "model" of every rank's partial gradient.  The identity outside
+    autograd or without a model axis."""
+    group = _model_group()
+    if group is None or not torch.is_grad_enabled():
+        return x
+    return _ToModel.apply(x, group)
+
+
+def from_model(x):
+    """Megatron's g on the output ``x`` of a row-parallel product (a
+    contraction cut over "model"): the psum over "model" of every rank's
+    partial product, in rank order; backward, the identity."""
+    group = _model_group()
+    if group is None:
+        return x
+    if not torch.is_grad_enabled():
+        return C.ordered_psum(x, group)
+    return _SumForward.apply(x, group, C.ordered_psum)
+
+
+def _data_dim(spec):
+    """The dim of a weight that ``spec`` cuts over "data" (None: none)."""
+    return next((i for i, e in enumerate(spec) if e == "data"), None)
+
+
+def _by_dtype(tensors: dict) -> dict:
+    """Names grouped by their tensors' dtype, each group in dict order (one
+    collective a group)."""
+    groups: dict = {}
+    for name, t in tensors.items():
+        groups.setdefault(t.dtype, []).append(name)
+    return groups
+
+
+def fsdp_gather(blocks: dict, specs: dict, mesh) -> dict:
+    """Each rank's blocks of the weights (a dict by name, ``specs`` their
+    specs) gathered whole over "data": the blocks the model axis leaves
+    this rank, which a step's forward reads.  The weights cut over "data"
+    travel as one flat all-gather per dtype; the others are returned as
+    they are."""
+    out = dict(blocks)
+    if mesh.shape.get("data", 1) == 1:
+        return out
+    group = mesh.groups["data"]
+    cut = {n: t for n, t in blocks.items() if _data_dim(specs[n]) is not None}
+    for names in _by_dtype(cut).values():
+        flat = torch.cat([cut[n].reshape(-1) for n in names])
+        rows = C.all_gather(flat.unsqueeze(0), group, 0)
+        off = 0
+        for n in names:
+            t = cut[n]
+            parts = [r[off:off + t.numel()].view(t.shape) for r in rows]
+            out[n] = torch.cat(parts, dim=_data_dim(specs[n]))
+            off += t.numel()
+    return out
+
+
+def fsdp_reduce(grads: dict, specs: dict, mesh, *, summed: bool) -> dict:
+    """The gradients of the gathered weights (by name) back to this rank's
+    blocks: where each data rank trained on its own lanes (``summed``),
+    summed over "data" in rank order (a weight cut over "data" by one flat
+    reduce-scatter per dtype, summed in f32; the others by one psum per
+    dtype), else only cut (every data rank's gradient is the whole
+    batch's)."""
+    d = mesh.shape.get("data", 1)
+    if d == 1:
+        return dict(grads)
+    group, idx = mesh.groups["data"], mesh.coords["data"]
+    out = {}
+    whole = {n: g for n, g in grads.items() if _data_dim(specs[n]) is None}
+    cut = {n: g for n, g in grads.items() if n not in whole}
+    for names in _by_dtype(cut).values():
+        parts = [cut[n].chunk(d, _data_dim(specs[n])) for n in names]
+        if summed:
+            rows = torch.stack([torch.cat([p[r].reshape(-1) for p in parts])
+                                for r in range(d)])
+            mine = C.reduce_scatter(rows, group, 0)[0]
+        else:
+            mine = torch.cat([p[idx].reshape(-1) for p in parts])
+        off = 0
+        for n, p in zip(names, parts):
+            out[n] = mine[off:off + p[idx].numel()].view(p[idx].shape)
+            off += p[idx].numel()
+    for names in _by_dtype(whole).values():
+        if not summed:
+            out.update({n: whole[n] for n in names})
+            continue
+        flat = C.ordered_psum(torch.cat([whole[n].reshape(-1)
+                                         for n in names]), group)
+        off = 0
+        for n in names:
+            out[n] = flat[off:off + whole[n].numel()].view(whole[n].shape)
+            off += whole[n].numel()
+    return {n: out[n] for n in grads}
+
+
+_BATCH_CUT = False
+
+
+@contextlib.contextmanager
+def batch_cut():
+    """Within this context a training rank runs on its block of the
+    batch's lanes: the loss and the MoE aux losses sum their partial sums
+    over "batch" (``batch_sum``), and the MoE dispatch groups are the
+    rank's own."""
+    global _BATCH_CUT
+    prev, _BATCH_CUT = _BATCH_CUT, True
+    try:
+        yield
+    finally:
+        _BATCH_CUT = prev
+
+
+def batch_blocks() -> int:
+    """How many blocks the lanes are cut into inside ``batch_cut`` (1
+    outside it)."""
+    return batch_shard_count(active_mesh()) if _BATCH_CUT else 1
+
+
+def batch_sum(x):
+    """The sum of ``x`` (a partial sum over this rank's lanes) over the
+    lanes of every rank, inside ``batch_cut``; ``x`` itself outside it.
+    Its gradient is this rank's share (the data ranks' gradients are summed
+    by ``fsdp_reduce``)."""
+    if batch_blocks() == 1:
+        return x
+    group = active_mesh().groups["batch"]
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumForward.apply(x, group, C.sum_scalars)
+    return C.sum_scalars(x, group)
+
+
+def counted(spec, mesh) -> bool:
+    """Whether this rank's block of a tensor of ``spec`` counts in a sum
+    over the whole mesh (a global norm): a block replicated over an axis
+    counts once, on that axis's coordinate 0."""
+    used = set()
+    for e in spec:
+        used.update(() if e is None else ((e,) if isinstance(e, str) else e))
+    return all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in used)
+
+
+def gather_whole(t, spec, mesh):
+    """The whole tensor of which ``t`` is this rank's block under ``spec``:
+    every cut dim all-gathered over its axes (a collective: every rank
+    calls it)."""
+    for dim, entry in enumerate(spec):
+        if entry is None or block_of(entry, mesh)[1] == 1:
+            continue
+        axis = entry if isinstance(entry, str) else "batch"
+        t = C.all_gather(t, mesh.groups[axis], dim)
+    return t

@@ -9,8 +9,10 @@ variant stacks ``groups.self`` over (n_groups, n_self) and
 weights whole (E, ...); hybrid stacks ``main`` over (n_groups, period) and
 ``tail`` over its layers, and keeps ``shared`` unstacked; encdec stacks
 ``enc_blocks`` and ``dec_blocks`` (two attentions each) over their layers
-and keeps ``enc_norm`` unstacked.  It imports no JAX: only numpy arrays
-cross over.
+and keeps ``enc_norm`` unstacked.  ``state_from_jax`` carries a whole
+JAX train state across (the masters and AdamW's ``m``/``v`` by the port's
+parameter names, ``count`` and ``step``).  It imports no JAX: only numpy
+arrays cross over.
 """
 
 from __future__ import annotations
@@ -83,3 +85,28 @@ def from_jax_params(cfg, params_np: dict, device=None):
     _copy_module(model.embed, params_np["embed"])
     _copy_module(model.final_norm, params_np["final_norm"])
     return model
+
+
+def named_from_jax(cfg, tree_np: dict, device=None) -> dict:
+    """A numpy copy of a tree in the layout of the family's JAX params
+    (the params themselves, their gradients, a moment) as f32 tensors by
+    the port's parameter names."""
+    model = from_jax_params(cfg.replace(compute_dtype="float32"), tree_np,
+                            device)
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def state_from_jax(cfg, state_np: dict, device=None) -> dict:
+    """The port's train state (``train.step``'s layout: f32 masters that
+    require grad, ``opt`` with f32 ``m``/``v`` and int32 ``count``, int32
+    ``step``) from a numpy copy of a JAX train state."""
+    dev = resolve_device(device)
+    opt = state_np["opt"]
+    scalar = lambda x: torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                                    device=dev)
+    return {"params": {n: t.requires_grad_(True) for n, t in
+                       named_from_jax(cfg, state_np["params"], dev).items()},
+            "opt": {"m": named_from_jax(cfg, opt["m"], dev),
+                    "v": named_from_jax(cfg, opt["v"], dev),
+                    "count": scalar(opt["count"])},
+            "step": scalar(state_np["step"])}

@@ -31,6 +31,13 @@ Conventions
   before wo, the MLP intermediate before w_down, the logits), in rank
   order, so every contraction runs whole and a rank's results are the
   one-device bits.
+* Training on a mesh (``train.step``, ``DEFAULT_RULES``): wo and w_down
+  are cut too (their contraction rows over "model"), so each rank's
+  product is a partial one and ``sharding.from_model`` sums it (Megatron's
+  g); every column-parallel product's input passes ``sharding.to_model``
+  (f), whose backward sums the ranks' partial gradients.  The cut logits
+  and embedding rows are gathered whole, and their gradients go back to
+  the rank that owns each block.
 """
 
 from __future__ import annotations
@@ -227,7 +234,10 @@ def embed(p: Embed, ids, cfg):
 
 def unembed(p: Embed, x, cfg):
     w = (p.tok.t() if cfg.tie_embeddings else p.unembed).to(cdt(cfg))
-    logits = linear(x.to(cdt(cfg)), w)
+    xc = x.to(cdt(cfg))
+    if w.shape[-1] != cfg.padded_vocab:
+        xc = SH.to_model(xc)                          # column-parallel: f
+    logits = linear(xc, w)
     if logits.shape[-1] != cfg.padded_vocab:
         # vocab-cut columns: sampling reads the whole row
         logits = SH.gather(logits, -1)
@@ -250,6 +260,7 @@ class MLP(nn.Module):
         super().__init__()
         d, f = cfg.d_model, d_ff or cfg.d_ff
         dt = cdt(cfg)
+        self.d_ff = f               # the whole width: a cut w_down is smaller
         self.w_gate = (_param((d, f), dt, device)
                        if cfg.activation in ("swiglu", "geglu") else None)
         self.w_up = _param((d, f), dt, device)
@@ -284,6 +295,8 @@ def mlp_axes(cfg, d_ff=None):
 
 def mlp(p: MLP, x, cfg):
     xc = x.to(cdt(cfg))
+    if p.w_up.shape[1] != p.d_ff:
+        xc = SH.to_model(xc)                          # column-parallel: f
     up = linear(xc, p.w_up)
     if cfg.use_bias:
         up = up + p.b_up
@@ -297,6 +310,8 @@ def mlp(p: MLP, x, cfg):
         # the down-proj input: gathered so the contraction runs whole
         up = SH.constrain(up, -1, "act_mlp_in")
     out = linear(up, p.w_down)
+    if p.w_down.shape[0] != p.d_ff:
+        out = SH.from_model(out)                      # row-parallel: g
     if cfg.use_bias:
         out = out + p.b_down
     return out.to(x.dtype)
@@ -364,11 +379,16 @@ def split_heads(t, hd):
 def out_proj(p: "Attention", out, cfg):
     """The attention output (B, H, S, hd) through ``wo`` (no bias): the
     merged heads, gathered whole over the model axis when this rank holds a
-    block of them, so the contraction runs whole."""
+    block of them and ``wo`` is whole (serving), so the contraction runs
+    whole; with ``wo``'s rows cut too (training), a partial product summed
+    over the model axis."""
     merged = _merge_heads(out).to(cdt(cfg))
     if merged.shape[-1] != p.wo.shape[0]:
         merged = SH.constrain(merged, -1, "act_attn_in")
-    return linear(merged, p.wo)
+    y = linear(merged, p.wo)
+    if p.wo.shape[0] != cfg.n_heads * cfg.resolved_head_dim:
+        y = SH.from_model(y)                          # row-parallel: g
+    return y
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
@@ -434,7 +454,11 @@ def attention(p: Attention, x, positions, cfg, *, kv_x=None, causal=True,
     """
     hd = cfg.resolved_head_dim
     xc = x.to(cdt(cfg))
-    src = xc if kv_x is None else kv_x.to(cdt(cfg))
+    src = None if kv_x is None else kv_x.to(cdt(cfg))
+    if p.wq.shape[1] != cfg.n_heads * hd:             # column-parallel: f
+        xc = SH.to_model(xc)
+        src = None if src is None else SH.to_model(src)
+    src = xc if src is None else src
     q, k, v = linear(xc, p.wq), linear(src, p.wk), linear(src, p.wv)
     if cfg.use_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv

@@ -173,45 +173,29 @@ def route(p: MoEFFN, xt, cfg):
     return _top_k(_router(p, xt)[1], cfg)
 
 
-def moe_ffn(p: MoEFFN, x, cfg, *, aux: bool = False):
-    """x (B, S, d) -> y (B, S, d): all B*S positions form one dispatch
-    group.  (The JAX function splits them into ``cfg.moe_groups`` groups,
-    one per data shard: not ported.)  With ``aux`` (training) returns (y,
-    metrics): the Switch load-balance loss ``lb_loss``, the router z-loss
-    ``router_z`` and ``dropped_frac``, as JAX computes them.  The gates
-    keep their graph through the dispatch: only the integer ranks come
-    from the kernel.
-
-    Over a mesh: a rank that holds a block of the experts (``w_gate``/
-    ``w_up``/``w_down`` cut over the model axis) runs its experts' buffers
-    and the blocks are gathered whole before the combine; a rank that holds
-    a block of the call's lanes (``sharding.lanes_cut``) dispatches every
-    lane's tokens, gathered over "batch" (the capacity, and so what drops,
-    is the whole call's), and combines its own."""
-    if cfg.moe_groups != 1:
-        raise NotImplementedError(
-            "moe_groups > 1 splits tokens into dispatch groups over the data "
-            "shards, which is not ported yet (ROADMAP Queue 1 item 14)")
-    n_own = x.shape[0]
-    if SH.lanes_are_cut():
-        x = SH.gather(x, 0, "batch")
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    t = b * s
-    cap = capacity(cfg, t)
+def _group(p: MoEFFN, xt, cfg, cap: int, t0: int, t_own: int, aux: bool):
+    """One dispatch group: route the tokens ``xt`` (T, d), dispatch them to
+    the experts' buffers of capacity ``cap`` (dropping what overflows), run
+    this rank's experts and combine tokens ``t0 : t0 + t_own``.  Returns
+    (y (t_own, d), with ``aux`` the group's sums for the aux losses: top-1
+    counts and router probabilities per expert, squared log-partitions,
+    drops; else None).  The
+    gates keep their graph through the dispatch: only the integer ranks
+    come from the kernel."""
+    t, d = xt.shape
+    e = cfg.n_experts
     cd = L.cdt(cfg)
-
-    xt = x.reshape(t, d)
     logits, probs = _router(p, xt)
     gates, ids = _top_k(probs, cfg)
     disp = build_dispatch(ids, gates, e, cap)
 
     # gather tokens into this rank's experts' buffers (E, C, d); row T is
-    # zero
+    # zero.  Experts cut over the model axis take their input through f
     e_own = p.w_up.shape[0]
     e0 = SH.active_mesh().coords["model"] * e_own if e_own != e else 0
     table = disp["token_table"].narrow(0, e0, e_own)
-    xp = torch.cat([xt, xt.new_zeros((1, d))])
+    xin = SH.to_model(xt) if e_own != e else xt
+    xp = torch.cat([xin, xin.new_zeros((1, d))])
     xe = xp[table.reshape(-1).long()].reshape(e_own, cap, d).to(cd)
     up = torch.einsum("ecd,edf->ecf", xe, p.w_up)
     gate = torch.einsum("ecd,edf->ecf", xe, p.w_gate)
@@ -219,26 +203,81 @@ def moe_ffn(p: MoEFFN, x, cfg, *, aux: bool = False):
     if e_own != e:
         ye = SH.gather(ye, 0)
 
-    # combine back to token order (this rank's lanes); dropped lanes read
-    # the zero row E*C
-    t0 = SH.lane_block(b, SH.active_mesh())[0] * s if n_own != b else 0
-    t_own = n_own * s
+    # combine back to token order; dropped lanes read the zero row E*C
     ye_flat = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
     slots = disp["slot_of"].narrow(0, t0, t_own)
-    contrib = ye_flat[slots.reshape(-1).long()].reshape(t_own, k, d)
+    contrib = ye_flat[slots.reshape(-1).long()].reshape(t_own, cfg.top_k, d)
     gw = disp["gates"].narrow(0, t0, t_own)
     y = (contrib * gw[..., None].to(contrib.dtype)).sum(dim=1)
     if p.shared is not None:
         y = y + L.mlp(p.shared, xt.narrow(0, t0, t_own), cfg).to(y.dtype)
+    if not aux:
+        return y, None
+    sums = torch.cat([F.one_hot(ids[:, 0].long(), e).float().sum(0),
+                      probs.sum(0),
+                      torch.logsumexp(logits, dim=-1).square().sum()[None],
+                      disp["dropped"].float()[None]])
+    return y, sums
+
+
+def moe_ffn(p: MoEFFN, x, cfg, *, aux: bool = False):
+    """x (B, S, d) -> y (B, S, d): the B*S positions split into
+    ``cfg.moe_groups`` dispatch groups of T/G contiguous tokens, each with
+    its own capacity and dispatch, as JAX's GShard groups.  With ``aux``
+    (training) returns (y, metrics): the Switch load-balance loss
+    ``lb_loss``, the router z-loss ``router_z`` and ``dropped_frac`` over
+    every group, as JAX computes them.
+
+    Over a mesh: a rank that holds a block of the experts (``w_gate``/
+    ``w_up``/``w_down`` cut over the model axis) runs its experts' buffers
+    and the blocks are gathered whole before the combine.  A training rank
+    that holds a block of the lanes (``sharding.batch_cut``) dispatches
+    its own groups (G / the data shards of them: its lanes are those groups'
+    tokens), and the aux losses sum over every rank's groups.  A serving
+    rank that holds a block of the call's lanes (``sharding.lanes_cut``)
+    dispatches one group of every lane's tokens, gathered over "batch" (the
+    capacity, and so what drops, is the whole call's), and combines its
+    own."""
+    n_own, s, d = x.shape
+    g, blocks = cfg.moe_groups, SH.batch_blocks()
+    if g == 1 and blocks == 1:
+        if SH.lanes_are_cut():
+            x = SH.gather(x, 0, "batch")
+        b = x.shape[0]
+        t0 = SH.lane_block(b, SH.active_mesh())[0] * s if n_own != b else 0
+        y, sums = _group(p, x.reshape(b * s, d), cfg, capacity(cfg, b * s),
+                         t0, n_own * s, aux)
+        t = b * s
+    else:
+        if SH.lanes_are_cut() or g % blocks:
+            raise NotImplementedError(
+                f"moe_groups={g} over {blocks} data shard(s): a dispatch group "
+                "that spans data shards (or serving with more than one group) "
+                "is not ported yet (ROADMAP Queue 1 item 14)")
+        local = g // blocks
+        tl = n_own * s
+        if tl % local:
+            raise ValueError(f"{tl * blocks} tokens do not split into "
+                             f"moe_groups={g} groups")
+        tg = tl // local
+        xt = x.reshape(local, tg, d)
+        outs = [_group(p, xt[i], cfg, capacity(cfg, tg), 0, tg, aux)
+                for i in range(local)]
+        y = torch.cat([o[0] for o in outs])
+        sums = outs[0][1]
+        for o in outs[1:]:
+            sums = None if sums is None else sums + o[1]
+        t = tl * blocks
     y = y.reshape(n_own, s, d).to(x.dtype)
     if not aux:
         return y
-    # Switch load balance (top-1 fraction x mean prob) and router z-loss
-    f_e = F.one_hot(ids[:, 0].long(), e).float().mean(0)
-    lb = e * (f_e * probs.mean(0)).sum()
-    z = torch.logsumexp(logits, dim=-1).square().mean()
-    return y, {"lb_loss": lb, "router_z": z,
-               "dropped_frac": disp["dropped"].float() / float(t * k)}
+    # Switch load balance (top-1 fraction x mean prob) and router z-loss,
+    # over every group of the batch
+    e, k = cfg.n_experts, cfg.top_k
+    sums = SH.batch_sum(sums)
+    f_e, p_e = sums[:e] / t, sums[e:2 * e] / t
+    return y, {"lb_loss": e * (f_e * p_e).sum(), "router_z": sums[2 * e] / t,
+               "dropped_frac": sums[2 * e + 1] / float(t * k)}
 
 
 def moe_block_apply(p: MoEBlock, x, positions, cfg, *, kv_lens=None,

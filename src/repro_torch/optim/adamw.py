@@ -10,6 +10,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import collectives as C
+from repro_torch.dist import sharding as SH
+
 
 def adamw_init(params: dict) -> dict:
     return {"m": {k: torch.zeros_like(p, dtype=torch.float32)
@@ -21,11 +24,25 @@ def adamw_init(params: dict) -> dict:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, *, shardings=None,
+                        mesh=None):
     """Scale the gradients (in place) so their global L2 norm is at most
     ``max_norm``; returns (grads, norm before clipping).  The norm sums the
-    leaves' squares in the dict's order."""
-    gn = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+    leaves' squares in the dict's order.
+
+    On a ``mesh`` each gradient is this rank's block under its spec in
+    ``shardings`` (a dict by the same names): the blocks' squares are
+    summed over the whole mesh, a block replicated over an axis counted
+    once (``sharding.counted``)."""
+    if mesh is None:
+        sq = sum(g.float().square().sum() for g in grads.values())
+    else:
+        sq = sum(g.float().square().sum() for n, g in grads.items()
+                 if SH.counted(shardings[n], mesh))
+        sq = C.sum_scalars(torch.as_tensor(
+            sq, dtype=torch.float32,
+            device=next(iter(grads.values())).device).reshape(()))
+    gn = torch.sqrt(sq)
     scale = torch.clamp(max_norm / gn.clamp_min(1e-12), max=1.0)
     for g in grads.values():
         if g.dtype == torch.float32:

@@ -13,8 +13,14 @@ The port's train step updates its state in place, so the state a run
 started from is gone once it has taken a step: where no checkpoint exists
 yet, the loop commits the starting state as one (step ``start``) before
 its first step, and a fault before the first periodic checkpoint restores
-that.  Re-meshing on restore waits for the port's mesh (ROADMAP Queue 1
-item 14).
+that.
+
+On a mesh (``state_shardings``: each leaf's spec, with the ``mesh``) every
+rank runs the loop: checkpoints are saved whole from the blocks and every
+restore loads this rank's blocks of the leaves on disk, whatever mesh wrote
+them, so a run restarted on another mesh resumes from the same step (the
+elastic re-mesh).  A fault must reach every rank at the same step (the
+injected ones do), as the ranks' collectives must match.
 """
 
 from __future__ import annotations
@@ -66,13 +72,16 @@ class FaultTolerantLoop:
     """
 
     def __init__(self, train_step: Callable, batch_fn: Callable, *,
-                 ckpt_dir: str, save_every: int = 50, max_retries: int = 3):
+                 ckpt_dir: str, save_every: int = 50, max_retries: int = 3,
+                 state_shardings=None, mesh=None):
         self.train_step = train_step
         self.batch_fn = batch_fn
         self.ckpt_dir = ckpt_dir
         self.save_every = save_every
         self.max_retries = max_retries
-        self.ckpt = AsyncCheckpointer(ckpt_dir)
+        self.state_shardings, self.mesh = state_shardings, mesh
+        self.ckpt = AsyncCheckpointer(ckpt_dir, shardings=state_shardings,
+                                      mesh=mesh)
         self.watchdog = StragglerWatchdog()
         self.recoveries = 0
 
@@ -80,9 +89,14 @@ class FaultTolerantLoop:
         step = latest_step(self.ckpt_dir)
         if step is None:
             return init_state, 0
-        state, step = restore_checkpoint(self.ckpt_dir, init_state)
+        state, step = self._restore(init_state)
         log.info("resumed from step %d", step)
         return state, step
+
+    def _restore(self, like):
+        return restore_checkpoint(self.ckpt_dir, like,
+                                  shardings=self.state_shardings,
+                                  mesh=self.mesh)
 
     def run(self, init_state, num_steps: int, *, metrics_cb=None,
             fault_injector=None):
@@ -127,7 +141,7 @@ class FaultTolerantLoop:
                 if retries > self.max_retries:
                     raise
                 self.ckpt.wait()
-                state, step = restore_checkpoint(self.ckpt_dir, init_state)
+                state, step = self._restore(init_state)
                 time.sleep(0.01 * retries)        # backoff (scaled down)
         self.ckpt.wait()
         self.ckpt.save(step, state)

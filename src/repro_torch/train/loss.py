@@ -5,11 +5,19 @@ are ignored (padding).
 The f32 upcasts run in chunks of 256 sequence positions when the sequence
 is a multiple of 256 longer than one chunk, as the JAX loss scans them (its
 peak f32 temporary is (B, chunk, V) rather than (B, S, V)); the chunks'
-sums are added in order."""
+sums are added in order.
+
+On a mesh whose data ranks each train on a block of the lanes
+(``sharding.batch_cut``) the mean is the whole batch's: each rank's sum of
+its tokens' losses and its token count are summed over "batch"
+(``sharding.batch_sum``, whose backward leaves each rank its own share;
+the data ranks' gradients are summed by the FSDP reduce-scatter)."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.dist import sharding as SH
 
 _CHUNK = 256
 
@@ -34,10 +42,10 @@ def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0,
     b, s, v = logits.shape
     if s % chunk != 0 or s <= chunk:
         tot, cnt = _ce_terms(logits, labels, z_loss)
-        return tot / cnt.clamp_min(1.0)
-    tot = cnt = None
-    for c0 in range(0, s, chunk):
-        t, n = _ce_terms(logits[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
-                         z_loss)
-        tot, cnt = (t, n) if tot is None else (tot + t, cnt + n)
-    return tot / cnt.clamp_min(1.0)
+    else:
+        tot = cnt = None
+        for c0 in range(0, s, chunk):
+            t, n = _ce_terms(logits[:, c0:c0 + chunk],
+                             labels[:, c0:c0 + chunk], z_loss)
+            tot, cnt = (t, n) if tot is None else (tot + t, cnt + n)
+    return SH.batch_sum(tot) / SH.batch_sum(cnt).clamp_min(1.0)

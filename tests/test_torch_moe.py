@@ -193,13 +193,24 @@ def test_moe_ffn_drops_like_jax(family):
 
 
 def test_moe_ffn_refuses_token_groups():
-    """More than one dispatch group splits tokens over data shards, which
-    the port has no mesh for: it raises rather than route differently."""
+    """Token groups that would span data shards are refused, naming the
+    ROADMAP item: a training rank holding half the lanes of the one group
+    (``moe_groups=1`` over 2 data shards), and serving on lane blocks with
+    more than one group.  (Groups on one device, and one group per data
+    rank, are held against JAX in ``test_torch_mesh_train.py``.)"""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import Mesh
     _, _, cfg_t, _ = family_models("moe")
     blk = tmoe.MoEFFN(cfg_t, "cpu")
     x = torch.zeros((2, 4, cfg_t.d_model))
-    with pytest.raises(NotImplementedError, match="moe_groups"):
-        tmoe.moe_ffn(blk, x, cfg_t.replace(moe_groups=2))
+    mesh = Mesh(("data", "model"), {"data": 2, "model": 1},
+                {"data": 0, "model": 0}, {}, "gloo", torch.device("cpu"), 0)
+    with SH.use_mesh_rules(mesh), SH.batch_cut():
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+            tmoe.moe_ffn(blk, x, cfg_t, aux=True)
+    with SH.use_mesh_rules(mesh), SH.lanes_cut():
+        with pytest.raises(NotImplementedError, match="moe_groups=2"):
+            tmoe.moe_ffn(blk, x, cfg_t.replace(moe_groups=2))
 
 
 def _batch(cfg):

@@ -251,8 +251,9 @@ def test_launcher_page_dtype_needs_page_size(capsys):
 @pytest.mark.parametrize("launcher,argv,item", [
     # heads the model axis does not cut whole: the kv_seq fallback
     ("serve", ["--static", "--mesh", "1x4"], "Queue 1 item 14"),
-    # training on a mesh
-    ("train", ["--reduce", "--mesh", "2x1"], "Queue 1 item 14"),
+    # training with a head cut in two
+    ("train", ["--arch", "stablelm_3b", "--reduce", "--mesh", "1x4"],
+     "Queue 1 item 14"),
 ])
 def test_launcher_names_the_roadmap_item_of_unported_modes(launcher, argv,
                                                            item):
